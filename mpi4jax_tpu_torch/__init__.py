@@ -2,9 +2,11 @@
 
 A second package beside the JAX one, for NVIDIA Hopper cards: MPI-style
 communication ops on torch tensors with the JAX package's call surface
-(tokens included), and the shallow-water flagship solver whose step runs
-through hand-written CUDA kernels (``kernels/csrc/sw_step.cu``).  It
-never imports JAX or the JAX package.
+(tokens included), the shallow-water flagship solver whose step runs
+through hand-written CUDA kernels (``kernels/csrc/sw_step.cu``), and
+greedy decoding of the transformer whose long-prompt prefill runs a
+hand-written CUDA flash-attention kernel (``kernels/csrc/flash_fwd.cu``).
+It never imports JAX or the JAX package.
 
 Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``, where the plain PyTorch versions of the kernels

@@ -13,6 +13,7 @@ from mpi4jax_tpu_torch.parallel.halo import (
     halo_exchange_2d,
     halo_exchange_2d_batch,
 )
+from mpi4jax_tpu_torch.parallel.longseq import local_attention
 
 __all__ = [
     "Comm",
@@ -23,4 +24,5 @@ __all__ = [
     "set_default_comm",
     "halo_exchange_2d",
     "halo_exchange_2d_batch",
+    "local_attention",
 ]

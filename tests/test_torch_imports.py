@@ -33,8 +33,13 @@ def _imported_top_names(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"shallow_water.py", "sw_step.py", "halo.py",
+    assert {"shallow_water.py", "sw_step.py", "halo.py", "flash.py",
+            "longseq.py", "transformer.py", "transformer_decode.py",
             "chip_smoke.py"} <= names
+    flash = {p.relative_to(REPO).as_posix() for p in SOURCES
+             if p.name == "flash.py"}
+    assert flash == {"mpi4jax_tpu_torch/kernels/flash.py",
+                     "mpi4jax_tpu_torch/ops/flash.py"}
 
 
 @pytest.mark.parametrize("path", SOURCES,
