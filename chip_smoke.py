@@ -22,25 +22,29 @@ Phases, each of which raises on failure (nothing is caught):
    path must agree with 25 steps on the plain path from the same state.
 4. profile (shallow water): one chunk of 25 steps under torch.profiler,
    for the device time per step by kernel and the device's idle share.
-5. kernels (flash): the flash-attention forward kernel against its
-   plain version (at the kernel's own key tile) on the card: the decode
-   path's prefill shape [4, 8192, 8, 64] bf16 causal with the row
-   statistics m and l, a padded f32 case, q/k offsets with and without
-   fully masked rows, grouped-query heads, and the training geometry
-   [2, 2048, 16, 128] bf16: the largest and the mean output difference
-   and the largest m and l difference, each within a limit that planted
-   faults exceed; every case is checked before the phase raises.  Timed
-   at the path shape beside its bound, its plain version and one
-   scaled_dot_product_attention call.
+5. kernels (flash forward): both forward kernels against their plain
+   version (at each kernel's own key tile) on the card, with the row
+   statistics m and l: the bf16 tensor-core kernel at the decode path's
+   prefill shape [4, 8192, 8, 64] and the training path's [2, 8192, 16,
+   128], causal, and at [2, 2048, 16, 128]; both kernels (f32 and bf16)
+   on a padded case, q/k offsets with and without fully masked rows,
+   grouped-query heads and D 128 with offsets: the largest and the mean
+   output difference and the largest m and l difference, each within a
+   limit that planted faults exceed; every case is checked before the
+   phase raises.  The bf16 kernel is timed at both path shapes, the f32
+   kernel at the f32 decode check's prefill shape, each beside its
+   bound, its plain version and one scaled_dot_product_attention call.
 6. path (decode): the long-prompt serving point (batch 4, prompt 8192,
    256 generated tokens, bf16, flash prefill, kv_bucket 16) through
    ``make_global_decode`` with every launch count set to 0 just before
-   and read just after: exactly one flash launch per layer.  Tokens are
+   and read just after: exactly one launch of the bf16 flash kernel per
+   layer, and none of the f32 one.  Tokens are
    [4, 8448] with the prompt echoed; prefill ms, generate ms per step,
    generated tokens/s and the bytes bound are printed.  The kernel
    prefill's last-position logits are held against a prefill on the
    plain flash version, and in f32 (prompt 1024, batch 2, max_len 1152)
-   the kernel path and the plain path give identical tokens.
+   the kernel path (one launch of the f32 flash kernel per layer) and
+   the plain path give identical tokens.
 7. profile (decode): one decode call under torch.profiler, for device
    time by kernel in the prefill and the generation loop, and the
    generation loop's idle share.
@@ -59,9 +63,9 @@ Phases, each of which raises on failure (nothing is caught):
    SIZES["long"], without remat) through ``make_global_train_step``:
    one warm-up step, then timed steps with every launch count set to 0
    just before each and read just after it: 16 launches of each of
-   flash_fwd, flash_bwd_dkv and flash_bwd_dq per step.  Losses finite,
-   parameters changed; step ms, tokens/s, both MFU readings and the
-   peak memory are printed.  Then at 2 layers of the same width and
+   the bf16 forward kernel, flash_bwd_dkv and flash_bwd_dq per step.
+   Losses finite, parameters changed; step ms, tokens/s, both MFU
+   readings and the peak memory are printed.  Then at 2 layers of the same width and
    sequence the gradient of the loss on the kernel path is held against
    the gradient on the plain path (the kernels' plain versions as the
    attention function), leaf by leaf.
@@ -74,11 +78,18 @@ Without a CUDA device it exits 1 before printing any result.
 
     python3 chip_smoke.py --fault-readings
 
-builds and runs phase 8's checks (not its timings) on this tree and, at
-the same time, on throw-away copies of it each with one fault planted in
-``flash_bwd.cu`` (``BWD_FAULTS``), and prints every copy's readings: the
-evidence for the backward limits.  It exits 0 when the sound tree passes
-and every fault fails.
+builds and runs the checks of phases 5 and 8 (not their timings) and the
+2-layer training gradient on this tree and, at the same time, on
+throw-away copies of it each with one fault planted in
+``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for the
+dropped diagonal tile the gradient too) or in ``flash_bwd.cu``
+(``BWD_FAULTS``: the backward checks), and prints every copy's
+readings: the evidence for the limits.  It exits 0 when the sound tree
+passes and every fault fails.
+
+    python3 chip_smoke.py --check fwd,bwd,grad
+
+runs those checks (any of the three) on this tree alone.
 """
 
 import json
@@ -105,7 +116,7 @@ from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
 
-SOURCES = ("sw_step", "flash_fwd", "flash_bwd")
+SOURCES = ("sw_step", "flash_fwd", "flash_fwd_mma", "flash_bwd")
 
 # H100 SXM data-sheet peaks (dense): device memory, float32 outside the
 # tensor cores, bf16 in them.  The shallow-water kernels do float32
@@ -141,7 +152,8 @@ TIMED_LAUNCHES = 25
 # the unrounded argument, unrounded weights in P.V).  Sound at most /
 # faults at least: out max 3.9e-3 (one bf16 step below |out| = 1) /
 # 7.8e-3, out mean 3.7e-7 / 8.2e-5, m and l 3.4e-4 / 2.7e-3 (the P.V
-# fault leaves m and l as they are).
+# fault leaves m and l as they are).  The bf16 tensor-core kernel is held
+# to the same limits, read again against FLASH_FAULTS (PERF.md §6).
 FLASH_LIMITS = {
     torch.float32: {"out_max": 2e-5, "out_mean": 1e-6, "stat": 1e-5},
     torch.bfloat16: {"out_max": 6e-3, "out_mean": 5e-6, "stat": 1e-3},
@@ -194,6 +206,31 @@ BWD_LIMITS = {
 # other way, and every later bf16 activation carries that on; readings
 # 2.2e-3 (ln_f) to 1.25e-2 (embed), PERF.md §6.
 TRAIN_GRAD_LIMIT = 5e-2
+# faults planted in copies of flash_fwd_mma.cu for --fault-readings, each
+# an exact replacement: the query tiles in the lower half of the rows drop
+# their diagonal key tile; the exponential of the unrounded argument; the
+# causal mask applied with the C fragment's row and column swapped; the
+# accumulator not rescaled by corr
+FLASH_FAULTS = {
+    "diag_tile": (
+        "if (needed < n_tiles) n_tiles = static_cast<int>(needed);",
+        "if (needed < n_tiles) n_tiles = static_cast<int>(needed);\n"
+        "    if (2 * q0 >= Tq) --n_tiles;",
+    ),
+    "exp_arg": (
+        "const float arg = __bfloat162float(__float2bfloat16_rn(x));",
+        "const float arg = x;",
+    ),
+    "mask_swap": (
+        "if (mask_causal && qpos[e / 2] < k_offset + key) x = kNeg;",
+        "if (mask_causal && q_offset + row0 + 2 * t + e % 2 < k_offset + k0 "
+        "+ 8 * n + g + 8 * (e / 2)) x = kNeg;",
+    ),
+    "no_corr": (
+        "acc[n][e] = acc[n][e] * corr[e / 2];",
+        "acc[n][e] = acc[n][e];",
+    ),
+}
 # faults planted in copies of flash_bwd.cu for --fault-readings, each an
 # exact replacement: the dkv kernel drops the diagonal query tile of the
 # key blocks in the lower half of the rows; dV takes the unrounded
@@ -300,7 +337,7 @@ def kernel_phase(cfg, comm, device, copy_rate):
     per = (False, True)
     h, u, v, dh, du, dv = clone(state)
     for f in (h, u, v):
-        halo_exchange_2d(f, comm, periodic=per, width=sw.G)
+        halo_exchange_2d(f, comm, periodic=per, width=cfg.ghost)
     sw.clamp_wall_ghost_rows(h, comm, ny_l)
     inputs = (h, u, v, dh, du, dv)
     rows, cols = h.shape
@@ -330,7 +367,7 @@ def kernel_phase(cfg, comm, device, copy_rate):
     # viscosity inputs: the main kernel's u, v after their exchange
     u2, v2 = main_out[1].clone(), main_out[2].clone()
     for f in (u2, v2):
-        halo_exchange_2d(f, comm, periodic=per, width=sw.G)
+        halo_exchange_2d(f, comm, periodic=per, width=cfg.ghost)
     got = sw_step.sw_visc(u2, v2, **geometry)
     want = sw_step.sw_visc_reference(u2, v2, **geometry)
     torch.cuda.synchronize()
@@ -409,6 +446,7 @@ def launch_counts():
     return {"sw_main": sw_step.sw_main.launches,
             "sw_visc": sw_step.sw_visc.launches,
             "flash_fwd": kflash.flash_fwd.launches,
+            "flash_fwd_mma": kflash.flash_fwd.mma_launches,
             "flash_bwd_dkv": kbwd.flash_bwd_dkv.launches,
             "flash_bwd_dq": kbwd.flash_bwd_dq.launches}
 
@@ -433,7 +471,7 @@ def path_phase(cfg, comm, device, kernels, state0, card):
     for name, t in zip(sw.SWState._fields, state):
         if not torch.isfinite(t).all():
             raise RuntimeError(f"{name} is not finite after the solver run")
-    G = sw.G
+    G = cfg.ghost
     mean_h = state.h[G:-G, G:-G].double().mean().item()
     if not math.isclose(mean_h, cfg.depth, rel_tol=MASS_RTOL):
         raise RuntimeError(f"mass not conserved: mean h {mean_h} vs depth "
@@ -544,31 +582,71 @@ def causal_pairs(tq, tk, q_offset, k_offset):
     return float((q - k_offset + 1).clamp(0, tk).sum())
 
 
-def flash_kernel_phase(device):
-    """The flash kernel against its plain version at the kernel's key
-    tile, then timed at the decode path's prefill shape."""
+def flash_check_cases():
+    """The forward kernels' check cases: the f32 kernel's and, in bf16,
+    the tensor-core kernel's, on the same shapes, and both transformer
+    paths' shapes."""
     b, t, h, d = (LONG["batch"], LONG["prompt"], DECODE_CFG.heads,
                   DECODE_CFG.head_dim)
+    tb, tt = TRAIN["batch"], TRAIN["seq"]
+    th, td = TRAIN_CFG.heads, TRAIN_CFG.head_dim
     cases = [
         # name, (B, Tq, Tk, Hq, Hkv, D), dtype, causal, q_offset, k_offset
         ("path", (b, t, t, h, h, d), torch.bfloat16, True, 0, 0),
-        ("padding", (2, 1000, 1000, 4, 4, 64), torch.float32, False, 0, 0),
-        ("offsets", (1, 96, 160, 2, 2, 32), torch.float32, True, 64, 0),
-        ("fully_masked", (1, 96, 160, 2, 2, 32), torch.float32, True, 64,
-         512),
-        ("gqa", (2, 300, 300, 8, 2, 64), torch.float32, True, 0, 0),
+        ("train_path", (tb, tt, tt, th, th, td), torch.bfloat16, True, 0,
+         0),
         ("training", (2, 2048, 2048, 16, 16, 128), torch.bfloat16, True, 0,
          0),
     ]
-    path_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        cases += [
+            ("padding" + sfx, (2, 1000, 1000, 4, 4, 64), dtype, False, 0, 0),
+            ("offsets" + sfx, (1, 96, 160, 2, 2, 32), dtype, True, 64, 0),
+            ("fully_masked" + sfx, (1, 96, 160, 2, 2, 32), dtype, True, 64,
+             512),
+            ("gqa" + sfx, (2, 300, 300, 8, 2, 64), dtype, True, 0, 0),
+            ("d128_offsets" + sfx, (1, 500, 700, 2, 2, 128), dtype, True,
+             100, 40),
+        ]
+    return cases
+
+
+def flash_bounds(shape, dtype, with_lse):
+    """(flops, bytes, bound_ms, bound_by) of one causal forward at
+    ``shape``: 2 products of 2·D operations per visible pair over the
+    type's peak (bf16 on the tensor cores, f32 outside them); q, k, v
+    read once, out written once, and m and l (f32, one each a row) when
+    asked."""
+    b, tq, tk, hq, hk, d = shape
+    esz = torch.tensor([], dtype=dtype).element_size()
+    flops = 4 * d * b * hq * causal_pairs(tq, tk, 0, 0)
+    nbytes = (2 * b * tq * hq * d + 2 * b * tk * hk * d) * esz
+    if with_lse:
+        nbytes += 2 * 4 * b * hq * tq
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_F32_PER_S
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / peak * 1e3
+    return (flops, nbytes, max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def flash_kernel_phase(device, timed=True):
+    """Both forward kernels against their plain version at each kernel's
+    key tile; then (``timed``) the tensor-core kernel timed at both
+    transformer paths' shapes and the f32 kernel at the f32 decode
+    check's prefill shape, each beside its bound, its plain version and
+    one scaled_dot_product_attention call."""
+    errs_by = {}
     failed = []
-    for i, (name, shape, dtype, causal, qo, ko) in enumerate(cases):
+    for i, (name, shape, dtype, causal, qo, ko) in enumerate(
+            flash_check_cases()):
         q, k, v = flash_inputs(shape, dtype, device, seed=i)
         kw = dict(causal=causal, scale=1.0 / math.sqrt(shape[5]),
                   q_offset=qo, k_offset=ko, with_lse=True)
         out, m, l = kflash.flash_fwd(q, k, v, **kw)
         r_out, r_m, r_l = kflash.flash_attention_reference(
-            q, k, v, block_k=kflash.BLOCK_K, **kw)
+            q, k, v, block_k=kflash.kernel_block_k(dtype), **kw)
         torch.cuda.synchronize()
         diff = (out.float() - r_out.float()).abs()
         errs = {
@@ -582,63 +660,92 @@ def flash_kernel_phase(device):
         ok = (errs["out_max"] <= lim["out_max"]
               and errs["out_mean"] <= lim["out_mean"]
               and max(errs["m"], errs["l"]) <= lim["stat"] and finite)
-        log(f"  flash {name} {list(shape)} {str(dtype)[6:]} causal={causal} "
-            f"q_offset={qo} k_offset={ko}: out max_abs_err "
+        kname = ("flash_fwd_mma" if dtype == torch.bfloat16
+                 else "flash_fwd")
+        log(f"  {kname} {name} {list(shape)} {str(dtype)[6:]} causal="
+            f"{causal} q_offset={qo} k_offset={ko}: out max_abs_err "
             f"{errs['out_max']:.3e} (limit {lim['out_max']:g}), mean_abs_err "
             f"{errs['out_mean']:.3e} (limit {lim['out_mean']:g}), m "
             f"{errs['m']:.3e}, l {errs['l']:.3e} (limit {lim['stat']:g}), "
             f"finite {finite} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
-        if name == "path":
-            path_err = errs
+        errs_by[name] = errs
         del q, k, v, out, m, l, r_out, r_m, r_l, diff
     if failed:
-        raise RuntimeError(f"flash_fwd disagrees with its plain version on "
-                           f"cases {failed}")
+        raise RuntimeError(f"the flash forward kernels disagree with their "
+                           f"plain version on cases {failed}")
+    if not timed:
+        return None
 
-    # timing at the path shape, as the prefill calls it (no m, l)
-    q, k, v = flash_inputs(cases[0][1], torch.bfloat16, device, seed=0)
-    kw = dict(causal=True, scale=1.0 / math.sqrt(d))
-    ms = time_ms(lambda: kflash.flash_fwd(q, k, v, **kw), n=5, repeats=3)
-    plain_ms = time_ms(
-        lambda: kflash.flash_attention_reference(
-            q, k, v, block_k=kflash.BLOCK_K, **kw),
-        n=1, repeats=3, warmup=1,
-    )
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        n=10, repeats=3,
-    )
-    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; out written
-    flops = 4 * d * b * h * causal_pairs(t, t, 0, 0)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_BF16_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    log(f"  flash_fwd at the path shape: {ms:.4f} ms per launch (plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
-        f"ms); {flops:.4e} flops, {nbytes / 1e6:.1f} MB; bound "
-        f"{bound_ms:.4f} ms by {'bytes' if bytes_ms >= flops_ms else 'operations'} "
-        f"at the data-sheet peak ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
-        f"achieved)")
-    return {
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "mpi4jax_tpu_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "mpi4jax_tpu/ops/flash.py:97",
-        "launches": None,  # filled from the decode path phase
-        "max_abs_err": path_err["out_max"],
-        "mean_abs_err": path_err["out_mean"],
-        "max_stat_err": max(path_err["m"], path_err["l"]),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "library_ms": library_ms,
-        "bytes": nbytes,
-        "flops": flops,
-    }
+    def worst(names):
+        return {key: max(errs_by[n][key] for n in names)
+                for key in ("out_max", "out_mean", "m", "l")}
+
+    f32_names = [c[0] for c in flash_check_cases()
+                 if c[2] == torch.float32]
+    kernels = {}
+    b, t, h, d = (LONG["batch"], LONG["prompt"], DECODE_CFG.heads,
+                  DECODE_CFG.head_dim)
+    tshape = (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], TRAIN_CFG.heads,
+              TRAIN_CFG.kv_heads, TRAIN_CFG.head_dim)
+    f32_shape = (F32_DECODE["batch"], F32_DECODE["prompt"],
+                 F32_DECODE["prompt"], h, h, d)
+    timings = [
+        # kernel, key prefix, shape, dtype, with m and l (as its path
+        # calls it), launches, repeats, errors
+        ("flash_fwd_mma", "", (b, t, t, h, h, d), torch.bfloat16, False,
+         5, errs_by["path"]),
+        ("flash_fwd_mma", "_train_shape", tshape, torch.bfloat16, True, 3,
+         errs_by["train_path"]),
+        ("flash_fwd", "", f32_shape, torch.float32, False, 5,
+         worst(f32_names)),
+    ]
+    for kname, key, shape, dtype, with_lse, n, errs in timings:
+        q, k, v = flash_inputs(shape, dtype, device, seed=0)
+        kw = dict(causal=True, scale=1.0 / math.sqrt(shape[5]),
+                  with_lse=with_lse)
+        ms = time_ms(lambda: kflash.flash_fwd(q, k, v, **kw), n=n,
+                     repeats=3)
+        plain_ms = time_ms(
+            lambda: kflash.flash_attention_reference(
+                q, k, v, block_k=kflash.kernel_block_k(dtype), **kw),
+            n=1, repeats=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            n=10, repeats=3)
+        del q, k, v, qt, kt, vt
+        flops, nbytes, bound_ms, bound_by = flash_bounds(shape, dtype,
+                                                         with_lse)
+        log(f"  {kname} at {list(shape)} {str(dtype)[6:]} causal"
+            f"{' with m, l' if with_lse else ''}: {ms:.4f} ms per launch "
+            f"(plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms); {flops:.4e} flops, {nbytes / 1e6:.1f} "
+            f"MB; bound {bound_ms:.4f} ms by {bound_by} at the data-sheet "
+            f"peak ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
+        entry = kernels.setdefault(kname, {
+            "name": kname,
+            "route": "cuda",
+            "source": f"mpi4jax_tpu_torch/kernels/csrc/{kname}.cu",
+            "replaces": "mpi4jax_tpu/ops/flash.py:97",
+            "launches": None,  # filled from the path phases
+            "max_abs_err": errs["out_max"],
+            "mean_abs_err": errs["out_mean"],
+            "max_stat_err": max(errs["m"], errs["l"]),
+        })
+        entry.update({
+            f"ms{key}": ms,
+            f"plain_ms{key}": plain_ms,
+            f"bound_ms{key}": bound_ms,
+            f"bound_by{key}": bound_by,
+            f"library_ms{key}": library_ms,
+            f"bytes{key}": nbytes,
+            f"flops{key}": flops,
+            f"shape{key}": list(shape),
+        })
+    return kernels["flash_fwd"], kernels["flash_fwd_mma"]
 
 
 def plain_flash(q, k, v, *, causal):
@@ -646,7 +753,7 @@ def plain_flash(q, k, v, *, causal):
     at the kernel's key tile, on the same (CUDA) tensors."""
     return kflash.flash_attention_reference(
         q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
-        block_k=kflash.BLOCK_K,
+        block_k=kflash.kernel_block_k(q.dtype),
     )
 
 
@@ -658,7 +765,7 @@ def synced_seconds(fn):
     return res, time.perf_counter() - t0
 
 
-def decode_path_phase(device, flash_kernel, copy_rate):
+def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     cfg = DECODE_CFG
     batch, p_len, max_len = LONG["batch"], LONG["prompt"], LONG["max_len"]
     comm = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1))
@@ -680,10 +787,11 @@ def decode_path_phase(device, flash_kernel, copy_rate):
     log(f"  make_global_decode(prefill_impl='flash', kv_bucket="
         f"{LONG['kv_bucket']}): one decode {wall:.4f} s (warm-up "
         f"{warm_s:.4f} s); launches {launches}")
-    if launches["flash_fwd"] != cfg.layers:
-        raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} "
-                           f"times in one decode, expected {cfg.layers}")
-    flash_kernel["launches"] = launches["flash_fwd"]
+    for kname in ("flash_fwd", "flash_fwd_mma"):
+        if launches[kname] != cfg.layers:
+            raise RuntimeError(f"{kname} launched {launches[kname]} times "
+                               f"in one bf16 decode, expected {cfg.layers}")
+    flash_kernel["launches"] = launches["flash_fwd_mma"]
     if tuple(out.shape) != (batch, max_len) or out.dtype != torch.int32:
         raise RuntimeError(f"decode returned {out.dtype} {tuple(out.shape)}")
     if not torch.equal(out[:, :p_len], prompts):
@@ -750,13 +858,23 @@ def decode_path_phase(device, flash_kernel, copy_rate):
     decode32 = tfm.make_global_decode(
         dp, tp, cfg, fm, kv_bucket=LONG["kv_bucket"], prefill_impl="flash",
         device=device)
+    reset_launch_counts()
     kernel_out = decode32(params32, prompts32)
+    launches = launch_counts()
+    f32_launches = launches["flash_fwd"] - launches["flash_fwd_mma"]
+    if f32_launches != cfg.layers or launches["flash_fwd_mma"]:
+        raise RuntimeError(f"one f32 decode launched the f32 kernel "
+                           f"{f32_launches} times and the bf16 kernel "
+                           f"{launches['flash_fwd_mma']} times, expected "
+                           f"{cfg.layers} and 0")
+    f32_kernel["launches"] = f32_launches
     plain_out = tfm._greedy_decode(
         params32, prompts32, cfg, fm, comm_tp=tp, batched=True,
         kv_bucket=LONG["kv_bucket"], prefill_impl=plain_flash)
     same = torch.equal(kernel_out, plain_out)
-    log(f"  f32 batch {fb}, prompt {fp}, max_len {fm}: kernel and plain "
-        f"prefill give {'identical' if same else 'DIFFERENT'} tokens")
+    log(f"  f32 batch {fb}, prompt {fp}, max_len {fm}: {f32_launches} "
+        f"launches of the f32 kernel; kernel and plain prefill give "
+        f"{'identical' if same else 'DIFFERENT'} tokens")
     if not same:
         raise RuntimeError("kernel and plain paths differ in f32")
     return {"prefill_ms": prefill_s * 1e3, "generate_ms_per_step":
@@ -783,7 +901,7 @@ def decode_profile_phase(decode, params, prompts, path):
         log("  the profiler recorded no device activity: not measured")
         return None
     flash_end = max(e.time_range.end for e in kernels
-                    if "flash_fwd_kernel" in e.name)
+                    if "flash_fwd_mma_kernel" in e.name)
     phases = {"prefill": {}, "generate": {}}
     for e in kernels:
         part = phases["prefill" if e.time_range.start < flash_end
@@ -801,7 +919,7 @@ def decode_profile_phase(decode, params, prompts, path):
             log(f"    {ms:.4f} ms, {count} launches: {kname[:90]}")
         res[name] = {"device_ms": busy, "launches": launches}
     flash_ms = sum(ms for kname, (ms, _) in phases["prefill"].items()
-                   if "flash_fwd_kernel" in kname)
+                   if "flash_fwd_mma_kernel" in kname)
     gen_untraced_ms = path["generate_ms_per_step"] * n_gen
     idle = 1 - res["generate"]["device_ms"] / gen_untraced_ms
     log(f"  flash kernel {flash_ms:.4f} ms of the prefill's "
@@ -982,7 +1100,8 @@ class PlainFlash(torch.autograd.Function):
     def forward(ctx, q, k, v):
         kw = dict(causal=True, scale=1.0 / math.sqrt(q.shape[-1]))
         out, m, l = kflash.flash_attention_reference(
-            q, k, v, block_k=kflash.BLOCK_K, with_lse=True, **kw)
+            q, k, v, block_k=kflash.kernel_block_k(q.dtype), with_lse=True,
+            **kw)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.kw = kw
         return out
@@ -1045,7 +1164,8 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
         (params, loss), wall = synced_seconds(lambda: step(params, batch))
         counts = launch_counts()
         per_step.append({kname: counts[kname] for kname in
-                         ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+                         ("flash_fwd", "flash_fwd_mma", "flash_bwd_dkv",
+                          "flash_bwd_dq")})
         walls.append(wall)
         losses.append(loss.item())
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -1058,7 +1178,8 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
     for k in bwd_kernels:
         k["launches"] = sum(c[k["name"]] for c in per_step)
         k["launches_per_step"] = per_step[0][k["name"]]
-    flash_kernel["launches_train"] = sum(c["flash_fwd"] for c in per_step)
+    flash_kernel["launches_train"] = sum(c["flash_fwd_mma"]
+                                         for c in per_step)
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"training losses not finite: {losses}")
     changed = [(new != old).float().mean().item()
@@ -1089,9 +1210,23 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
         f"scores; MFU {mfu}; the flash kernels {kernel_ms:.4f} ms of it at "
         f"the kernel phases' rates; peak memory {peak_gb:.4f} GB")
     del params, step
+    worst = train_grad_check(device)
+    return {"step_ms": best * 1e3, "step_ms_all": [w * 1e3 for w in walls],
+            "tokens_per_s": tokens / best,
+            "model_tflops_per_sec": model_tflops,
+            "model_tflops_incl_attn": model_tflops + attn_tflops, **mfu,
+            "peak_memory_gb": peak_gb, "losses": losses,
+            "warmup_s": warm_s, "grad_check_worst": worst,
+            "params_m": n_params / 1e6}
 
-    # the gradient at 2 layers: kernel path against plain path
-    check_cfg = cfg._replace(layers=TRAIN_CHECK_LAYERS)
+
+def train_grad_check(device):
+    """The gradient at 2 layers of the training preset's width and
+    sequence, kernel path against plain path, leaf by leaf; returns the
+    worst reading and raises above the limit."""
+    world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    tp, sp = world.sub("tp"), world.sub("sp")
+    check_cfg = TRAIN_CFG._replace(layers=TRAIN_CHECK_LAYERS)
     grads = {}
     for label, impl in (("kernel", "flash"),
                         ("plain", plain_train_attention)):
@@ -1123,13 +1258,7 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
     if not ok:
         raise RuntimeError("the training gradient on the kernel path "
                            "disagrees with the plain path")
-    return {"step_ms": best * 1e3, "step_ms_all": [w * 1e3 for w in walls],
-            "tokens_per_s": tokens / best,
-            "model_tflops_per_sec": model_tflops,
-            "model_tflops_incl_attn": model_tflops + attn_tflops, **mfu,
-            "peak_memory_gb": peak_gb, "losses": losses,
-            "warmup_s": warm_s, "grad_check_worst": worst,
-            "params_m": n_params / 1e6}
+    return worst
 
 
 def transformer_names():
@@ -1168,7 +1297,7 @@ def train_profile_phase(device, train):
     launches = sum(c for _, c in per_kernel.values())
     flash = {name: sum(ms for kname, (ms, _) in per_kernel.items()
                        if name in kname)
-             for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+             for name in ("flash_fwd_mma_kernel", "flash_bwd_dkv_kernel",
                           "flash_bwd_dq_kernel")}
     idle = 1 - busy / train["step_ms"]
     log(f"  device busy {busy:.4f} ms in {launches} launches of a "
@@ -1181,61 +1310,75 @@ def train_profile_phase(device, train):
             "flash_ms": flash}
 
 
-def flash_fwd_train_ms(device):
-    """The forward kernel's time at the training path's shape, as the
-    training forward calls it (with m and l)."""
-    b, t = TRAIN["batch"], TRAIN["seq"]
-    shape = (b, t, t, TRAIN_CFG.heads, TRAIN_CFG.kv_heads,
-             TRAIN_CFG.head_dim)
-    q, k, v = flash_inputs(shape, torch.bfloat16, device, seed=0)
-    kw = dict(causal=True, scale=1.0 / math.sqrt(shape[5]), with_lse=True)
-    ms = time_ms(lambda: kflash.flash_fwd(q, k, v, **kw), n=3, repeats=3,
-                 warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        n=10, repeats=3)
-    log(f"  flash_fwd at the training shape {list(shape)} bf16 with m, l: "
-        f"{ms:.4f} ms per launch (scaled_dot_product_attention "
-        f"{library_ms:.4f} ms)")
-    return ms, library_ms
+def run_checks(device, parts):
+    """The kernel checks named in ``parts`` (``fwd``: phase 5's cases,
+    ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient),
+    without timings, after building the flash kernels.  Every check runs
+    and prints its readings even when an earlier one failed; returns 1
+    when any failed."""
+    build_phase(("flash_fwd", "flash_fwd_mma", "flash_bwd"))
+    checks = {
+        "fwd": lambda: flash_kernel_phase(device, timed=False),
+        "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
+        "grad": lambda: train_grad_check(device),
+    }
+    failed = []
+    for part in parts:
+        try:
+            checks[part]()
+        except RuntimeError as e:
+            log(f"  check {part} failed: {e}")
+            failed.append(part)
+    return 1 if failed else 0
 
 
 def fault_readings():
-    """Phase 8's checks on this tree and on copies with one planted fault
-    each, all at once (one process each); prints every reading."""
+    """The kernel checks on this tree and on copies of it with one
+    planted fault each, all at once (one process each); prints every
+    reading.  A copy with a fault of ``FLASH_FAULTS`` (in
+    ``flash_fwd_mma.cu``) runs the forward checks, the ``diag_tile`` one
+    also the 2-layer training gradient; a copy with a fault of
+    ``BWD_FAULTS`` (in ``flash_bwd.cu``) the backward checks; the tree
+    itself all three."""
     root = pathlib.Path(__file__).resolve().parent
-    work = pathlib.Path(tempfile.mkdtemp(prefix="bwd_faults_"))
-    trees = {"sound": root}
+    work = pathlib.Path(tempfile.mkdtemp(prefix="flash_faults_"))
+    plans = [(f"fwd_{name}", "flash_fwd_mma.cu", edit,
+              "fwd,grad" if name == "diag_tile" else "fwd")
+             for name, edit in FLASH_FAULTS.items()]
+    plans += [(f"bwd_{name}", "flash_bwd.cu", edit, "bwd")
+              for name, edit in BWD_FAULTS.items()]
+    trees = {"sound": (root, "fwd,bwd,grad")}
     try:
-        for name, (old, new) in BWD_FAULTS.items():
+        for name, source, (old, new), parts in plans:
             tree = work / name
             shutil.copytree(root / "mpi4jax_tpu_torch",
                             tree / "mpi4jax_tpu_torch",
                             ignore=shutil.ignore_patterns("_build",
                                                           "__pycache__"))
             shutil.copy(root / "chip_smoke.py", tree / "chip_smoke.py")
-            src = tree / "mpi4jax_tpu_torch/kernels/csrc/flash_bwd.cu"
+            src = tree / "mpi4jax_tpu_torch/kernels/csrc" / source
             text = src.read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"fault {name}: {old!r} not found once")
             src.write_text(text.replace(old, new))
-            trees[name] = tree
+            trees[name] = (tree, parts)
         env = {**os.environ, "PYTHONPATH": ""}
         procs = {
             name: subprocess.Popen(
-                [sys.executable, "chip_smoke.py", "--bwd-check"], cwd=tree,
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
-            for name, tree in trees.items()
+                [sys.executable, "chip_smoke.py", "--check", parts],
+                cwd=tree, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            for name, (tree, parts) in trees.items()
         }
         codes = {}
         for name, proc in procs.items():
-            out, _ = proc.communicate(timeout=900)
+            out, _ = proc.communicate(timeout=1500)
             codes[name] = proc.returncode
-            log(f"tree {name} (exit {proc.returncode}):")
+            log(f"tree {name}, checks {trees[name][1]} (exit "
+                f"{proc.returncode}):")
             for line in out.splitlines():
-                if "flash_bwd" in line or "Error" in line:
+                if any(word in line for word in ("flash_", "gradient",
+                                                 "check", "Error")):
                     log(f"  {line.strip()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1257,10 +1400,9 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     if argv == ["--fault-readings"]:
         return fault_readings()
-    if argv == ["--bwd-check"]:
-        build_phase(("flash_fwd", "flash_bwd"))
-        flash_bwd_kernel_phase(device, timed=False)
-        return 0
+    if len(argv) == 2 and argv[0] == "--check" and set(
+            argv[1].split(",")) <= {"fwd", "bwd", "grad"}:
+        return run_checks(device, argv[1].split(","))
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1290,15 +1432,15 @@ def main(argv):
     profile = profile_phase(cfg, comm, state0, path["step_ms"])
     del state0
 
-    log("phase kernels, flash attention")
-    flash_kernel = flash_kernel_phase(device)
-    kernels.append(flash_kernel)
+    log("phase kernels, flash attention (forward)")
+    f32_kernel, flash_kernel = flash_kernel_phase(device)
+    kernels.extend((f32_kernel, flash_kernel))
 
     log(f"phase path, decode (batch {LONG['batch']}, prompt "
         f"{LONG['prompt']}, max_len {LONG['max_len']}, bf16, flash prefill, "
         f"kv_bucket {LONG['kv_bucket']})")
     decode_path, bf16_run = decode_path_phase(device, flash_kernel,
-                                              copy_rate)
+                                              f32_kernel, copy_rate)
 
     log("phase profile, decode (one decode call under torch.profiler)")
     decode_profile = decode_profile_phase(*bf16_run, decode_path)
@@ -1306,8 +1448,6 @@ def main(argv):
 
     log("phase kernels, flash backward")
     bwd_kernels = flash_bwd_kernel_phase(device)
-    flash_kernel["ms_train_shape"], flash_kernel["library_ms_train_shape"] = \
-        flash_fwd_train_ms(device)
     kernels.extend(bwd_kernels)
 
     log(f"phase path, train (long-context preset: {TRAIN_CFG.layers} "

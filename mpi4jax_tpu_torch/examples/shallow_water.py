@@ -1,8 +1,10 @@
 """Shallow-water demo application for mpi4jax_tpu_torch.
 
 The counterpart of ``examples/shallow_water.py`` on PyTorch: one process,
-one rank, the wide-halo schedule, with the step's two kernels running as
-hand-written CUDA on the card.
+one rank.  ``--benchmark`` runs the wide-halo schedule (ghost 2), with
+the step's two kernels running as hand-written CUDA on the card; the
+demo and ``--check`` run the default configuration's narrow schedule
+(ghost 1, plain PyTorch), as the JAX package's example does.
 
 Usage:
 

@@ -1,16 +1,19 @@
-// Hand-written Hopper (sm_90a) flash-attention forward kernel.
+// Hand-written Hopper (sm_90a) flash-attention forward kernel for f32
+// operands, on the CUDA cores.
 //
 //   flash_fwd  replaces mpi4jax_tpu/ops/flash.py:_kernel (launched by
-//              _flash_fwd_impl): softmax(scale * q k^T) v over key tiles
-//              with an online softmax, f32 statistics and accumulator,
-//              causal masking with static offsets, grouped-query heads,
-//              and optionally the per-row statistics m and l.
+//              _flash_fwd_impl) for f32 operands: softmax(scale * q k^T) v
+//              over key tiles with an online softmax, f32 statistics and
+//              accumulator, causal masking with static offsets,
+//              grouped-query heads, and optionally the per-row statistics
+//              m and l.  bf16 operands go to the tensor-core kernel of
+//              flash_fwd_mma.cu.
 //
 // Layout: q and out are row-major [B, Tq, Hq, D], k and v [B, Tk, Hkv, D]
 // (the [B, T, H, D] operands of flash_attention, read with strides: no
 // fold into [B*H, T, D] and no padding copy).  Query head h reads kv head
 // h / (Hq / Hkv).  m and l are f32 [B*Hq, Tq], row b*Hq + h, as the
-// Pallas kernel's folded (m, l) outputs.  T is float or __nv_bfloat16.
+// Pallas kernel's folded (m, l) outputs.  T is float.
 //
 // Semantics kept from the Pallas kernel, term by term:
 //   * the scale rides q: q = f32(q) * scale, then s = q . k in f32;
@@ -19,10 +22,9 @@
 //     -inf, so a fully masked row ends as uniform weights over the real
 //     keys (the mean of V) and padding never enters l;
 //   * per key tile: m_new = max(m, max_j s_j), corr = exp(m - m_new),
-//     w_j = exp(s_j - m_new) (bf16 operands: exp of the bf16-rounded
-//     argument, rounded to bf16), l = l * corr + sum_j w_j,
+//     w_j = exp(s_j - m_new), l = l * corr + sum_j w_j,
 //     acc = acc * corr + sum_j w_j v_j with f32 accumulation;
-//   * out = acc / l in q's type; m and l are written separately, never
+//   * out = acc / l; m and l are written separately, never
 //     fused into m + log l.
 // Key tiles that lie wholly above the causal diagonal are skipped, the
 // effect of the Pallas triangle grid: for a query tile whose rows all see
@@ -31,11 +33,10 @@
 // tile, as the uniform-weights convention needs.
 //
 // What bounds it on the card: operations.  Causal attention at the
-// decode path's prefill ([4, 8192, 8, 64] bf16) does 2.75e11 flops on
-// 134 MB, far above the H100's operations-per-byte balance.  This first
-// form runs them on the CUDA cores in f32, not on the tensor cores, so
-// it sits far above its tensor-core bound; mma/wgmma, TMA and tuned
-// tiles are a later step.
+// decode path's prefill shape ([4, 8192, 8, 64]) does 2.75e11 flops on
+// 268 MB in f32, far above the H100's operations-per-byte balance.  It
+// runs them on the CUDA cores in f32: the f32 path keeps exact f32
+// products, which the tensor cores (TF32 at best) would not.
 //
 // Design: one block per (b*Hq + h, 64-row query tile), heaviest query
 // tiles first (blockIdx.y counts down the diagonal).  D/32 threads share
@@ -51,7 +52,6 @@
 // its own, as in the plain PyTorch version, so the f32 form agrees with
 // it to the rounding of the summation order alone.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -66,23 +66,11 @@ constexpr int kDimsPerThread = 32;
 constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
-// Softmax weight of a max-subtracted score.  bf16 operands: the argument
-// is rounded to bf16, the exponential of that rounded to bf16 again (the
-// Pallas kernel's jnp.exp on a bf16 array).
+// Softmax weight of a max-subtracted score.
 __device__ __forceinline__ float weight(float x, float) { return expf(x); }
-__device__ __forceinline__ float weight(float x, __nv_bfloat16) {
-  const float arg = __bfloat162float(__float2bfloat16_rn(x));
-  return __bfloat162float(__float2bfloat16_rn(expf(arg)));
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlockQ * (D / kDimsPerThread))
@@ -241,49 +229,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dims(int D, const void* q, const void* k, const void* v,
-                        void* out, float* m_out, float* l_out, int B, int Tq,
-                        int Tk, int Hq, int Hkv, int causal,
-                        long long q_offset, long long k_offset, float scale,
-                        cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq, Hkv,
-                           causal, q_offset, k_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq, Hkv,
-                           causal, q_offset, k_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq, Hkv,
-                            causal, q_offset, k_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  m_out and l_out are both null or
-// both f32 [B*Hq, Tq].  The wrapper (kernels/flash.py) checks shapes,
-// types, contiguity, D in {32, 64, 128}, Hq % Hkv == 0 and Tk >= 1.
+// f32 operands only.  m_out and l_out are both null or both f32
+// [B*Hq, Tq].  The wrapper (kernels/flash.py) checks shapes, types,
+// contiguity, D in {32, 64, 128}, Hq % Hkv == 0 and Tk >= 1.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      float* m_out, float* l_out, int B, int Tq, int Tk,
-                     int Hq, int Hkv, int D, int dtype, int causal,
-                     long long q_offset, long long k_offset, float scale,
-                     cudaStream_t stream) {
-  if (dtype == 0) {
-    return launch_dims<float>(D, q, k, v, out, m_out, l_out, B, Tq, Tk, Hq,
-                              Hkv, causal, q_offset, k_offset, scale, stream);
+                     int Hq, int Hkv, int D, int causal, long long q_offset,
+                     long long k_offset, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch<float, 32>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq,
+                               Hkv, causal, q_offset, k_offset, scale, stream);
+    case 64:
+      return launch<float, 64>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq,
+                               Hkv, causal, q_offset, k_offset, scale, stream);
+    case 128:
+      return launch<float, 128>(q, k, v, out, m_out, l_out, B, Tq, Tk, Hq,
+                                Hkv, causal, q_offset, k_offset, scale,
+                                stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return launch_dims<__nv_bfloat16>(D, q, k, v, out, m_out, l_out, B, Tq,
-                                      Tk, Hq, Hkv, causal, q_offset, k_offset,
-                                      scale, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 const char* flash_fwd_error_string(int code) {

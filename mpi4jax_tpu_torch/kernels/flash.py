@@ -7,16 +7,24 @@ plain PyTorch version.
   statistics ``m`` (running max) and ``l`` (sum of weights), each
   ``[B*Hq, Tq]``.  Replaces ``mpi4jax_tpu/ops/flash.py:_kernel``.
 
-Dispatch is by the tensors' device alone: CUDA tensors go to the
-hand-written kernel in ``csrc/flash_fwd.cu`` (built at first use, see
+Dispatch is by the tensors' device, then by their dtype: bf16 CUDA
+tensors go to the tensor-core kernel in ``csrc/flash_fwd_mma.cu``
+(``mma.sync``, ``ldmatrix``, ``cp.async``), f32 CUDA tensors to the
+CUDA-core kernel in ``csrc/flash_fwd.cu`` (each built at first use, see
 ``_build.py``), CPU tensors to the plain version
 :func:`flash_attention_reference`.  A failed build or launch raises;
 nothing falls back to the plain version on the card.  The wrapper counts
-its kernel launches in ``flash_fwd.launches``.
+the launches of both kernels in ``flash_fwd.launches`` and those of the
+tensor-core kernel alone in ``flash_fwd.mma_launches``.
 
-The kernel walks keys in tiles of :data:`BLOCK_K`; the plain version
+The f32 kernel walks keys in tiles of :data:`BLOCK_K`, the bf16 kernel in
+tiles of :data:`BLOCK_K_MMA` (:func:`kernel_block_k`); the plain version
 walks them in tiles of the size it is given, with the same per-tile
-update, so the two agree to rounding when it is given ``BLOCK_K``.
+update, so it agrees with a kernel to rounding when it is given that
+kernel's tile.
+
+:func:`flash_supported` is the rule by which ``"auto"`` attention takes
+these kernels, decided from dtypes and shapes before any launch.
 """
 
 import ctypes
@@ -28,22 +36,35 @@ import torch
 from mpi4jax_tpu_torch.kernels import _build
 
 __all__ = [
+    "AUTO_MIN_ROWS",
+    "auto_takes_flash",
     "BLOCK_K",
+    "BLOCK_K_MMA",
     "HEAD_DIMS",
+    "flash_covers",
     "flash_fwd",
     "flash_attention_reference",
+    "flash_supported",
+    "kernel_block_k",
     "reset_launch_counts",
 ]
 
-BLOCK_Q = 64  # query rows per thread block of the kernel
-BLOCK_K = 32  # keys per shared-memory tile of the kernel
+BLOCK_Q = 64  # query rows per block of the f32 kernel (bf16: 64 or 128)
+BLOCK_K = 32  # keys per shared-memory tile of the f32 kernel
+BLOCK_K_MMA = 64  # keys per shared-memory tile of the bf16 kernel
 HEAD_DIMS = (32, 64, 128)
-_MAX_Q_TILES = 65535  # the kernel's grid.y
+# the kernels' grid.y: query tiles of the forward and of the dq kernel,
+# key blocks of the dkv kernel (kernels/flash_bwd.py), 64 rows each
+_MAX_TILES = 65535
+AUTO_MIN_ROWS = 128  # "auto" attention takes the kernels from this Tq
 
 # finite mask value of causally masked keys, here and in the dense oracle
 # (parallel/longseq.py)
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward kernel of each dtype: source csrc/<name>.cu, launcher
+# <name>_launch
+_KERNELS = {torch.float32: "flash_fwd", torch.bfloat16: "flash_fwd_mma"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,16 +72,79 @@ _L = ctypes.c_longlong
 
 
 @functools.cache
-def _library():
-    """The built kernel library with its launcher's C signature."""
-    lib = _build.load_library("flash_fwd")
-    lib.flash_fwd_launch.argtypes = (
-        [_P] * 6 + [_I] * 8 + [_L, _L, ctypes.c_float, _P]
-    )
-    lib.flash_fwd_launch.restype = _I
-    lib.flash_fwd_error_string.argtypes = [_I]
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+def _library(name):
+    """The built kernel library ``name`` with its launcher's C signature
+    (the same for both forward kernels)."""
+    lib = _build.load_library(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [_P] * 6 + [_I] * 7 + [_L, _L, ctypes.c_float, _P]
+    launch.restype = _I
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [_I]
+    error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_block_k(dtype):
+    """Key tile of the forward kernel that runs ``dtype`` on the card:
+    :data:`BLOCK_K_MMA` for bf16, :data:`BLOCK_K` otherwise (f32)."""
+    return BLOCK_K_MMA if dtype == torch.bfloat16 else BLOCK_K
+
+
+def _shape_fault(dtype, q_shape, k_shape):
+    """Why the flash kernels, the forward and both backward ones, cannot
+    take operands of ``dtype`` with q of ``q_shape`` ``[B, Tq, Hq, D]``
+    and k, v of ``k_shape`` ``[B, Tk, Hkv, D]``, as ``(exception type,
+    message)``; None when they can."""
+    if dtype not in _KERNELS:
+        return TypeError, (f"dtype {dtype} not supported by the kernels "
+                           "(float32 or bfloat16)")
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return ValueError, (f"expected q [B, Tq, Hq, D] and k, v [B, Tk, "
+                            f"Hkv, D], got {q_shape}, {k_shape}")
+    b, tq, hq, d = q_shape
+    if k_shape[0] != b or k_shape[3] != d or k_shape[2] < 1 \
+            or hq % k_shape[2]:
+        return ValueError, (f"k/v {k_shape} do not match q {q_shape} (same "
+                            "B and D, Hq a multiple of Hkv)")
+    if d not in HEAD_DIMS:
+        return ValueError, (f"head dim {d} not supported by the kernels "
+                            f"(one of {HEAD_DIMS})")
+    if k_shape[1] < 1 or max(tq, k_shape[1]) > _MAX_TILES * BLOCK_Q:
+        return ValueError, (f"Tk={k_shape[1]} must be >= 1 and Tq, Tk at "
+                            f"most {_MAX_TILES * BLOCK_Q}")
+    return None
+
+
+def flash_covers(dtype, q_shape, k_shape):
+    """True when the flash kernels, the forward and both backward ones,
+    take operands of ``dtype`` with q of ``q_shape`` ``[B, Tq, Hq, D]``
+    and k, v of ``k_shape`` ``[B, Tk, Hkv, D]``: f32 or bf16, D in
+    :data:`HEAD_DIMS`, Hq a multiple of Hkv, Tk >= 1, and both lengths
+    within the kernels' grids.  Plain Python on shapes: no card needed.
+    """
+    return _shape_fault(dtype, tuple(q_shape), tuple(k_shape)) is None
+
+
+def auto_takes_flash(dtype, q_shape, k_shape):
+    """The dtype and shape half of :func:`flash_supported`: the kernels
+    cover the operands (:func:`flash_covers`) and q has at least
+    :data:`AUTO_MIN_ROWS` rows.  Plain Python on shapes."""
+    return (len(q_shape) == 4 and q_shape[1] >= AUTO_MIN_ROWS
+            and flash_covers(dtype, q_shape, k_shape))
+
+
+def flash_supported(q, k, v):
+    """The rule of ``local_attention(impl="auto")``, decided before any
+    launch: True only for CUDA tensors of one dtype and device for which
+    :func:`auto_takes_flash` holds.  Anything else (the CPU, fp16, a head
+    dim of 8, a short block) takes the dense path, as the JAX package's
+    ``"auto"`` takes it off the TPU."""
+    return (q.device.type == "cuda"
+            and all(t.device == q.device and t.dtype == q.dtype
+                    for t in (k, v))
+            and k.shape == v.shape
+            and auto_takes_flash(q.dtype, tuple(q.shape), tuple(k.shape)))
 
 
 def _fold(x, pad):
@@ -130,49 +214,68 @@ def flash_attention_reference(q, k, v, *, causal, scale, q_offset=0,
 
 
 def _check_operands(q, k, v):
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"flash_fwd: dtype {q.dtype} not supported by the kernel "
-            "(float32 or bfloat16)"
-        )
+    """Raise on operands the kernels cannot take (the rule of
+    :func:`flash_covers`, and k, v of q's dtype and device, one shape)."""
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(
                 f"flash_fwd: {name} is {t.dtype} on {t.device}, q is "
                 f"{q.dtype} on {q.device}"
             )
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(
-            f"flash_fwd: expected q [B, Tq, Hq, D] and k, v [B, Tk, Hkv, "
-            f"D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    if k.shape != v.shape:
+        raise ValueError(f"flash_fwd: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} differ")
+    fault = _shape_fault(q.dtype, tuple(q.shape), tuple(k.shape))
+    if fault is not None:
+        kind, msg = fault
+        raise kind(f"flash_fwd: {msg}")
+
+
+def _aligned(t):
+    """``t`` contiguous, with its data on a 16-byte boundary (the bf16
+    kernel copies rows in 16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(q, k, v, out, m, l, *, causal, scale, q_offset, k_offset,
+            stream):
+    """Launch the forward kernel of q's dtype on ``stream`` (checked,
+    contiguous, aligned operands; ``m``, ``l`` both None or both f32
+    ``[B*Hq, Tq]``) and count it."""
+    name = _KERNELS[q.dtype]
+    lib = _library(name)
     b, tq, hq, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
-        raise ValueError(
-            f"flash_fwd: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}"
-            " (same B and D, Hq a multiple of Hkv)"
-        )
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_fwd: head dim {d} not supported by the kernel "
-            f"(one of {HEAD_DIMS})"
-        )
-    if k.shape[1] < 1 or -(-tq // BLOCK_Q) > _MAX_Q_TILES:
-        raise ValueError(
-            f"flash_fwd: Tk={k.shape[1]} must be >= 1 and Tq={tq} at most "
-            f"{_MAX_Q_TILES * BLOCK_Q}"
-        )
+    tk, hk = k.shape[1], k.shape[2]
+    code = getattr(lib, f"{name}_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if m is None else m.data_ptr(),
+        None if l is None else l.data_ptr(),
+        b, tq, tk, hq, hk, d, int(bool(causal)), int(q_offset),
+        int(k_offset), float(scale), stream,
+    )
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+    flash_fwd.launches += 1
+    if name == "flash_fwd_mma":
+        flash_fwd.mma_launches += 1
 
 
 def flash_fwd(q, k, v, *, causal, scale, q_offset=0, k_offset=0,
-              with_lse=False, block_k=BLOCK_K):
+              with_lse=False, block_k=None):
     """Flash-attention forward; returns ``out`` or ``(out, m, l)``.
 
-    CUDA tensors launch the ``flash_fwd`` kernel on the current stream
-    (``block_k`` is then the kernel's own :data:`BLOCK_K`); CPU tensors
-    run :func:`flash_attention_reference` with tiles of ``block_k``.
+    CUDA tensors launch the kernel of their dtype on the current stream
+    (bf16: ``flash_fwd_mma``, f32: ``flash_fwd``; ``block_k`` is then
+    that kernel's own tile); CPU tensors run
+    :func:`flash_attention_reference` with tiles of ``block_k``, by
+    default the tile of the kernel of their dtype
+    (:func:`kernel_block_k`).
     """
     if q.device.type == "cpu":
+        if block_k is None:
+            block_k = kernel_block_k(q.dtype)
         return flash_attention_reference(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
             k_offset=k_offset, block_k=block_k, with_lse=with_lse,
@@ -180,37 +283,27 @@ def flash_fwd(q, k, v, *, causal, scale, q_offset=0, k_offset=0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     _check_operands(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    b, tq, hq, d = q.shape
-    tk, hk = k.shape[1], k.shape[2]
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    b, tq, hq, _ = q.shape
     out = torch.empty_like(q)
     stats = (
         [torch.empty((b * hq, tq), dtype=torch.float32, device=q.device)
          for _ in range(2)]
-        if with_lse else []
+        if with_lse else [None, None]
     )
     if tq:
-        lib = _library()
-        m_ptr, l_ptr = (t.data_ptr() for t in stats) if stats else (None, None)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            code = lib.flash_fwd_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                m_ptr, l_ptr, b, tq, tk, hq, hk, d, _DTYPE_CODES[q.dtype],
-                int(bool(causal)), int(q_offset), int(k_offset),
-                float(scale), stream,
-            )
-        if code != 0:
-            msg = lib.flash_fwd_error_string(code).decode()
-            raise RuntimeError(f"flash_fwd kernel launch failed: {msg} "
-                               f"({code})")
-        flash_fwd.launches += 1
+            _launch(q, k, v, out, *stats, causal=causal, scale=scale,
+                    q_offset=q_offset, k_offset=k_offset, stream=stream)
     return (out, *stats) if with_lse else out
 
 
 flash_fwd.launches = 0
+flash_fwd.mma_launches = 0
 
 
 def reset_launch_counts():
-    """Set the wrapper's launch count to 0."""
+    """Set the wrapper's launch counts to 0."""
     flash_fwd.launches = 0
+    flash_fwd.mma_launches = 0

@@ -6,19 +6,28 @@ Adams-Bashforth-2 stepping with coefficients (1.6, -0.6), periodic x,
 solid walls in y, lateral viscosity), the same configuration object and
 the same driver functions.
 
-This slice of the port runs the wide-halo schedule (``ghost=2``,
-periodic x) on one rank, in the order of the fused Pallas step
-(``research/sw_step_pallas.py:_step``):
+The port runs two of the JAX package's three schedules on one rank,
+chosen by ``cfg.ghost``:
 
-1. exchange the 2-deep halos of h, u, v;
-2. clamp h's wall ghost rows to the adjacent interior row (hc == h);
-3. the ``sw_main`` kernel: all tendencies and the AB2 update;
-4. exchange u, v;
-5. the ``sw_visc`` kernel: lateral viscosity.
+* ``ghost=1`` (the default, as in the JAX package): the reference's
+  narrow schedule, about 12 one-cell halo exchanges per step, in plain
+  PyTorch (the JAX package has no Pallas kernel for it either);
+* ``ghost=2`` (``bench_size()``): the wide-halo schedule (periodic x),
+  in the order of the fused Pallas step
+  (``research/sw_step_pallas.py:_step``):
 
-The state carries full-shaped tendencies (the Pallas layout).  Fields on
-a CUDA device go through the hand-written kernels of
-``kernels/sw_step.py``; fields on the CPU through their plain versions.
+  1. exchange the 2-deep halos of h, u, v;
+  2. clamp h's wall ghost rows to the adjacent interior row (hc == h);
+  3. the ``sw_main`` kernel: all tendencies and the AB2 update;
+  4. exchange u, v;
+  5. the ``sw_visc`` kernel: lateral viscosity.
+
+  Fields on a CUDA device go through the hand-written kernels of
+  ``kernels/sw_step.py``; fields on the CPU through their plain versions.
+
+``ghost=4`` (the single-exchange schedule) raises, naming its ROADMAP
+item.  The state carries full-shaped tendencies at every ghost width
+(the Pallas layout; :func:`crop_state` gives the JAX wide-halo layout).
 
 PyTorch runs eagerly, so ``make_multistep`` is a Python loop over steps
 where the JAX package compiles one ``fori_loop``.
@@ -58,9 +67,9 @@ __all__ = [
 ]
 
 DAY_IN_SECONDS = 86_400.0
-G = 2  # the ghost width of the only schedule ported so far
+WIDE = 2  # the ghost width of the wide-halo schedule (the kernels')
 
-GHOST_ITEM = "ROADMAP.md Queue 1 item 2 (ghost-1 and ghost-4 schedules)"
+GHOST_ITEM = "ROADMAP.md Queue 1 item 2 (the ghost-4 schedule)"
 
 
 @dataclass(frozen=True)
@@ -80,9 +89,9 @@ class SWConfig:
     ab_b: float = -0.6
     dtype: str = "float32"
     # Ghost-ring width: 1 = the reference's narrow schedule, 2 = the
-    # wide-halo schedule, 4 = the single-exchange schedule.  Only 2 is
-    # ported so far.
-    ghost: int = 2
+    # wide-halo schedule, 4 = the single-exchange schedule (not ported
+    # yet).
+    ghost: int = 1
 
     @property
     def lateral_viscosity(self):
@@ -125,12 +134,14 @@ class SWState(NamedTuple):
 
 
 def _check_schedule(cfg):
-    if cfg.ghost != G:
+    if cfg.ghost == 4:
         raise NotImplementedError(
-            f"ghost={cfg.ghost} is not ported yet (only the wide-halo "
-            f"schedule, ghost=2): {GHOST_ITEM}"
+            f"ghost=4 (the single-exchange schedule) is not ported yet: "
+            f"{GHOST_ITEM}"
         )
-    if not cfg.periodic_x:
+    if cfg.ghost not in (1, WIDE):
+        raise ValueError(f"ghost width must be 1, 2 or 4, got {cfg.ghost}")
+    if cfg.ghost == WIDE and not cfg.periodic_x:
         raise NotImplementedError(
             "the wide-halo schedule requires periodic_x=True, as in the "
             "JAX package"
@@ -146,6 +157,7 @@ def _device_coords(comm):
 
 def _local_mesh_coords(cfg, comm, device):
     """Physical coordinates of the local block, ghosts included."""
+    G = cfg.ghost
     ny_l, nx_l = cfg.local_interior(comm)
     iy, ix = _device_coords(comm)
     f32 = torch.float32
@@ -171,6 +183,7 @@ def initial_state(cfg, comm, *, device="cuda", token=None):
     _check_schedule(cfg)
     device = resolve_device(device)
     token = as_token(token)
+    G = cfg.ghost
     yy, xx = _local_mesh_coords(cfg, comm, device)
     ly, lx = cfg.length_y, cfg.length_x
 
@@ -220,6 +233,7 @@ def clamp_wall_ghost_rows(h, comm, ny_l):
     The only consumer of h's true wall ghost rows is the pressure
     gradient of the wall-row ``v``, which the wall condition zeroes.
     """
+    G = WIDE
     is_north, is_south = _wall_masks(comm)
     if is_south:
         h[:G] = h[G : G + 1]
@@ -231,18 +245,162 @@ def clamp_wall_ghost_rows(h, comm, ny_l):
 def shallow_water_step(state, cfg, comm, *, first_step=False, token=None):
     """One model step; returns ``(SWState, token)``.
 
-    Halo exchanges write the ghost rings of the input's h, u, v in
-    place; the step's results are new tensors.
+    ``cfg.ghost == 1``: the reference's narrow schedule (:func:`_step_narrow`);
+    ``cfg.ghost == 2``: the wide-halo schedule through the kernels
+    (:func:`_step`).  Halo exchanges may write the ghost rings of the
+    input's h, u, v in place; the step's results are new tensors.
     """
     _check_schedule(cfg)
+    if cfg.ghost == 1:
+        return _step_narrow(state, cfg, comm, first_step=first_step,
+                            token=token)
     return _step(state, cfg, comm, first_step=first_step, token=token,
                  main=sw_main, visc=sw_visc)
+
+
+# finite-difference views of a (ny + 2, nx + 2) block: the interior and
+# its east, west, north, south and north-east neighbours
+def _i(a):
+    return a[1:-1, 1:-1]
+
+
+def _e(a):
+    return a[1:-1, 2:]
+
+
+def _w(a):
+    return a[1:-1, :-2]
+
+
+def _n(a):
+    return a[2:, 1:-1]
+
+
+def _s(a):
+    return a[:-2, 1:-1]
+
+
+def _ne(a):
+    return a[2:, 2:]
+
+
+def _with_interior(a, val):
+    """A copy of ``a`` with its interior set to ``val``."""
+    out = a.clone()
+    out[1:-1, 1:-1] = val
+    return out
+
+
+def _step_narrow(state, cfg, comm, *, first_step, token):
+    """The reference's narrow (ghost-1) schedule, term by term as
+    ``mpi4jax_tpu/models/shallow_water.py:shallow_water_step`` computes
+    it: every intermediate field (edge-padded h, the mass fluxes, the
+    potential vorticity, the kinetic energy, the viscous fluxes) is built
+    on a zero ring and exchanged, 12 one-cell exchanges per step."""
+    token = as_token(token)
+    per = (False, cfg.periodic_x)
+    is_north, _ = _wall_masks(comm)
+    dx, dy, g = cfg.dx, cfg.dy, cfg.gravity
+
+    def exchange(a):
+        nonlocal token
+        a, token = halo_exchange_2d(a, comm, periodic=per, token=token,
+                                    width=1)
+        return a
+
+    def wall_v(a):
+        """v = 0 on the northern wall row, in place."""
+        if is_north:
+            a[-2, :] = 0.0
+        return a
+
+    h, u, v, dh, du, dv = state
+    zeros = torch.zeros_like(h)
+
+    # cell-centred height with edge-padded ghosts, then exchanged
+    hc = h.clone()
+    hc[0], hc[-1] = hc[1], hc[-2]
+    hc[:, 0], hc[:, -1] = hc[:, 1], hc[:, -2]
+    hc = exchange(hc)
+
+    # mass fluxes on cell faces
+    fe = exchange(_with_interior(zeros, 0.5 * (_i(hc) + _e(hc)) * _i(u)))
+    fn = exchange(_with_interior(zeros, 0.5 * (_i(hc) + _n(hc)) * _i(v)))
+    fn = wall_v(fn)
+    dh_new = _with_interior(
+        dh, -(_i(fe) - _w(fe)) / dx - (_i(fn) - _s(fn)) / dy
+    )
+
+    # potential vorticity (planetary + relative, over face-mean depth)
+    yy, _ = _local_mesh_coords(cfg, comm, h.device)
+    rel_vort = (_e(v) - _i(v)) / dx - (_n(u) - _i(u)) / dy
+    q_int = (_coriolis(cfg, yy)[1:-1, 1:-1] + rel_vort) / (
+        0.25 * (_i(hc) + _e(hc) + _n(hc) + _ne(hc))
+    )
+    q = exchange(_with_interior(zeros, q_int))
+
+    # momentum tendencies: pressure gradient + PV flux (Sadourny 1975)
+    du_new = _with_interior(
+        du,
+        -g * (_e(h) - _i(h)) / dx
+        + 0.5
+        * (
+            _i(q) * 0.5 * (_i(fn) + _e(fn))
+            + _s(q) * 0.5 * (_s(fn) + fn[:-2, 2:])
+        ),
+    )
+    dv_new = _with_interior(
+        dv,
+        -g * (_n(h) - _i(h)) / dy
+        - 0.5
+        * (
+            _i(q) * 0.5 * (_i(fe) + _n(fe))
+            + _w(q) * 0.5 * (_w(fe) + fe[2:, :-2])
+        ),
+    )
+
+    # kinetic energy gradient
+    ke = exchange(_with_interior(
+        zeros,
+        0.5 * (0.5 * (_i(u) ** 2 + _w(u) ** 2)
+               + 0.5 * (_i(v) ** 2 + _s(v) ** 2)),
+    ))
+    _i(du_new).add_(-(_e(ke) - _i(ke)) / dx)
+    _i(dv_new).add_(-(_n(ke) - _i(ke)) / dy)
+
+    # time step: forward Euler bootstrap, then AB2
+    dt = cfg.dt
+    if first_step:
+        u = _with_interior(u, _i(u) + dt * _i(du_new))
+        v = _with_interior(v, _i(v) + dt * _i(dv_new))
+        h = _with_interior(h, _i(h) + dt * _i(dh_new))
+    else:
+        a, b = cfg.ab_a, cfg.ab_b
+        u = _with_interior(u, _i(u) + dt * (a * _i(du_new) + b * _i(du)))
+        v = _with_interior(v, _i(v) + dt * (a * _i(dv_new) + b * _i(dv)))
+        h = _with_interior(h, _i(h) + dt * (a * _i(dh_new) + b * _i(dh)))
+    h, u, v = exchange(h), exchange(u), exchange(v)
+    v = wall_v(v)
+
+    # lateral friction (the JAX package's form: v's branch reads v)
+    nu = cfg.lateral_viscosity
+    if nu > 0:
+        for f in (u, v):
+            gx = exchange(_with_interior(zeros, nu * (_e(f) - _i(f)) / dx))
+            gy = exchange(_with_interior(zeros, nu * (_n(f) - _i(f)) / dy))
+            _i(f).add_(
+                dt * ((_i(gx) - _w(gx)) / dx + (_i(gy) - _s(gy)) / dy)
+            )
+        v = wall_v(v)
+
+    return SWState(h, u, v, dh_new, du_new, dv_new), token
 
 
 def _step(state, cfg, comm, *, first_step, token, main, visc):
     """The Pallas step schedule with the given ``main`` / ``visc``
     functions (the kernel wrappers, or their plain versions when a
     comparison runs the plain path on the card)."""
+    G = WIDE
     token = as_token(token)
     per = (False, True)
     ny_l, nx_l = cfg.local_interior(comm)
@@ -270,9 +428,11 @@ def _step(state, cfg, comm, *, first_step, token, main, visc):
 
 def pad_state(state):
     """Lift a state with interior-shaped tendencies (the JAX wide-halo
-    layout) to full-shaped ones; a full-shaped state is returned as is."""
+    layout) to full-shaped ones, the ghost width read from the shapes; a
+    full-shaped state is returned as is."""
     if state.dh.shape == state.h.shape:
         return state
+    G = (state.h.shape[0] - state.dh.shape[0]) // 2
 
     def lift(t):
         full = torch.zeros_like(state.h)
@@ -283,8 +443,10 @@ def pad_state(state):
                    lift(state.du), lift(state.dv))
 
 
-def crop_state(state):
-    """Inverse of :func:`pad_state` (interior-shaped tendencies)."""
+def crop_state(state, ghost=WIDE):
+    """Inverse of :func:`pad_state`: the tendencies cut to the interior
+    of a ``ghost``-wide ring (the JAX wide-halo layout at ghost 2)."""
+    G = ghost
     return SWState(
         state.h, state.u, state.v,
         state.dh[G:-G, G:-G], state.du[G:-G, G:-G], state.dv[G:-G, G:-G],
@@ -365,8 +527,10 @@ def make_solver(cfg, comm, num_multisteps=10, on_chunk=None, *,
     return solve
 
 
-def gather_global(local_field, comm, *, ghost=G):
-    """Reassemble the global interior field from the per-rank blocks."""
+def gather_global(local_field, comm, *, ghost=1):
+    """Reassemble the global interior field from the per-rank blocks
+    (``ghost``: the block's ghost width, 1 by default as in the JAX
+    package)."""
     blocks, _ = allgather(local_field[ghost:-ghost, ghost:-ghost], comm=comm)
     py, px = comm.axis_sizes
     ny_l = local_field.shape[0] - 2 * ghost
@@ -390,10 +554,12 @@ def config_from_jax(cfg_fields):
 
 def state_from_jax(arrays, cfg, *, device="cuda"):
     """Port state on ``device`` from six numpy arrays ``(h, u, v, dh, du,
-    dv)`` of a one-rank JAX state: the wide-halo layout (interior-shaped
-    tendencies) or the Pallas layout (full-shaped ones)."""
+    dv)`` of a one-rank JAX state at ``cfg.ghost``: full-shaped
+    tendencies (the narrow and Pallas layouts) or interior-shaped ones
+    (the wide-halo layout)."""
     device = resolve_device(device)
     h, u, v, dh, du, dv = (np.asarray(a) for a in arrays)
+    G = cfg.ghost
     full = (cfg.ny + 2 * G, cfg.nx + 2 * G)
     for name, a in zip("huv", (h, u, v)):
         if a.shape != full:

@@ -16,6 +16,7 @@ import math
 import torch
 
 from mpi4jax_tpu_torch.kernels.flash import _NEG  # finite mask value
+from mpi4jax_tpu_torch.kernels.flash import flash_supported
 from mpi4jax_tpu_torch.ops._core import as_token, publishes_token
 from mpi4jax_tpu_torch.parallel.comm import MULTI_RANK_ITEM
 
@@ -76,12 +77,16 @@ def local_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
 
     ``impl``: ``"xla"`` — dense (materialises the [Tq, Tk] scores, the
     oracle; the name is the JAX package's); ``"flash"`` — the flash
-    kernel (``ops/flash.py``); ``"auto"`` — flash for CUDA tensors with
-    at least 128 query rows, dense otherwise.
+    kernels (``ops/flash.py``), which raise on operands they cannot run;
+    ``"auto"`` — decided from the operands before any launch
+    (``kernels.flash.flash_supported``): flash for CUDA tensors the
+    kernels cover (f32 or bf16, D in {32, 64, 128}) with at least 128
+    query rows, dense for everything else, so it computes wherever the
+    dense path does, as the JAX package's ``"auto"`` does off the TPU.
     """
     _check_gqa(q.shape[2], k.shape[2], "local_attention")
     if impl == "auto":
-        impl = "flash" if q.is_cuda and q.shape[1] >= 128 else "xla"
+        impl = "flash" if flash_supported(q, k, v) else "xla"
     if impl == "flash":
         from mpi4jax_tpu_torch.ops.flash import flash_attention
 

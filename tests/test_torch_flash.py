@@ -138,18 +138,124 @@ def test_flash_bf16_matches_pallas(name):
                                atol=BF16_ATOL)
 
 
+@pytest.mark.parametrize("block_k", [kflash.BLOCK_K, kflash.BLOCK_K_MMA],
+                         ids=["f32_kernel", "bf16_kernel"])
 @pytest.mark.parametrize("name", ["padding", "ragged_offset", "gqa_offsets",
                                   "fully_masked"])
-def test_kernel_tiles_match_pallas_tiles(name):
-    # the plain version at the CUDA kernel's own key tile (what the card
+def test_kernel_tiles_match_pallas_tiles(name, block_k):
+    # the plain version at each CUDA kernel's own key tile (what the card
     # is held against) still agrees with the Pallas kernel's tiling
     causal, qo, ko, _ = CASES[name][6:]
     q, k, v = _torch(_qkv(CASES[name]))
     got = kflash.flash_attention_reference(
         q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
-        q_offset=qo, k_offset=ko, block_k=kflash.BLOCK_K,
+        q_offset=qo, k_offset=ko, block_k=block_k,
     )
     np.testing.assert_allclose(got.numpy(), _pallas(name)[0], atol=F32_ATOL)
+
+
+def test_kernel_tile_by_dtype():
+    # the plain version on CPU tensors walks the tile of the kernel that
+    # runs their dtype on the card
+    assert kflash.kernel_block_k(torch.float32) == kflash.BLOCK_K == 32
+    assert kflash.kernel_block_k(torch.bfloat16) == kflash.BLOCK_K_MMA == 64
+    q, k, v = _torch(_qkv(CASES["padding"], dtype=ml_dtypes.bfloat16),
+                     torch.bfloat16)
+    kw = dict(causal=False, scale=0.125)
+    want = kflash.flash_attention_reference(q, k, v, block_k=64, **kw)
+    assert torch.equal(kflash.flash_fwd(q, k, v, **kw), want)
+
+
+class _Recorder:
+    """A stand-in for a built kernel library: records each launcher
+    call's name and arguments and returns 0 (success)."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __getattr__(self, fn):
+        def record(*args):
+            self.calls.append((self.name, fn, args))
+            return 0
+        return record
+
+
+@pytest.mark.parametrize("dtype, library", [
+    (torch.bfloat16, "flash_fwd_mma"),
+    (torch.float32, "flash_fwd"),
+])
+def test_forward_dispatch_by_dtype(monkeypatch, dtype, library):
+    # the launch step, with the ctypes libraries replaced by a recorder:
+    # bf16 goes to the tensor-core kernel, f32 to the CUDA-core one, with
+    # the same arguments, and both count in flash_fwd.launches
+    calls = []
+    monkeypatch.setattr(kflash, "_library",
+                        lambda name: _Recorder(name, calls))
+    kflash.reset_launch_counts()
+    q, k, v = (t.to(dtype) for t in _torch(_qkv(CASES["gqa_offsets"])))
+    out = torch.empty_like(q)
+    m, l = torch.empty((2, 4 * 48)), torch.empty((2, 4 * 48))
+    kflash._launch(q, k, v, out, m, l, causal=True, scale=0.125,
+                   q_offset=64, k_offset=0, stream=None)
+    kflash._launch(q, k, v, out, None, None, causal=False, scale=0.125,
+                   q_offset=0, k_offset=0, stream=None)
+    assert [c[:2] for c in calls] == [(library, f"{library}_launch")] * 2
+    args = calls[0][2]
+    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), m.data_ptr(), l.data_ptr())
+    # B, Tq, Tk, Hq, Hkv, D, causal, q_offset, k_offset, scale, stream
+    assert args[6:] == (1, 48, 112, 4, 2, 64, 1, 64, 0, 0.125, None)
+    assert calls[1][2][4:6] == (None, None)
+    assert kflash.flash_fwd.launches == 2
+    assert kflash.flash_fwd.mma_launches == (2 if dtype == torch.bfloat16
+                                             else 0)
+    kflash.reset_launch_counts()
+    assert kflash.flash_fwd.launches == kflash.flash_fwd.mma_launches == 0
+
+
+@pytest.mark.parametrize("tq", [64, 128])
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_auto_rule(dtype, d, tq):
+    # "auto" takes the kernels exactly for the dtypes and head dims both
+    # the forward and the backward wrappers accept, from 128 query rows;
+    # on CPU tensors never
+    covered = dtype in (torch.float32, torch.bfloat16) and d in (32, 64,
+                                                                 128)
+    q_shape, k_shape = (2, tq, 4, d), (2, tq, 2, d)
+    assert kflash.flash_covers(dtype, q_shape, k_shape) == covered
+    assert kflash.auto_takes_flash(dtype, q_shape, k_shape) == (
+        covered and tq >= 128)
+    q = torch.zeros(q_shape, dtype=dtype)
+    k = torch.zeros(k_shape, dtype=dtype)
+    v = torch.zeros(k_shape, dtype=dtype)
+    assert not kflash.flash_supported(q, k, v)
+    b, _, hq, _ = q_shape
+    g, m = torch.zeros_like(q), torch.zeros((b * hq, tq))
+    for check in (lambda: kflash._check_operands(q, k, v),
+                  lambda: kbwd._check_backward(q, k, v, g, m, m, m)):
+        if covered:
+            check()
+        else:
+            with pytest.raises((TypeError, ValueError)):
+                check()
+
+
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_attention_auto_on_cpu_is_dense(dtype, d):
+    # impl="auto" on CPU tensors is the dense path, at head dims the
+    # kernels do not cover too
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype) for shape in ((1, 160, 4, d),
+                                             (1, 160, 2, d),
+                                             (1, 160, 2, d)))
+    dense = local_attention(q, k, v, causal=True, impl="xla")
+    assert torch.equal(local_attention(q, k, v, causal=True), dense)
+    assert torch.equal(local_attention(q, k, v, causal=True, impl="auto"),
+                       dense)
 
 
 @pytest.mark.parametrize("name", ["ragged_offset", "gqa_offsets"])

@@ -6,6 +6,13 @@ package, on the CPU (the plain versions of the kernels):
   order, and exp/sin/cos differ by an ulp between the libraries);
 * ``make_solver`` for a few chunks against ``make_multistep`` over the
   same number of steps: 2e-4;
+* the narrow (ghost-1) schedule, the default: the initial state, the
+  Euler step and AB2 steps against the JAX ``shallow_water_step`` at
+  ghost 1 from the same state (1e-6 on h, u, v and 1e-4 on the
+  tendencies after the Euler step, 2e-4 after the AB2 steps, as the
+  ghost-2 step tests), the solver against ``make_multistep`` (2e-4), and
+  ghost 1 against ghost 2 to rounding (atol 1e-3, as
+  tests/test_shallow_water.py holds the JAX schedules);
 * ``gather_global``, the state conversions, the example entry point,
   and that entry points never fall back to the CPU on their own.
 
@@ -125,13 +132,13 @@ def test_gather_global_matches_jax(solver_pair):
             out_specs=jax.P(("y", "x"), None, None), check_vma=False,
         )
     )(expected.h)
-    gathered = tsw.gather_global(actual.h, MeshComm())
+    gathered = tsw.gather_global(actual.h, MeshComm(), ghost=2)
     assert tuple(gathered.shape) == (24, 48)
     _assert_rel_close(np.asarray(g)[0], gathered.numpy(), 2e-4, "h")
 
 
 def test_state_conversions_round_trip():
-    cfg = tsw.SWConfig(ny=6, nx=8)
+    cfg = tsw.SWConfig(ny=6, nx=8, ghost=2)
     rng = np.random.default_rng(0)
     full = [rng.standard_normal((10, 12)).astype(np.float32)
             for _ in range(3)]
@@ -173,3 +180,117 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     zeros = [np.zeros((12, 12), np.float32)] * 6
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsw.state_from_jax(zeros, cfg)
+
+
+def test_default_config_matches_jax():
+    assert dataclasses.asdict(tsw.SWConfig()) == dataclasses.asdict(
+        jsw.SWConfig())
+    assert tsw.SWConfig().ghost == 1
+    assert tsw.SWConfig().bench_size() == tsw.config_from_jax(
+        dataclasses.asdict(jsw.SWConfig().bench_size()))
+
+
+@pytest.fixture(scope="module")
+def narrow_steps():
+    """The JAX ghost-1 initial state (ny=40, nx=32, as ``init_pair``),
+    then one Euler step and three AB2 steps, in the JAX package and in
+    the port from the same state."""
+    jcfg = jsw.SWConfig(ny=40, nx=32)
+    jcomm = _jax_comm()
+    s0 = jsw.make_init(jcfg, jcomm)()
+    j_first = jsw.make_first_step(jcfg, jcomm)(s0)
+    j_multi = jsw.make_multistep(jcfg, jcomm, 3)(j_first)
+
+    cfg = tsw.config_from_jax(dataclasses.asdict(jcfg))
+    comm = MeshComm()
+    init = tsw.make_init(cfg, comm, device="cpu")()
+    state0 = tsw.state_from_jax([np.asarray(a) for a in s0], cfg,
+                                device="cpu")
+    p_first = tsw.make_first_step(cfg, comm)(state0)
+    p_multi = tsw.make_multistep(cfg, comm, 3)(
+        tsw.SWState(*(t.clone() for t in p_first)))
+    return {
+        "jax_init": [np.asarray(a) for a in s0],
+        "port_init": tsw.state_to_numpy(init),
+        "jax_first": [np.asarray(a) for a in j_first],
+        "port_first": tsw.state_to_numpy(p_first),
+        "jax_multi": [np.asarray(a) for a in j_multi],
+        "port_multi": tsw.state_to_numpy(p_multi),
+    }
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_narrow_initial_state_matches_jax(narrow_steps, name):
+    i = FIELDS.index(name)
+    tol = {"h": 1e-5, "u": 1e-6, "v": 1e-6}.get(name)
+    if tol is None:  # full-shaped zero tendencies in both
+        assert narrow_steps["port_init"][i].shape == (42, 34)
+        assert not narrow_steps["port_init"][i].any()
+        assert not narrow_steps["jax_init"][i].any()
+        return
+    _assert_rel_close(narrow_steps["jax_init"][i],
+                      narrow_steps["port_init"][i], tol, name)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_narrow_first_step_matches_jax(narrow_steps, name):
+    i = FIELDS.index(name)
+    tol = 1e-4 if name.startswith("d") else 1e-6
+    _assert_rel_close(narrow_steps["jax_first"][i],
+                      narrow_steps["port_first"][i], tol, name)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_narrow_multistep_matches_jax(narrow_steps, name):
+    i = FIELDS.index(name)
+    _assert_rel_close(narrow_steps["jax_multi"][i],
+                      narrow_steps["port_multi"][i], 2e-4, name)
+
+
+@pytest.fixture(scope="module")
+def narrow_solver_pair():
+    """The port's solver at the default ghost 1 over 2 timed chunks of 5
+    steps after the bootstrap and warm-up (16 steps), and the JAX model
+    over the same 16 steps, as ``solver_pair`` at ghost 2."""
+    jcfg = jsw.SWConfig(ny=24, nx=48)
+    jcomm = _jax_comm()
+    state = jsw.make_first_step(jcfg, jcomm)(jsw.make_init(jcfg, jcomm)())
+    expected = jsw.make_multistep(jcfg, jcomm, 15)(state)
+    cfg = tsw.config_from_jax(dataclasses.asdict(jcfg))
+    solve = tsw.make_solver(cfg, MeshComm(), num_multisteps=5,
+                            device="cpu")
+    actual, _, steps = solve(13.5 * cfg.dt)
+    assert steps == 10
+    return expected, actual
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_narrow_solver_matches_jax_multistep(narrow_solver_pair, name):
+    expected, actual = narrow_solver_pair
+    i = FIELDS.index(name)
+    _assert_rel_close(np.asarray(expected[i]),
+                      tsw.state_to_numpy(actual)[i], 2e-4, name)
+
+
+def test_narrow_equals_wide():
+    # the two schedules compute the same arithmetic, one communicating
+    # what the other recomputes in its wider ring: equal to rounding
+    comm = MeshComm()
+    h = {}
+    for ghost in (1, 2):
+        cfg = tsw.SWConfig(ny=24, nx=48, ghost=ghost)
+        state = tsw.make_first_step(cfg, comm)(
+            tsw.make_init(cfg, comm, device="cpu")())
+        state = tsw.make_multistep(cfg, comm, 15)(state)
+        h[ghost] = tsw.gather_global(state.h, comm, ghost=ghost).numpy()
+    assert h[1].shape == h[2].shape == (24, 48)
+    np.testing.assert_allclose(h[2], h[1], rtol=0, atol=1e-3)
+
+
+def test_unported_ghost_widths_raise():
+    comm = MeshComm()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        tsw.make_multistep(tsw.SWConfig(ny=8, nx=8, ghost=4), comm, 1)
+    with pytest.raises(ValueError, match="ghost width"):
+        tsw.make_init(tsw.SWConfig(ny=8, nx=8, ghost=3), comm,
+                      device="cpu")
