@@ -8,8 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. build: the hand-written kernels are compiled from
    ``mpi4jax_tpu_torch/kernels/csrc/*.cu`` with nvcc for sm_90a, one
-   nvcc per source, all started together; ptxas's register and spill
-   lines are printed.
+   nvcc per source, all started together; nvcc's seconds per source and
+   ptxas's registers and spills per kernel and head dim are printed.
 2. kernels (shallow water): at the published 3600x1800 domain (ghost 2,
    one rank) each kernel is held against its plain PyTorch version on
    the same inputs on the card, and timed beside its bound, its plain
@@ -48,29 +48,34 @@ Phases, each of which raises on failure (nothing is caught):
 7. profile (decode): one decode call under torch.profiler, for device
    time by kernel in the prefill and the generation loop, and the
    generation loop's idle share.
-8. kernels (flash backward): both backward kernels (dkv, dq) against
-   their plain versions on the same inputs and the same forward (out,
-   m, l): the training path's shape [2, 8192, 16, 128] bf16 causal, a
-   padded f32 case, q/k offsets, fully masked rows, grouped-query heads
-   in f32 and bf16, D 32 and 64; for each of dq, dk and dv the largest
-   and the mean absolute difference over max|plain|, each within a
-   limit that planted faults exceed; every case is checked before the
-   phase raises.  Timed at the path shape beside their bounds, their
-   plain versions and the backward of one scaled_dot_product_attention
-   call.
+8. kernels (flash backward): the backward kernels (dkv, dq) of each
+   dtype against their plain versions (at the kernel's own key tile) on
+   the same inputs and the same forward (out, m, l): the bf16
+   tensor-core pair at the training path's shape [2, 8192, 16, 128]
+   causal, and both pairs (f32 and bf16) on a padded case, q/k offsets,
+   fully masked rows, grouped-query heads and D 32, the bf16 pair at
+   D 64 too; for each of dq, dk and dv the largest and the mean absolute
+   difference over max|plain|, each within a limit that planted faults
+   exceed; every case is checked before the phase raises.  The bf16 pair
+   is timed at the path shape, the f32 pair at the f32 decode check's
+   shape [2, 1024, 8, 64] causal, each beside its bound, its plain
+   version and the backward of one scaled_dot_product_attention call.
 9. path (train): the long-context training preset (~940M parameters,
    batch 2, seq 8192, bf16, flash attention; benchmarks/transformer.py
    SIZES["long"], without remat) through ``make_global_train_step``:
    one warm-up step, then timed steps with every launch count set to 0
    just before each and read just after it: 16 launches of each of
-   the bf16 forward kernel, flash_bwd_dkv and flash_bwd_dq per step.
-   Losses finite, parameters changed; step ms, tokens/s, both MFU
-   readings and the peak memory are printed.  Then at 2 layers of the same width and
-   sequence the gradient of the loss on the kernel path is held against
-   the gradient on the plain path (the kernels' plain versions as the
-   attention function), leaf by leaf.
+   the tensor-core kernels (flash_fwd_mma, flash_bwd_dkv_mma,
+   flash_bwd_dq_mma) per step and none of the f32 ones.  Losses finite,
+   parameters changed; step ms, tokens/s, both MFU readings and the peak
+   memory are printed.  Then at 2 layers of the same width and sequence
+   the bf16 gradient of the loss on the kernel path is held against the
+   gradient on the plain path (the kernels' plain versions as the
+   attention function), leaf by leaf; and likewise in f32 at the decode
+   model's width (batch 2, seq 1024), where the f32 kernels launch once
+   per layer each.
 10. profile (train): one step under torch.profiler, for device time by
-   kernel and the idle share.
+   kernel, the flash kernels' share of it and the idle share.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -79,13 +84,14 @@ Without a CUDA device it exits 1 before printing any result.
     python3 chip_smoke.py --fault-readings
 
 builds and runs the checks of phases 5 and 8 (not their timings) and the
-2-layer training gradient on this tree and, at the same time, on
+2-layer training gradients on this tree and, at the same time, on
 throw-away copies of it each with one fault planted in
 ``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for the
-dropped diagonal tile the gradient too) or in ``flash_bwd.cu``
-(``BWD_FAULTS``: the backward checks), and prints every copy's
-readings: the evidence for the limits.  It exits 0 when the sound tree
-passes and every fault fails.
+dropped diagonal tile the gradients too), in ``flash_bwd.cu``
+(``BWD_FAULTS``) or in ``flash_bwd_mma.cu`` (``BWD_MMA_FAULTS``, and
+``BWD_MMA_READINGS``, read but not judged: the backward checks), and
+prints every copy's readings: the evidence for the limits.  It exits 0
+when the sound tree passes and every fault fails.
 
     python3 chip_smoke.py --check fwd,bwd,grad
 
@@ -96,6 +102,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -116,7 +123,10 @@ from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
 
-SOURCES = ("sw_step", "flash_fwd", "flash_fwd_mma", "flash_bwd")
+SOURCES = ("sw_step", "flash_fwd", "flash_fwd_mma", "flash_bwd",
+           "flash_bwd_mma")
+# the flash kernels' sources, built by the checks alone
+FLASH_SOURCES = SOURCES[1:]
 
 # H100 SXM data-sheet peaks (dense): device memory, float32 outside the
 # tensor cores, bf16 in them.  The shallow-water kernels do float32
@@ -187,15 +197,26 @@ TRAIN_CFG = tfm.TransformerConfig(
 TRAIN_LR = 1e-3  # run's SGD rate (benchmarks/transformer.py:252)
 TRAIN_TIMED_STEPS = 3
 TRAIN_CHECK_LAYERS = 2
+# flash launches per layer of one bf16 training step: the tensor-core
+# kernels, and none of the f32 ones
+TRAIN_LAUNCHES = {"flash_fwd": 0, "flash_fwd_mma": 1, "flash_bwd_dkv": 0,
+                  "flash_bwd_dq": 0, "flash_bwd_dkv_mma": 1,
+                  "flash_bwd_dq_mma": 1}
+# the f32 gradient check: the decode model's width (flash attention) at
+# batch 2, seq 1024, the f32 kernels once per layer each
+F32_TRAIN_CFG = DECODE_CFG._replace(attn_impl="flash")
+F32_TRAIN = dict(batch=2, seq=1024)
 
 # backward kernels against their plain versions, per gradient (dq, dk,
 # dv): the largest and the mean absolute difference over max|plain|.
 # They differ by the summation order alone: in f32 by a few ulps, in bf16
-# where an output rounds to the other bf16 neighbour.  Each limit lies
-# between the sound kernels' readings and those of the planted faults of
-# BWD_FAULTS (PERF.md §6).  Sound at most / faults at least: f32 max
-# 1.3e-6 / 1.2e-2, mean 5.4e-8 / 9.1e-4; bf16 max 1.0e-3 / 5.9e-3, mean
-# 1.0e-7 / 6.9e-6 (unrounded dV weights, caught by the mean).
+# where an output rounds to the other bf16 neighbour (and, for the bf16
+# tensor-core kernels, where __expf rounds a weight to the other bf16
+# neighbour than torch.exp).  Each limit lies between the sound kernels'
+# readings and those of the planted faults of BWD_FAULTS (f32) and
+# BWD_MMA_FAULTS (bf16) (PERF.md §6).  Sound at most / each fault's
+# worst case at least: f32 max 1.9e-6 / 1.2e-2, mean 5.4e-8 / 3.6e-3;
+# bf16 (tensor cores) max 2.7e-3 / 7.6e-3, mean 1.4e-7 / 1.9e-4.
 BWD_LIMITS = {
     torch.float32: {"max": 1e-5, "mean": 1e-6},
     torch.bfloat16: {"max": 3e-3, "mean": 1e-6},
@@ -206,6 +227,12 @@ BWD_LIMITS = {
 # other way, and every later bf16 activation carries that on; readings
 # 2.2e-3 (ln_f) to 1.25e-2 (embed), PERF.md §6.
 TRAIN_GRAD_LIMIT = 5e-2
+# the same in f32: the f32 kernels differ from their plain versions by
+# f32 summation order (about 1e-6 of the largest output: FLASH_LIMITS,
+# BWD_LIMITS), which two layers carry through LayerNorm and the matmuls'
+# backward; 1e-3 of a leaf's largest gradient leaves room for
+# cancellation in the small leaves and is 50x under the bf16 limit
+F32_GRAD_LIMIT = 1e-3
 # faults planted in copies of flash_fwd_mma.cu for --fault-readings, each
 # an exact replacement: the query tiles in the lower half of the rows drop
 # their diagonal key tile; the exponential of the unrounded argument; the
@@ -231,24 +258,76 @@ FLASH_FAULTS = {
         "acc[n][e] = acc[n][e];",
     ),
 }
-# faults planted in copies of flash_bwd.cu for --fault-readings, each an
-# exact replacement: the dkv kernel drops the diagonal query tile of the
-# key blocks in the lower half of the rows; dV takes the unrounded
-# weights; query tiles are skipped by the diagonal alone, which loses the
-# fully masked rows' dO/n
+# faults planted in copies of flash_bwd.cu (f32) for --fault-readings,
+# each an exact replacement: the dkv kernel drops the diagonal query tile
+# of the key blocks in the lower half of the rows; query tiles are skipped
+# by the diagonal alone, which loses the fully masked rows' dO/n
 BWD_FAULTS = {
     "diag_tile": (
         "first = tile < n_tiles ? static_cast<int>(tile) : n_tiles;",
         "first = tile < n_tiles ? static_cast<int>(tile) + "
         "(2 * tile * kQTile >= Tq ? 1 : 0) : n_tiles;",
     ),
-    "dv_unrounded": (
-        "const float pv = as_operand(p, T());",
-        "const float pv = p;",
+    "diagonal_skip": (
+        "if (causal && q_offset >= k_offset) {",
+        "if (causal) {",
+    ),
+}
+# faults planted in copies of flash_bwd_mma.cu (bf16) for
+# --fault-readings, each an exact replacement: dq drops its diagonal key
+# tile for the query tiles in the lower half of the rows; dkv drops its
+# diagonal query tile for the key blocks in the lower half; the causal
+# mask applied with the C fragment's row and column swapped; query tiles
+# skipped by the diagonal alone; ds's mid and lo terms dropped; the dV
+# weights packed to bf16 by truncation instead of round-to-nearest
+BWD_MMA_FAULTS = {
+    "dq_diag_tile": (
+        "if (needed < n_tiles) n_tiles = static_cast<int>(needed);",
+        "if (needed < n_tiles) n_tiles = static_cast<int>(needed);\n"
+        "    if (2 * q0 >= Tq) --n_tiles;",
+    ),
+    "dkv_diag_tile": (
+        "first = tile < n_tiles ? static_cast<int>(tile) : n_tiles;",
+        "first = tile < n_tiles ? static_cast<int>(tile) + "
+        "(2 * tile * kQTile >= Tq ? 1 : 0) : n_tiles;",
+    ),
+    "mask_swap": (
+        "if (mask_causal && q_offset + q0 + i < kpos[e / 2]) {",
+        "if (mask_causal && q_offset + q0 + 16 * c + 8 * n + gr + 8 * (e / 2)"
+        " < k_offset + kw0 + 2 * t + e % 2) {",
     ),
     "diagonal_skip": (
         "if (causal && q_offset >= k_offset) {",
         "if (causal) {",
+    ),
+    "ds_hi_only": (
+        "constexpr int kTerms = 3;",
+        "constexpr int kTerms = 1;",
+    ),
+    "dv_trunc": (
+        "return pack_bf16(a, b);",
+        "return (__float_as_uint(a) >> 16) | "
+        "(__float_as_uint(b) & 0xffff0000u);",
+    ),
+}
+# planted and read by --fault-readings but not judged: ds's lo term
+# dropped, what the third term buys; dK accumulated by mma.sync itself
+# over all the query rows instead of one 16-row chunk at a time, what the
+# CUDA-core accumulation buys (PERF.md §6)
+BWD_MMA_READINGS = {
+    "ds_two_terms": (
+        "constexpr int kTerms = 3;",
+        "constexpr int kTerms = 2;",
+    ),
+    "mma_accumulates_dk": (
+        "          mma_16816(dk_part[0], da[term], r[0], r[1]);\n"
+        "          mma_16816(dk_part[1], da[term], r[2], r[3]);\n"
+        "        }\n"
+        "        accumulate(dk_acc[n], dk_part[0]);\n"
+        "        accumulate(dk_acc[n + 1], dk_part[1]);",
+        "          mma_16816(dk_acc[n], da[term], r[0], r[1]);\n"
+        "          mma_16816(dk_acc[n + 1], da[term], r[2], r[3]);\n"
+        "        }",
     ),
 }
 
@@ -443,12 +522,17 @@ def reset_launch_counts():
 
 
 def launch_counts():
+    """Launches of each kernel since the counts were last set to 0 (each
+    flash wrapper counts both its kernels and its tensor-core one)."""
+    fwd, dkv, dq = kflash.flash_fwd, kbwd.flash_bwd_dkv, kbwd.flash_bwd_dq
     return {"sw_main": sw_step.sw_main.launches,
             "sw_visc": sw_step.sw_visc.launches,
-            "flash_fwd": kflash.flash_fwd.launches,
-            "flash_fwd_mma": kflash.flash_fwd.mma_launches,
-            "flash_bwd_dkv": kbwd.flash_bwd_dkv.launches,
-            "flash_bwd_dq": kbwd.flash_bwd_dq.launches}
+            "flash_fwd": fwd.launches - fwd.mma_launches,
+            "flash_fwd_mma": fwd.mma_launches,
+            "flash_bwd_dkv": dkv.launches - dkv.mma_launches,
+            "flash_bwd_dq": dq.launches - dq.mma_launches,
+            "flash_bwd_dkv_mma": dkv.mma_launches,
+            "flash_bwd_dq_mma": dq.mma_launches}
 
 
 def path_phase(cfg, comm, device, kernels, state0, card):
@@ -548,9 +632,35 @@ def profile_phase(cfg, comm, state, step_ms, n_steps=25):
             / n_steps}
 
 
+def ptxas_report(name):
+    """ptxas's report of ``csrc/<name>.cu`` from its build log: one
+    ``(kernel, template arguments, registers, spill stores, spill loads)``
+    per compiled kernel (bytes of spill)."""
+    rows, kernel = [], None
+    for line in (_build.library_dir(name) / "build.log").read_text(
+            ).splitlines():
+        entry = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", line)
+        if "Compiling entry function" in line and entry:
+            args = re.findall(r"(f|13__nv_bfloat16|Li(\d+)E)",
+                              entry.group(2) or "")
+            kernel = (entry.group(1), ", ".join(
+                "float" if a == "f" else "bf16" if a.startswith("13")
+                else d for a, d in args))
+            spills = (0, 0)
+        elif kernel and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill", line)
+            spills = (int(nums[0]), int(nums[1]))
+        elif kernel and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append((*kernel, regs, *spills))
+            kernel = None
+    return rows
+
+
 def build_phase(sources=SOURCES):
     """Build every kernel source at once (one nvcc each, in threads:
-    the compiles run as subprocesses) and print ptxas's report."""
+    the compiles run as subprocesses) and print nvcc's seconds and
+    ptxas's registers and spills per kernel and head dim."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = [pool.submit(_build.load_library, name) for name in sources]
@@ -558,12 +668,16 @@ def build_phase(sources=SOURCES):
             f.result()
     log(f"  {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    report = {}
     for name in sources:
         log(f"  {name}.cu: nvcc {_build.build_seconds(name):.2f} s")
-        for line in (_build.library_dir(name) / "build.log").read_text(
-                ).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"    ptxas: {line.strip()}")
+        for kernel, args, regs, stores, loads in ptxas_report(name):
+            log(f"    ptxas: {kernel}<{args}>: {regs} registers, spill "
+                f"stores {stores} bytes, spill loads {loads} bytes")
+            report[f"{kernel}<{args}>"] = {
+                "registers": regs, "spill_stores": stores,
+                "spill_loads": loads}
+    return report
 
 
 def flash_inputs(shape, dtype, device, seed):
@@ -787,10 +901,10 @@ def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     log(f"  make_global_decode(prefill_impl='flash', kv_bucket="
         f"{LONG['kv_bucket']}): one decode {wall:.4f} s (warm-up "
         f"{warm_s:.4f} s); launches {launches}")
-    for kname in ("flash_fwd", "flash_fwd_mma"):
-        if launches[kname] != cfg.layers:
+    for kname, want in (("flash_fwd_mma", cfg.layers), ("flash_fwd", 0)):
+        if launches[kname] != want:
             raise RuntimeError(f"{kname} launched {launches[kname]} times "
-                               f"in one bf16 decode, expected {cfg.layers}")
+                               f"in one bf16 decode, expected {want}")
     flash_kernel["launches"] = launches["flash_fwd_mma"]
     if tuple(out.shape) != (batch, max_len) or out.dtype != torch.int32:
         raise RuntimeError(f"decode returned {out.dtype} {tuple(out.shape)}")
@@ -861,7 +975,7 @@ def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     reset_launch_counts()
     kernel_out = decode32(params32, prompts32)
     launches = launch_counts()
-    f32_launches = launches["flash_fwd"] - launches["flash_fwd_mma"]
+    f32_launches = launches["flash_fwd"]
     if f32_launches != cfg.layers or launches["flash_fwd_mma"]:
         raise RuntimeError(f"one f32 decode launched the f32 kernel "
                            f"{f32_launches} times and the bf16 kernel "
@@ -934,10 +1048,13 @@ def decode_profile_phase(decode, params, prompts, path):
 
 
 def bwd_bounds(shape, dtype, causal):
-    """Operations and bytes of each backward kernel at ``shape`` (B, Tq,
-    Tk, Hq, Hkv, D): dkv does 4 products per visible pair (s, dP, dV,
-    dK), dq 3 (s, dP, dQ), each 2·D operations; every input read once
-    (q, k, v, dO, and m, l, delta in f32), every output written once."""
+    """(flops, bytes, bound_ms, bound_by) of each backward kernel at
+    ``shape`` (B, Tq, Tk, Hq, Hkv, D), keyed "dkv" and "dq": dkv needs 4
+    products per visible pair (s, dP, dV, dK), dq 3 (s, dP, dQ), each 2·D
+    operations, over the type's peak (bf16 on the tensor cores, f32
+    outside them; the bf16 kernels' extra products for ds's mid and lo
+    terms are not counted); every input read once (q, k, v, dO, and m, l,
+    delta in f32), every output written once."""
     b, tq, tk, hq, hk, d = shape
     esz = torch.tensor([], dtype=dtype).element_size()
     pairs = causal_pairs(tq, tk, 0, 0) if causal else float(tq * tk)
@@ -945,27 +1062,44 @@ def bwd_bounds(shape, dtype, causal):
     kv_bytes = b * tk * hk * d * esz
     stat_bytes = 3 * b * hq * tq * 4
     inputs = 2 * q_bytes + 2 * kv_bytes + stat_bytes
-    return {
-        "flash_bwd_dkv": (8 * d * b * hq * pairs, inputs + 2 * kv_bytes),
-        "flash_bwd_dq": (6 * d * b * hq * pairs, inputs + q_bytes),
-    }
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_F32_PER_S
+    res = {}
+    for part, products, nbytes in (("dkv", 4, inputs + 2 * kv_bytes),
+                                   ("dq", 3, inputs + q_bytes)):
+        flops = 2 * products * d * b * hq * pairs
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        flops_ms = flops / peak * 1e3
+        res[part] = (flops, nbytes, max(bytes_ms, flops_ms),
+                     "bytes" if bytes_ms >= flops_ms else "operations")
+    return res
 
 
 def bwd_check_cases():
+    """The backward kernels' check cases: the training path's shape, and
+    padding, q/k offsets, fully masked rows, grouped-query heads and D 32
+    and 64 in each dtype (f32: flash_bwd.cu, bf16: flash_bwd_mma.cu)."""
     b, t = TRAIN["batch"], TRAIN["seq"]
     h, d = TRAIN_CFG.heads, TRAIN_CFG.head_dim
-    return [
+    cases = [
         # name, (B, Tq, Tk, Hq, Hkv, D), dtype, causal, q_offset, k_offset
         ("path", (b, t, t, h, h, d), torch.bfloat16, True, 0, 0),
-        ("padding", (2, 1000, 1000, 4, 4, 64), torch.float32, False, 0, 0),
-        ("offsets", (1, 96, 160, 2, 2, 32), torch.float32, True, 64, 0),
-        ("fully_masked", (1, 200, 300, 2, 2, 64), torch.float32, True, 0,
-         40),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        cases += [
+            ("padding" + sfx, (2, 1000, 1000, 4, 4, 64), dtype, False, 0, 0),
+            ("offsets" + sfx, (1, 96, 160, 2, 2, 32), dtype, True, 64, 0),
+            ("fully_masked" + sfx, (1, 200, 300, 2, 2, 64), dtype, True, 0,
+             40),
+            ("d32" + sfx, (2, 256, 256, 4, 4, 32), dtype, True, 0, 0),
+        ]
+    cases += [
         ("gqa", (2, 300, 300, 8, 2, 64), torch.float32, True, 0, 0),
         ("gqa_bf16", (2, 1024, 1024, 8, 2, 128), torch.bfloat16, True, 0,
          0),
-        ("d32", (2, 256, 256, 4, 4, 32), torch.float32, True, 0, 0),
+        ("d64_bf16", (2, 512, 512, 4, 4, 64), torch.bfloat16, True, 0, 0),
     ]
+    return cases
 
 
 def bwd_inputs(shape, dtype, causal, qo, ko, device, seed):
@@ -980,25 +1114,32 @@ def bwd_inputs(shape, dtype, causal, qo, ko, device, seed):
     return (q, k, v, g, m, l, kbwd.row_delta(g, out)), kw
 
 
+def bwd_kernel_name(part, dtype):
+    return f"flash_bwd_{part}{'_mma' if dtype == torch.bfloat16 else ''}"
+
+
 def flash_bwd_kernel_phase(device, timed=True):
-    """Both backward kernels against their plain versions at the dq
-    kernel's key tile, then (``timed``) timed at the training path's
-    shape."""
+    """Both backward kernels of each dtype against their plain versions at
+    the kernel's own key tile; then (``timed``) the bf16 pair timed at the
+    training path's shape and the f32 pair at the f32 decode check's
+    shape, each beside its bound, its plain version and the backward of
+    one scaled_dot_product_attention call."""
     cases = bwd_check_cases()
-    path_err = {}
+    errs_by = {}
     failed = []
     for i, (name, shape, dtype, causal, qo, ko) in enumerate(cases):
         args, kw = bwd_inputs(shape, dtype, causal, qo, ko, device, seed=i)
         got = dict(zip(("dk", "dv"), kbwd.flash_bwd_dkv(*args, **kw)))
         got["dq"] = kbwd.flash_bwd_dq(*args, **kw)
+        plain = dict(block_k=kbwd.kernel_block_k(dtype), **kw)
         want = dict(zip(("dk", "dv"), kbwd.flash_bwd_dkv_reference(
-            *args, block_k=kbwd.BLOCK_K, **kw)))
-        want["dq"] = kbwd.flash_bwd_dq_reference(*args, block_k=kbwd.BLOCK_K,
-                                                 **kw)
+            *args, **plain)))
+        want["dq"] = kbwd.flash_bwd_dq_reference(*args, **plain)
         torch.cuda.synchronize()
         lim = BWD_LIMITS[dtype]
         parts = []
         ok = True
+        errs_by[name] = {}
         for grad in ("dq", "dk", "dv"):
             scale = max(want[grad].float().abs().max().item(), 1e-30)
             diff = (got[grad].float() - want[grad].float()).abs()
@@ -1010,12 +1151,12 @@ def flash_bwd_kernel_phase(device, timed=True):
                 and err["mean"] <= lim["mean"]
             parts.append(f"{grad} max {err['max']:.3e} mean {err['mean']:.3e}"
                          f"{'' if finite else ' NOT FINITE'}")
-            if name == "path":
-                path_err[grad] = err
-        log(f"  flash_bwd {name} {list(shape)} {str(dtype)[6:]} causal="
-            f"{causal} q_offset={qo} k_offset={ko}: {'; '.join(parts)} "
-            f"(over max|plain|; limits max {lim['max']:g}, mean "
-            f"{lim['mean']:g}) {'ok' if ok else 'FAIL'}")
+            errs_by[name][grad] = err
+        log(f"  {bwd_kernel_name('dkv', dtype)}, {bwd_kernel_name('dq', dtype)}"
+            f" {name} {list(shape)} {str(dtype)[6:]} causal={causal} "
+            f"q_offset={qo} k_offset={ko}: {'; '.join(parts)} (over "
+            f"max|plain|; limits max {lim['max']:g}, mean {lim['mean']:g}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
         del args, got, want
@@ -1025,69 +1166,76 @@ def flash_bwd_kernel_phase(device, timed=True):
     if not timed:
         return None
 
-    # timing at the path shape, as the training step calls the kernels
-    name, shape, dtype, causal, qo, ko = cases[0]
-    args, kw = bwd_inputs(shape, dtype, causal, qo, ko, device, seed=0)
-    plain = dict(block_k=kbwd.BLOCK_K, **kw)
-    ms = {
-        "flash_bwd_dkv": time_ms(lambda: kbwd.flash_bwd_dkv(*args, **kw),
-                                 n=3, repeats=3, warmup=1),
-        "flash_bwd_dq": time_ms(lambda: kbwd.flash_bwd_dq(*args, **kw),
-                                n=3, repeats=3, warmup=1),
-    }
-    plain_ms = {
-        "flash_bwd_dkv": time_ms(
-            lambda: kbwd.flash_bwd_dkv_reference(*args, **plain),
-            n=1, repeats=3, warmup=1),
-        "flash_bwd_dq": time_ms(
-            lambda: kbwd.flash_bwd_dq_reference(*args, **plain),
-            n=1, repeats=3, warmup=1),
-    }
-    # the library yardstick: the backward of one causal
-    # scaled_dot_product_attention call on [B, H, T, D] bf16, which gives
-    # dq, dk and dv together (no one PyTorch call gives dk, dv alone)
-    q, k, v, g = (x.transpose(1, 2).contiguous() for x in args[:4])
-    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    library_ms = time_ms(
-        lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
-        n=5, repeats=3)
-    del q, k, v, g, out
+    f32_shape = (F32_DECODE["batch"], F32_DECODE["prompt"],
+                 F32_DECODE["prompt"], DECODE_CFG.heads, DECODE_CFG.heads,
+                 DECODE_CFG.head_dim)
+    timings = [
+        # shape, dtype, the cases whose worst readings the entries carry
+        (cases[0][1], torch.bfloat16, ["path"]),
+        (f32_shape, torch.float32,
+         [c[0] for c in cases if c[2] == torch.float32]),
+    ]
     kernels = []
-    for kname, (flops, nbytes) in bwd_bounds(shape, dtype, causal).items():
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        flops_ms = flops / PEAK_BF16_PER_S * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
-        grads = ("dk", "dv") if kname == "flash_bwd_dkv" else ("dq",)
-        log(f"  {kname} at the path shape: {ms[kname]:.4f} ms per launch "
-            f"(plain {plain_ms[kname]:.4f} ms; backward of "
-            f"scaled_dot_product_attention, dq, dk and dv, {library_ms:.4f} "
-            f"ms); {flops:.4e} flops, {nbytes / 1e6:.1f} MB; bound "
-            f"{bound_ms:.4f} ms by "
-            f"{'bytes' if bytes_ms >= flops_ms else 'operations'} at the "
-            f"data-sheet peak ({flops / (ms[kname] * 1e-3) / 1e12:.2f} "
-            f"TFLOP/s achieved)")
-        kernels.append({
-            "name": kname,
-            "route": "cuda",
-            "source": "mpi4jax_tpu_torch/kernels/csrc/flash_bwd.cu",
-            "replaces": ("mpi4jax_tpu/ops/flash.py:399"
-                         if kname == "flash_bwd_dkv"
-                         else "mpi4jax_tpu/ops/flash.py:472"),
-            "launches": None,  # filled from the training path phase
-            "max_abs_err": max(path_err[gr]["max_abs"] for gr in grads),
-            "max_rel_err": max(path_err[gr]["max"] for gr in grads),
-            "mean_rel_err": max(path_err[gr]["mean"] for gr in grads),
-            "ms": ms[kname],
-            "plain_ms": plain_ms[kname],
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": library_ms,
-            "library_call": "backward of scaled_dot_product_attention "
-                            "(dq, dk and dv together)",
-            "bytes": nbytes,
-            "flops": flops,
-        })
+    for shape, dtype, names in timings:
+        args, kw = bwd_inputs(shape, dtype, True, 0, 0, device, seed=0)
+        plain = dict(block_k=kbwd.kernel_block_k(dtype), **kw)
+        fns = {
+            "dkv": (lambda: kbwd.flash_bwd_dkv(*args, **kw),
+                    lambda: kbwd.flash_bwd_dkv_reference(*args, **plain)),
+            "dq": (lambda: kbwd.flash_bwd_dq(*args, **kw),
+                   lambda: kbwd.flash_bwd_dq_reference(*args, **plain)),
+        }
+        # the library yardstick: the backward of one causal
+        # scaled_dot_product_attention call on [B, H, T, D], which gives
+        # dq, dk and dv together (no one PyTorch call gives dk, dv alone)
+        q, k, v, g = (x.transpose(1, 2).contiguous() for x in args[:4])
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        library_ms = time_ms(
+            lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+            n=5, repeats=3)
+        del q, k, v, g, out
+        bounds = bwd_bounds(shape, dtype, True)
+        for part, (fn, plain_fn) in fns.items():
+            kname = bwd_kernel_name(part, dtype)
+            ms = time_ms(fn, n=3, repeats=3, warmup=1)
+            plain_ms = time_ms(plain_fn, n=1, repeats=3, warmup=1)
+            flops, nbytes, bound_ms, bound_by = bounds[part]
+            grads = ("dk", "dv") if part == "dkv" else ("dq",)
+            worst = {key: max(errs_by[n][gr][key] for n in names
+                              for gr in grads)
+                     for key in ("max", "mean", "max_abs")}
+            log(f"  {kname} at {list(shape)} {str(dtype)[6:]} causal: "
+                f"{ms:.4f} ms per launch (plain {plain_ms:.4f} ms; backward "
+                f"of scaled_dot_product_attention, dq, dk and dv, "
+                f"{library_ms:.4f} ms); {flops:.4e} flops, "
+                f"{nbytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
+                f"{bound_by} at the data-sheet peak "
+                f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
+            kernels.append({
+                "name": kname,
+                "route": "cuda",
+                "source": "mpi4jax_tpu_torch/kernels/csrc/"
+                          f"{'flash_bwd_mma' if dtype == torch.bfloat16 else 'flash_bwd'}.cu",
+                "replaces": ("mpi4jax_tpu/ops/flash.py:399" if part == "dkv"
+                             else "mpi4jax_tpu/ops/flash.py:472"),
+                "launches": None,  # filled from the training path phase
+                "max_abs_err": worst["max_abs"],
+                "max_rel_err": worst["max"],
+                "mean_rel_err": worst["mean"],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "library_call": "backward of scaled_dot_product_attention "
+                                "(dq, dk and dv together)",
+                "bytes": nbytes,
+                "flops": flops,
+                "shape": list(shape),
+                "dtype": str(dtype)[6:],
+            })
+        del args
     return kernels
 
 
@@ -1109,8 +1257,9 @@ class PlainFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, m, l = ctx.saved_tensors
-        return kbwd.flash_bwd_reference(q, k, v, out, g, m, l,
-                                        block_k=kbwd.BLOCK_K, **ctx.kw)
+        return kbwd.flash_bwd_reference(
+            q, k, v, out, g, m, l, block_k=kbwd.kernel_block_k(q.dtype),
+            **ctx.kw)
 
 
 def plain_train_attention(q, k, v, *, causal):
@@ -1118,14 +1267,14 @@ def plain_train_attention(q, k, v, *, causal):
     return PlainFlash.apply(q, k, v)
 
 
-def train_data(cfg, device, seed=0):
-    """bf16 parameters and a batch of tokens with their next-token
-    targets, from a seed."""
+def train_data(cfg, device, seed=0, dtype=torch.bfloat16,
+               batch=TRAIN["batch"], seq=TRAIN["seq"]):
+    """Parameters of ``dtype`` and a batch of tokens with their
+    next-token targets, from a seed."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = tfm.init_params(cfg, generator=gen, dtype=torch.bfloat16,
-                             device=device)
-    tokens = torch.randint(0, cfg.vocab, (TRAIN["batch"], TRAIN["seq"]),
-                           generator=gen, device=device)
+    params = tfm.init_params(cfg, generator=gen, dtype=dtype, device=device)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=device)
     return params, (tokens, torch.roll(tokens, -1, dims=1))
 
 
@@ -1163,21 +1312,21 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
         reset_launch_counts()
         (params, loss), wall = synced_seconds(lambda: step(params, batch))
         counts = launch_counts()
-        per_step.append({kname: counts[kname] for kname in
-                         ("flash_fwd", "flash_fwd_mma", "flash_bwd_dkv",
-                          "flash_bwd_dq")})
+        per_step.append({kname: counts[kname] for kname in TRAIN_LAUNCHES})
         walls.append(wall)
         losses.append(loss.item())
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     log(f"  launches per timed step {per_step}")
     for counts in per_step:
         for kname, n in counts.items():
-            if n != cfg.layers:
+            want = cfg.layers * TRAIN_LAUNCHES[kname]
+            if n != want:
                 raise RuntimeError(f"{kname} launched {n} times in one "
-                                   f"training step, expected {cfg.layers}")
+                                   f"training step, expected {want}")
     for k in bwd_kernels:
-        k["launches"] = sum(c[k["name"]] for c in per_step)
-        k["launches_per_step"] = per_step[0][k["name"]]
+        if TRAIN_LAUNCHES[k["name"]]:
+            k["launches"] = sum(c[k["name"]] for c in per_step)
+            k["launches_per_step"] = per_step[0][k["name"]]
     flash_kernel["launches_train"] = sum(c["flash_fwd_mma"]
                                          for c in per_step)
     if not all(math.isfinite(x) for x in losses):
@@ -1202,7 +1351,7 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
                "mfu_incl_attn_pct": 100.0 * (model_tflops + attn_tflops)
                / peak}
     kernel_ms = cfg.layers * (flash_kernel["ms_train_shape"] + sum(
-        k["ms"] for k in bwd_kernels))
+        k["ms"] for k in bwd_kernels if TRAIN_LAUNCHES[k["name"]]))
     log(f"  step {best * 1e3:.4f} ms (best of {TRAIN_TIMED_STEPS}; all "
         f"{[round(w * 1e3, 4) for w in walls]}), {tokens / best:.2f} "
         f"tokens/s, {model_tflops:.4f} model TFLOP/s (6·N·tokens), "
@@ -1211,36 +1360,55 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
         f"the kernel phases' rates; peak memory {peak_gb:.4f} GB")
     del params, step
     worst = train_grad_check(device)
+    f32_worst, f32_launches = train_grad_check(device, torch.float32)
+    for k in bwd_kernels:
+        if not TRAIN_LAUNCHES[k["name"]]:
+            k["launches"] = f32_launches[k["name"]]
     return {"step_ms": best * 1e3, "step_ms_all": [w * 1e3 for w in walls],
             "tokens_per_s": tokens / best,
             "model_tflops_per_sec": model_tflops,
             "model_tflops_incl_attn": model_tflops + attn_tflops, **mfu,
             "peak_memory_gb": peak_gb, "losses": losses,
             "warmup_s": warm_s, "grad_check_worst": worst,
+            "f32_grad_check_worst": f32_worst,
             "params_m": n_params / 1e6}
 
 
-def train_grad_check(device):
-    """The gradient at 2 layers of the training preset's width and
-    sequence, kernel path against plain path, leaf by leaf; returns the
-    worst reading and raises above the limit."""
+def train_grad_check(device, dtype=torch.bfloat16):
+    """The gradient at 2 layers, kernel path against plain path, leaf by
+    leaf: in bf16 at the training preset's width and sequence (returns
+    the worst reading), in f32 at the decode model's width, batch 2, seq
+    1024 (returns the worst reading and the kernel path's launches, each
+    flash kernel of f32 once per layer).  Raises above the limit."""
     world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
     tp, sp = world.sub("tp"), world.sub("sp")
-    check_cfg = TRAIN_CFG._replace(layers=TRAIN_CHECK_LAYERS)
+    bf16 = dtype == torch.bfloat16
+    check_cfg = (TRAIN_CFG if bf16 else F32_TRAIN_CFG)._replace(
+        layers=TRAIN_CHECK_LAYERS)
+    shape = {} if bf16 else F32_TRAIN
+    limit = TRAIN_GRAD_LIMIT if bf16 else F32_GRAD_LIMIT
     grads = {}
     for label, impl in (("kernel", "flash"),
                         ("plain", plain_train_attention)):
-        params, batch = train_data(check_cfg, device, seed=1)
+        params, batch = train_data(check_cfg, device, seed=1, dtype=dtype,
+                                   **shape)
         reset_launch_counts()
         grads[label] = loss_and_grads(params, batch,
                                       check_cfg._replace(attn_impl=impl),
                                       tp, sp)
         if label == "kernel":
             counts = launch_counts()
-            log(f"  {TRAIN_CHECK_LAYERS}-layer gradient, kernel path "
-                f"launches {counts}")
+            log(f"  {TRAIN_CHECK_LAYERS}-layer {str(dtype)[6:]} gradient, "
+                f"kernel path launches {counts}")
         del params
     torch.cuda.synchronize()
+    if not bf16:
+        want = {name: TRAIN_CHECK_LAYERS if name in (
+            "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0
+            for name in counts}
+        if counts != want:
+            raise RuntimeError(f"the f32 gradient's launches {counts}, "
+                               f"expected {want}")
     (k_loss, k_grads), (p_loss, p_grads) = grads["kernel"], grads["plain"]
     worst = 0.0
     readings = []
@@ -1250,15 +1418,15 @@ def train_grad_check(device):
         finite = bool(torch.isfinite(kg.float()).all())
         worst = max(worst, err if finite else math.inf)
         readings.append(f"{leaf} {err:.3e}")
-    ok = worst <= TRAIN_GRAD_LIMIT
-    log(f"  {TRAIN_CHECK_LAYERS}-layer bf16 gradient, kernel vs plain "
-        f"path, max|diff|/max|plain| per leaf: {', '.join(readings)} "
-        f"(limit {TRAIN_GRAD_LIMIT:g}) {'ok' if ok else 'FAIL'}; loss "
+    ok = worst <= limit
+    log(f"  {TRAIN_CHECK_LAYERS}-layer {str(dtype)[6:]} gradient, kernel vs "
+        f"plain path, max|diff|/max|plain| per leaf: {', '.join(readings)} "
+        f"(limit {limit:g}) {'ok' if ok else 'FAIL'}; loss "
         f"{k_loss.item():.6f} vs {p_loss.item():.6f}")
     if not ok:
-        raise RuntimeError("the training gradient on the kernel path "
-                           "disagrees with the plain path")
-    return worst
+        raise RuntimeError(f"the {str(dtype)[6:]} training gradient on the "
+                           f"kernel path disagrees with the plain path")
+    return worst if bf16 else (worst, counts)
 
 
 def transformer_names():
@@ -1296,18 +1464,19 @@ def train_profile_phase(device, train):
     busy = sum(ms for ms, _ in per_kernel.values())
     launches = sum(c for _, c in per_kernel.values())
     flash = {name: sum(ms for kname, (ms, _) in per_kernel.items()
-                       if name in kname)
-             for name in ("flash_fwd_mma_kernel", "flash_bwd_dkv_kernel",
-                          "flash_bwd_dq_kernel")}
+                       if f"{name}_kernel<" in kname)
+             for name in TRAIN_LAUNCHES}
     idle = 1 - busy / train["step_ms"]
     log(f"  device busy {busy:.4f} ms in {launches} launches of a "
         f"{train['step_ms']:.4f} ms untraced step (idle share {idle:.4f}); "
-        f"flash kernels {flash}")
+        f"flash kernels, ms {flash}, share of device time "
+        f"{ {name: round(ms / busy, 4) for name, ms in flash.items()} }")
     for kname, (ms, count) in sorted(per_kernel.items(),
                                      key=lambda kv: -kv[1][0])[:8]:
         log(f"    {ms:.4f} ms, {count} launches: {kname[:90]}")
     return {"device_ms": busy, "launches": launches, "idle_share": idle,
-            "flash_ms": flash}
+            "flash_ms": flash,
+            "flash_share": {name: ms / busy for name, ms in flash.items()}}
 
 
 def run_checks(device, parts):
@@ -1316,11 +1485,12 @@ def run_checks(device, parts):
     without timings, after building the flash kernels.  Every check runs
     and prints its readings even when an earlier one failed; returns 1
     when any failed."""
-    build_phase(("flash_fwd", "flash_fwd_mma", "flash_bwd"))
+    build_phase(FLASH_SOURCES)
     checks = {
         "fwd": lambda: flash_kernel_phase(device, timed=False),
         "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
-        "grad": lambda: train_grad_check(device),
+        "grad": lambda: (train_grad_check(device),
+                         train_grad_check(device, torch.float32)),
     }
     failed = []
     for part in parts:
@@ -1338,8 +1508,11 @@ def fault_readings():
     reading.  A copy with a fault of ``FLASH_FAULTS`` (in
     ``flash_fwd_mma.cu``) runs the forward checks, the ``diag_tile`` one
     also the 2-layer training gradient; a copy with a fault of
-    ``BWD_FAULTS`` (in ``flash_bwd.cu``) the backward checks; the tree
-    itself all three."""
+    ``BWD_FAULTS`` (in ``flash_bwd.cu``) or of ``BWD_MMA_FAULTS`` or
+    ``BWD_MMA_READINGS`` (in ``flash_bwd_mma.cu``) the backward checks;
+    the tree itself all three.  Exit 0 when the sound tree passes and
+    every fault of the three fault dictionaries fails (the copies of
+    ``BWD_MMA_READINGS`` are read, not judged)."""
     root = pathlib.Path(__file__).resolve().parent
     work = pathlib.Path(tempfile.mkdtemp(prefix="flash_faults_"))
     plans = [(f"fwd_{name}", "flash_fwd_mma.cu", edit,
@@ -1347,6 +1520,10 @@ def fault_readings():
              for name, edit in FLASH_FAULTS.items()]
     plans += [(f"bwd_{name}", "flash_bwd.cu", edit, "bwd")
               for name, edit in BWD_FAULTS.items()]
+    plans += [(f"bwd_mma_{name}", "flash_bwd_mma.cu", edit, "bwd")
+              for name, edit in {**BWD_MMA_FAULTS,
+                                 **BWD_MMA_READINGS}.items()]
+    read_only = {f"bwd_mma_{name}" for name in BWD_MMA_READINGS}
     trees = {"sound": (root, "fwd,bwd,grad")}
     try:
         for name, source, (old, new), parts in plans:
@@ -1383,7 +1560,8 @@ def fault_readings():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ok = codes["sound"] == 0 and all(
-        code != 0 for name, code in codes.items() if name != "sound")
+        code != 0 for name, code in codes.items()
+        if name != "sound" and name not in read_only)
     log(json.dumps({"fault_readings": codes, "ok": ok}))
     return 0 if ok else 1
 
@@ -1413,7 +1591,7 @@ def main(argv):
     t_all = time.perf_counter()
 
     log("phase build")
-    build_phase()
+    ptxas = build_phase()
 
     cfg = sw.SWConfig().bench_size()
     comm = MeshComm()
@@ -1463,7 +1641,9 @@ def main(argv):
                     "decode_path": decode_path,
                     "decode_profile": decode_profile,
                     "train_path": train, "train_profile": train_profile,
-                    "copy_bytes_per_s": copy_rate}))
+                    "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
+                    "nvcc_s": {name: _build.build_seconds(name)
+                               for name in SOURCES}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,33 +1,32 @@
-// Hand-written Hopper (sm_90a) flash-attention backward kernels.
+// Hand-written Hopper (sm_90a) flash-attention backward kernels for f32
+// operands, on the CUDA cores.
 //
 //   flash_bwd_dkv  replaces mpi4jax_tpu/ops/flash.py:_bwd_dkv_kernel
-//                  (launched by _flash_bwd): dK and dV of one block of
-//                  keys, accumulated over the query rows that see them.
-//   flash_bwd_dq   replaces mpi4jax_tpu/ops/flash.py:_bwd_dq_kernel: dQ
-//                  of one block of query rows, accumulated over the keys
-//                  they see.
+//                  (launched by _flash_bwd) for f32 operands: dK and dV
+//                  of one block of keys, accumulated over the query rows
+//                  that see them.
+//   flash_bwd_dq   replaces mpi4jax_tpu/ops/flash.py:_bwd_dq_kernel for
+//                  f32 operands: dQ of one block of query rows,
+//                  accumulated over the keys they see.
+// bf16 operands go to the tensor-core kernels of flash_bwd_mma.cu.
 //
 // Layout: q, dO and dq are row-major [B, Tq, Hq, D], k, v, dk and dv
 // [B, Tk, Hkv, D] (the [B, T, H, D] operands of flash_attention, read with
 // strides: no fold and no padding copy).  Query head h reads kv head
 // h / (Hq / Hkv).  m, l (the forward's row statistics) and delta =
-// rowsum(f32(dO) * f32(out)) are f32 [B*Hq, Tq], row b*Hq + h.  T is float
-// or __nv_bfloat16.
+// rowsum(dO * out) are f32 [B*Hq, Tq], row b*Hq + h.
 //
 // Semantics kept from the Pallas kernels' shared math (_bwd_block), term
 // by term:
-//   * scores in f32 from upcast operands, the scale on one operand: the
-//     dkv kernel scales q, the dq kernel scales k (the two round apart);
+//   * scores in f32, the scale on one operand: the dkv kernel scales q,
+//     the dq kernel scales k (the two round apart);
 //   * a causally masked real key scores _NEG = -0.7 * FLT_MAX, a key at
 //     or past Tk scores -inf;
-//   * weights from the saved statistics, never from m + log l: bf16
-//     operands p = f32(bf16(exp(bf16(s - m)))) / l (the forward's own
-//     weights), f32 operands p = exp(s - m) / l;
-//   * dP = dO . v with f32 sums of the operands' exact products,
-//     ds = p * (dP - delta), and ds = 0 wherever the key is not visible;
-//   * dV += p' dO with p' = p rounded to dO's type, dK += ds q_scaled,
-//     dQ += ds k_scaled, all accumulated in f32 and written in the
-//     operands' type.
+//   * weights from the saved statistics, never from m + log l:
+//     p = exp(s - m) / l;
+//   * dP = dO . v, ds = p * (dP - delta), and ds = 0 wherever the key is
+//     not visible;
+//   * dV += p dO, dK += ds q_scaled, dQ += ds k_scaled, all in f32.
 // A fully masked row (it sees no key: m == _NEG) has p = 1/n on each of
 // the n real keys and ds = 0, so it adds dO/n to every key's dV.  Hence
 // the dkv kernel skips the query tiles above the diagonal only when every
@@ -40,13 +39,10 @@
 // output element is written once by one thread: no atomics, and the
 // result does not depend on the order in which blocks run.
 //
-// What bounds it on the card: operations.  At the training path's shape
-// ([2, 8192, 16, 128] bf16, causal) dkv does four products per visible
-// (query, key) pair (s, dP, dV, dK): 1.10e12 operations on ~400 MB, a
-// 1.11 ms bound at the tensor cores' 989 TFLOP/s; dq does three (s, dP,
-// dQ), 8.2e11, a 0.83 ms bound.  This first form runs them in f32 on the
-// CUDA cores, as flash_fwd.cu does, so it sits far above that bound;
-// mma/wgmma, TMA and tuned tiles are a later step.
+// What bounds it on the card: operations.  dkv does four products per
+// visible (query, key) pair (s, dP, dV, dK), dq three (s, dP, dQ), each
+// 2·D operations, against f32's 67 TFLOP/s outside the tensor cores; the
+// kernels run them in f32 on the CUDA cores, as flash_fwd.cu does.
 //
 // Design:
 //   dkv: one block per (b*Hkv + kv head, 64-key tile), earliest (heaviest)
@@ -66,7 +62,6 @@
 // Built with -fmad=false (see _build.py): every product and sum rounds on
 // its own, as in the plain PyTorch version.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -83,31 +78,6 @@ constexpr int kChunks = kDimsPerThread / 4;  // float4 chunks per thread
 // _NEG of the JAX package: the double product rounded to float.
 constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Softmax weight of a max-subtracted score, as the forward formed it.
-// bf16 operands: the argument rounded to bf16, its exponential rounded to
-// bf16 again.
-__device__ __forceinline__ float weight(float x, float) { return expf(x); }
-__device__ __forceinline__ float weight(float x, __nv_bfloat16) {
-  const float arg = __bfloat162float(__float2bfloat16_rn(x));
-  return __bfloat162float(__float2bfloat16_rn(expf(arg)));
-}
-
-// The weight as the dV product's operand: rounded to dO's type.
-__device__ __forceinline__ float as_operand(float p, float) { return p; }
-__device__ __forceinline__ float as_operand(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
-
 // Sum over the kParts threads that share a row (a butterfly: every one of
 // them ends with the identical sum).
 template <int kParts>
@@ -119,13 +89,13 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlockKeys * (D / kDimsPerThread))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Tq, int Tk, int Hq, int Hkv,
                      int causal, long long q_offset, long long k_offset,
                      float scale) {
   constexpr int kParts = D / kDimsPerThread;  // threads per key
@@ -156,8 +126,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d0 = 4 * (part + kParts * c);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      kr[4 * c + e] = live ? to_float(k[kv_base + d0 + e]) : 0.0f;
-      vr[4 * c + e] = live ? to_float(v[kv_base + d0 + e]) : 0.0f;
+      kr[4 * c + e] = live ? k[kv_base + d0 + e] : 0.0f;
+      vr[4 * c + e] = live ? v[kv_base + d0 + e] : 0.0f;
     }
   }
   float dkr[kDimsPerThread];
@@ -192,8 +162,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int d = idx % D;
         const size_t off =
             ((static_cast<size_t>(b) * Tq + q0 + i) * Hq + h) * D + d;
-        reinterpret_cast<float*>(qs[i])[d] = to_float(q[off]) * scale;
-        reinterpret_cast<float*>(gs[i])[d] = to_float(g[off]);
+        reinterpret_cast<float*>(qs[i])[d] = q[off] * scale;
+        reinterpret_cast<float*>(gs[i])[d] = g[off];
       }
       for (int i = tid; i < rows; i += kThreads) {
         m_s[i] = m[stat_base + q0 + i];
@@ -223,17 +193,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool seen = !causal || q_offset + q0 + i >= kpos;
         if (!seen) s = kNeg;
         if (!live) s = -INFINITY;
-        const float p = weight(s - m_s[i], T()) / l_s[i];
+        const float p = expf(s - m_s[i]) / l_s[i];
         const float ds = (seen && live) ? p * (dp - delta_s[i]) : 0.0f;
-        const float pv = as_operand(p, T());
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           const float4 qq = qs[i][part + kParts * c];
           const float4 gg = gs[i][part + kParts * c];
-          dvr[4 * c] = dvr[4 * c] + pv * gg.x;
-          dvr[4 * c + 1] = dvr[4 * c + 1] + pv * gg.y;
-          dvr[4 * c + 2] = dvr[4 * c + 2] + pv * gg.z;
-          dvr[4 * c + 3] = dvr[4 * c + 3] + pv * gg.w;
+          dvr[4 * c] = dvr[4 * c] + p * gg.x;
+          dvr[4 * c + 1] = dvr[4 * c + 1] + p * gg.y;
+          dvr[4 * c + 2] = dvr[4 * c + 2] + p * gg.z;
+          dvr[4 * c + 3] = dvr[4 * c + 3] + p * gg.w;
           dkr[4 * c] = dkr[4 * c] + ds * qq.x;
           dkr[4 * c + 1] = dkr[4 * c + 1] + ds * qq.y;
           dkr[4 * c + 2] = dkr[4 * c + 2] + ds * qq.z;
@@ -249,18 +218,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d0 = 4 * (part + kParts * c);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      store(&dk[kv_base + d0 + e], dkr[4 * c + e]);
-      store(&dv[kv_base + d0 + e], dvr[4 * c + e]);
+      dk[kv_base + d0 + e] = dkr[4 * c + e];
+      dv[kv_base + d0 + e] = dvr[4 * c + e];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlockQ * (D / kDimsPerThread))
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
                     const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int Tq, int Tk, int Hq, int Hkv, int causal,
                     long long q_offset, long long k_offset, float scale) {
   constexpr int kParts = D / kDimsPerThread;  // threads per query row
@@ -289,8 +258,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d0 = 4 * (part + kParts * c);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[4 * c + e] = live ? to_float(q[q_base + d0 + e]) : 0.0f;
-      gr[4 * c + e] = live ? to_float(g[q_base + d0 + e]) : 0.0f;
+      qr[4 * c + e] = live ? q[q_base + d0 + e] : 0.0f;
+      gr[4 * c + e] = live ? g[q_base + d0 + e] : 0.0f;
     }
   }
   float acc[kDimsPerThread];
@@ -323,8 +292,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (key < Tk) {
         const size_t off =
             ((static_cast<size_t>(b) * Tk + key) * Hkv + hk) * D + d;
-        kx = to_float(k[off]) * scale;
-        vx = to_float(v[off]);
+        kx = k[off] * scale;
+        vx = v[off];
       }
       reinterpret_cast<float*>(ks[j])[d] = kx;
       reinterpret_cast<float*>(vs[j])[d] = vx;
@@ -352,7 +321,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp = row_sum<kParts>(dp);
       const bool seen = !causal || qpos >= k_offset + kk0 + j;
       if (!seen) continue;  // ds == 0: nothing to add
-      const float p = weight(s - m_row, T()) / l_row;
+      const float p = expf(s - m_row) / l_row;
       const float ds = p * (dp - delta_row);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
@@ -370,7 +339,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < kChunks; ++c) {
     const int d0 = 4 * (part + kParts * c);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(&dq[q_base + d0 + e], acc[4 * c + e]);
+    for (int e = 0; e < 4; ++e) dq[q_base + d0 + e] = acc[4 * c + e];
   }
 }
 
@@ -388,82 +357,53 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   const dim3 grid(a.B * a.Hkv, (a.Tk + kBlockKeys - 1) / kBlockKeys);
   const dim3 block(kBlockKeys * (D / kDimsPerThread));
-  flash_bwd_dkv_kernel<T, D><<<grid, block, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.m, a.l,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.Tq, a.Tk, a.Hq,
-      a.Hkv, a.causal, a.q_offset, a.k_offset, a.scale);
+  flash_bwd_dkv_kernel<D><<<grid, block, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.m,
+      a.l, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.Tq,
+      a.Tk, a.Hq, a.Hkv, a.causal, a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
   const dim3 grid(a.B * a.Hq, (a.Tq + kBlockQ - 1) / kBlockQ);
   const dim3 block(kBlockQ * (D / kDimsPerThread));
-  flash_bwd_dq_kernel<T, D><<<grid, block, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.m, a.l,
-      a.delta, static_cast<T*>(dq), a.Tq, a.Tk, a.Hq, a.Hkv, a.causal,
-      a.q_offset, a.k_offset, a.scale);
+  flash_bwd_dq_kernel<D><<<grid, block, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.m,
+      a.l, a.delta, static_cast<float*>(dq), a.Tq, a.Tk, a.Hq, a.Hkv,
+      a.causal, a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
-
-// The kernel instantiation for (dtype, D): 0 = float32, 1 = bfloat16.
-template <template <typename, int> class Launch, typename... Out>
-cudaError_t dispatch(int dtype, int D, const Args& a, Out... out) {
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return Launch<float, 32>::run(a, out...);
-      case 64: return Launch<float, 64>::run(a, out...);
-      case 128: return Launch<float, 128>::run(a, out...);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (D) {
-      case 32: return Launch<__nv_bfloat16, 32>::run(a, out...);
-      case 64: return Launch<__nv_bfloat16, 64>::run(a, out...);
-      case 128: return Launch<__nv_bfloat16, 128>::run(a, out...);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, int D>
-struct Dkv {
-  static cudaError_t run(const Args& a, void* dk, void* dv) {
-    return launch_dkv<T, D>(a, dk, dv);
-  }
-};
-
-template <typename T, int D>
-struct Dq {
-  static cudaError_t run(const Args& a, void* dq) {
-    return launch_dq<T, D>(a, dq);
-  }
-};
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  m, l and delta are f32 [B*Hq, Tq].
-// The wrapper (kernels/flash_bwd.py) checks shapes, types, contiguity,
-// D in {32, 64, 128}, Hq % Hkv == 0, Tk >= 1 and the grid's y extent.
+// dtype must be 0 (float32): bf16 operands go to flash_bwd_mma.cu.  m, l
+// and delta are f32 [B*Hq, Tq].  The wrapper (kernels/flash_bwd.py)
+// checks shapes, types, contiguity, D in {32, 64, 128}, Hq % Hkv == 0,
+// Tk >= 1 and the grid's y extent.
 int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          const void* g, const float* m, const float* l,
                          const float* delta, void* dk, void* dv, int B,
                          int Tq, int Tk, int Hq, int Hkv, int D, int dtype,
                          int causal, long long q_offset, long long k_offset,
                          float scale, cudaStream_t stream) {
+  if (dtype != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, g, m, l, delta, B, Tq, Tk, Hq, Hkv, causal,
                q_offset, k_offset, scale, stream};
-  return dispatch<Dkv>(dtype, D, a, dk, dv);
+  switch (D) {
+    case 32: return launch_dkv<32>(a, dk, dv);
+    case 64: return launch_dkv<64>(a, dk, dv);
+    case 128: return launch_dkv<128>(a, dk, dv);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -472,9 +412,15 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         int Hq, int Hkv, int D, int dtype, int causal,
                         long long q_offset, long long k_offset, float scale,
                         cudaStream_t stream) {
+  if (dtype != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, g, m, l, delta, B, Tq, Tk, Hq, Hkv, causal,
                q_offset, k_offset, scale, stream};
-  return dispatch<Dq>(dtype, D, a, dq);
+  switch (D) {
+    case 32: return launch_dq<32>(a, dq);
+    case 64: return launch_dq<64>(a, dq);
+    case 128: return launch_dq<128>(a, dq);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_bwd_error_string(int code) {

@@ -18,12 +18,23 @@ weights recomputed as the forward's own, ``ds`` zeroed outside the
 visible set.  Grouped-query heads: dK and dV of a kv head are summed in
 f32 over the query heads of its group.
 
-Dispatch is by the tensors' device alone: CUDA tensors go to the
-hand-written kernels in ``csrc/flash_bwd.cu`` (built at first use, see
-``_build.py``), CPU tensors to the plain versions
+Dispatch is by the tensors' device, then by their dtype: bf16 CUDA
+tensors go to the tensor-core kernels in ``csrc/flash_bwd_mma.cu``
+(``mma.sync``, ``ldmatrix``, ``cp.async``; ds enters the dK and dQ
+products as three bf16 terms whose sum is its f32 value), f32 CUDA
+tensors to the CUDA-core kernels in ``csrc/flash_bwd.cu`` (each built at
+first use, see ``_build.py``), CPU tensors to the plain versions
 :func:`flash_bwd_dkv_reference` and :func:`flash_bwd_dq_reference`.  A
 failed build or launch raises; nothing falls back to the plain versions
-on the card.  Each wrapper counts its kernel launches in ``.launches``.
+or to the other dtype's kernels on the card.  Each wrapper counts the
+launches of both its kernels in ``.launches`` and those of its
+tensor-core kernel alone in ``.mma_launches``.
+
+The f32 dq kernel walks keys in tiles of :data:`BLOCK_K`, the bf16 one in
+tiles of :data:`BLOCK_K_MMA` (:func:`kernel_block_k`); the plain versions
+walk them in tiles of the size they are given (only dQ's f32 summation
+order depends on it), by default the tile of the kernel that runs their
+dtype on the card.
 """
 
 import ctypes
@@ -36,6 +47,7 @@ from mpi4jax_tpu_torch.kernels import _build
 from mpi4jax_tpu_torch.kernels.flash import (
     _DTYPE_CODES,
     _NEG,
+    _aligned,
     _check_operands,
     _fold,
     _unfold,
@@ -43,20 +55,27 @@ from mpi4jax_tpu_torch.kernels.flash import (
 
 __all__ = [
     "BLOCK_K",
+    "BLOCK_K_MMA",
     "flash_bwd",
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_bwd_reference",
     "flash_bwd_dkv_reference",
     "flash_bwd_dq_reference",
+    "kernel_block_k",
     "row_delta",
     "reset_launch_counts",
 ]
 
 BLOCK_KEYS = 64  # keys per thread block of the dkv kernel
 BLOCK_Q = 64  # query rows per thread block of the dq kernel
-BLOCK_K = 32  # keys per shared-memory tile of the dq kernel
+BLOCK_K = 32  # keys per shared-memory tile of the f32 dq kernel
+BLOCK_K_MMA = 64  # keys per shared-memory tile of the bf16 dq kernel
 _MAX_GRID_Y = 65535
+# the backward kernels of each dtype: source csrc/<name>.cu, launchers
+# flash_bwd_dkv<suffix>_launch and flash_bwd_dq<suffix>_launch
+_KERNELS = {torch.float32: ("flash_bwd", ""),
+            torch.bfloat16: ("flash_bwd_mma", "_mma")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,16 +85,25 @@ _TAIL = [_I] * 8 + [_L, _L, ctypes.c_float, _P]
 
 
 @functools.cache
-def _library():
-    """The built kernel library with its launchers' C signatures."""
-    lib = _build.load_library("flash_bwd")
-    lib.flash_bwd_dkv_launch.argtypes = _ARGTYPES + [_P, _P] + _TAIL
-    lib.flash_bwd_dkv_launch.restype = _I
-    lib.flash_bwd_dq_launch.argtypes = _ARGTYPES + [_P] + _TAIL
-    lib.flash_bwd_dq_launch.restype = _I
-    lib.flash_bwd_error_string.argtypes = [_I]
-    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+def _library(name, suffix):
+    """The built kernel library ``name`` with the C signatures of its
+    launchers ``flash_bwd_dkv<suffix>_launch`` and
+    ``flash_bwd_dq<suffix>_launch`` (the same for both libraries)."""
+    lib = _build.load_library(name)
+    for part, outs in (("dkv", 2), ("dq", 1)):
+        launch = getattr(lib, f"flash_bwd_{part}{suffix}_launch")
+        launch.argtypes = _ARGTYPES + [_P] * outs + _TAIL
+        launch.restype = _I
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [_I]
+    error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_block_k(dtype):
+    """Key tile of the dq kernel that runs ``dtype`` on the card:
+    :data:`BLOCK_K_MMA` for bf16, :data:`BLOCK_K` otherwise (f32)."""
+    return BLOCK_K_MMA if dtype == torch.bfloat16 else BLOCK_K
 
 
 def row_delta(g, out):
@@ -215,78 +243,96 @@ def _check_backward(q, k, v, g, m, l, delta):
             )
 
 
-def _launch(name, q, k, v, g, m, l, delta, outs, *, causal, scale, q_offset,
-            k_offset):
+def _launch(part, q, k, v, g, m, l, delta, outs, *, causal, scale,
+            q_offset, k_offset, stream):
+    """Launch the ``part`` ("dkv" or "dq") kernel of q's dtype on
+    ``stream`` (checked, contiguous, aligned operands) and count it."""
+    name, suffix = _KERNELS[q.dtype]
+    lib = _library(name, suffix)
     b, tq, hq, d = q.shape
     tk, hk = k.shape[1], k.shape[2]
-    launcher = getattr(_library(), f"flash_bwd_{name}_launch")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = launcher(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outs), b, tq, tk, hq, hk, d,
-            _DTYPE_CODES[q.dtype], int(bool(causal)), int(q_offset),
-            int(k_offset), float(scale), stream,
-        )
+    wrapper = flash_bwd_dkv if part == "dkv" else flash_bwd_dq
+    code = getattr(lib, f"flash_bwd_{part}{suffix}_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in outs), b, tq, tk, hq, hk, d,
+        _DTYPE_CODES[q.dtype], int(bool(causal)), int(q_offset),
+        int(k_offset), float(scale), stream,
+    )
     if code != 0:
-        msg = _library().flash_bwd_error_string(code).decode()
-        raise RuntimeError(f"flash_bwd_{name} kernel launch failed: {msg} "
-                           f"({code})")
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"flash_bwd_{part}{suffix} kernel launch failed: "
+                           f"{msg} ({code})")
+    wrapper.launches += 1
+    if suffix:
+        wrapper.mma_launches += 1
 
 
 def _prepare(q, k, v, g, m, l, delta):
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check_backward(q, k, v, g, m, l, delta)
-    return tuple(t.contiguous() for t in (q, k, v, g, m, l, delta))
+    # the bf16 kernels copy rows in 16-byte pieces
+    return tuple(_aligned(t) for t in (q, k, v, g, m, l, delta))
+
+
+def _run(part, q, k, v, g, m, l, delta, outs, **kw):
+    """Launch ``part`` on q's device's current stream."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _launch(part, q, k, v, g, m, l, delta, outs, stream=stream, **kw)
 
 
 def flash_bwd_dkv(q, k, v, g, m, l, delta, *, causal, scale, q_offset=0,
-                  k_offset=0, block_k=BLOCK_K):
+                  k_offset=0, block_k=None):
     """``(dk, dv)`` of flash attention.
 
-    CUDA tensors launch the ``flash_bwd_dkv`` kernel on the current
-    stream; CPU tensors run :func:`flash_bwd_dkv_reference` with key
-    tiles of ``block_k`` (the kernel's tiling does not change its
-    result's summation over the query rows)."""
+    CUDA tensors launch the dkv kernel of their dtype on the current
+    stream (bf16: ``flash_bwd_dkv_mma``, f32: ``flash_bwd_dkv``); CPU
+    tensors run :func:`flash_bwd_dkv_reference` with key tiles of
+    ``block_k``, by default :func:`kernel_block_k` of their dtype (the
+    tiling does not change dK's and dV's sums over the query rows)."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
     if q.device.type == "cpu":
+        if block_k is None:
+            block_k = kernel_block_k(q.dtype)
         return flash_bwd_dkv_reference(q, k, v, g, m, l, delta,
                                        block_k=block_k, **kw)
     q, k, v, g, m, l, delta = _prepare(q, k, v, g, m, l, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.shape[1] == 0:
         return dk.zero_(), dv.zero_()
-    _launch("dkv", q, k, v, g, m, l, delta, (dk, dv), **kw)
-    flash_bwd_dkv.launches += 1
+    _run("dkv", q, k, v, g, m, l, delta, (dk, dv), **kw)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, g, m, l, delta, *, causal, scale, q_offset=0,
-                 k_offset=0, block_k=BLOCK_K):
+                 k_offset=0, block_k=None):
     """``dq`` of flash attention.
 
-    CUDA tensors launch the ``flash_bwd_dq`` kernel on the current stream
-    (``block_k`` is then the kernel's own :data:`BLOCK_K`); CPU tensors
-    run :func:`flash_bwd_dq_reference` with key tiles of ``block_k``."""
+    CUDA tensors launch the dq kernel of their dtype on the current
+    stream (bf16: ``flash_bwd_dq_mma``, f32: ``flash_bwd_dq``; ``block_k``
+    is then that kernel's own tile); CPU tensors run
+    :func:`flash_bwd_dq_reference` with key tiles of ``block_k``, by
+    default :func:`kernel_block_k` of their dtype."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
     if q.device.type == "cpu":
+        if block_k is None:
+            block_k = kernel_block_k(q.dtype)
         return flash_bwd_dq_reference(q, k, v, g, m, l, delta,
                                       block_k=block_k, **kw)
     q, k, v, g, m, l, delta = _prepare(q, k, v, g, m, l, delta)
     dq = torch.empty_like(q)
     if q.shape[1] == 0:
         return dq
-    _launch("dq", q, k, v, g, m, l, delta, (dq,), **kw)
-    flash_bwd_dq.launches += 1
+    _run("dq", q, k, v, g, m, l, delta, (dq,), **kw)
     return dq
 
 
 def flash_bwd(q, k, v, out, g, m, l, *, causal, scale, q_offset=0,
-              k_offset=0, block_k=BLOCK_K):
+              k_offset=0, block_k=None):
     """The backward of flash attention: ``(dq, dk, dv)`` in the operands'
     dtypes, from the forward's ``out`` and its row statistics ``m``,
     ``l`` (f32 ``[B*Hq, Tq]``) and the cotangent ``g`` of ``out``."""
@@ -298,11 +344,11 @@ def flash_bwd(q, k, v, out, g, m, l, *, causal, scale, q_offset=0,
     return dq, dk, dv
 
 
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
-
-
 def reset_launch_counts():
     """Set both wrappers' launch counts to 0."""
-    flash_bwd_dkv.launches = 0
-    flash_bwd_dq.launches = 0
+    for wrapper in (flash_bwd_dkv, flash_bwd_dq):
+        wrapper.launches = 0
+        wrapper.mma_launches = 0
+
+
+reset_launch_counts()

@@ -15,7 +15,11 @@ atol 5e-6 in f32 (the JAX fully-masked-row gradient tolerance of 2e-5,
 tightened to the readings) and, in bf16, to 1e-2 of each gradient's
 largest magnitude.
 Inputs and cotangents are made from a seed with numpy and handed to
-both.
+both.  The bf16 plain backward is also held to the Pallas gradients at
+the key tile of the tensor-core kernels that run bf16 on the card; the
+launch step's dispatch by dtype is checked with the kernel libraries
+replaced by a recorder; and a Python mirror of those kernels' split of
+ds into three bf16 terms is checked to be exact.
 """
 
 import functools
@@ -445,3 +449,171 @@ def test_kernel_operand_checks(bad, match):
     k = torch.zeros((1, tk, hk, d), dtype=dtype)
     with pytest.raises((TypeError, ValueError), match=match):
         kflash._check_operands(q, k, k.clone())
+
+
+def test_bwd_kernel_tile_by_dtype():
+    # the plain backward on CPU tensors walks the key tile of the dq
+    # kernel that runs their dtype on the card
+    assert kbwd.kernel_block_k(torch.float32) == kbwd.BLOCK_K == 32
+    assert kbwd.kernel_block_k(torch.bfloat16) == kbwd.BLOCK_K_MMA == 64
+    case = CASES["gqa_offsets"]
+    causal, qo, ko, _ = case[6:]
+    q, k, v = _torch(_qkv(case, dtype=ml_dtypes.bfloat16), torch.bfloat16)
+    g = _torch([_cotangent(case, ml_dtypes.bfloat16)], torch.bfloat16)[0]
+    kw = dict(causal=causal, scale=0.125, q_offset=qo, k_offset=ko)
+    out, m, l = kflash.flash_fwd(q, k, v, with_lse=True, **kw)
+    delta = kbwd.row_delta(g, out)
+    args = (q, k, v, g, m, l, delta)
+    assert torch.equal(kbwd.flash_bwd_dq(*args, **kw),
+                       kbwd.flash_bwd_dq_reference(*args, block_k=64, **kw))
+    for got, want in zip(
+            kbwd.flash_bwd_dkv(*args, **kw),
+            kbwd.flash_bwd_dkv_reference(*args, block_k=64, **kw)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype, library, suffix", [
+    (torch.bfloat16, "flash_bwd_mma", "_mma"),
+    (torch.float32, "flash_bwd", ""),
+])
+def test_backward_dispatch_by_dtype(monkeypatch, dtype, library, suffix):
+    # the launch step, with the ctypes libraries replaced by a recorder:
+    # bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones,
+    # with the same arguments; launches counts both, mma_launches the
+    # tensor-core ones
+    calls = []
+    monkeypatch.setattr(kbwd, "_library",
+                        lambda name, suffix: _Recorder(name, calls))
+    kbwd.reset_launch_counts()
+    q, k, v = (t.to(dtype) for t in _torch(_qkv(CASES["gqa_offsets"])))
+    g = torch.empty_like(q)
+    m, l, delta = (torch.empty((4, 48)) for _ in range(3))
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    kw = dict(causal=True, scale=0.125, q_offset=64, k_offset=0,
+              stream=None)
+    kbwd._launch("dkv", q, k, v, g, m, l, delta, (dk, dv), **kw)
+    kbwd._launch("dq", q, k, v, g, m, l, delta, (dq,), **kw)
+    assert [c[:2] for c in calls] == [
+        (library, f"flash_bwd_dkv{suffix}_launch"),
+        (library, f"flash_bwd_dq{suffix}_launch"),
+    ]
+    inputs = tuple(t.data_ptr() for t in (q, k, v, g, m, l, delta))
+    # B, Tq, Tk, Hq, Hkv, D, dtype, causal, q_offset, k_offset, scale,
+    # stream
+    tail = (1, 48, 112, 4, 2, 64, int(dtype == torch.bfloat16), 1, 64, 0,
+            0.125, None)
+    assert calls[0][2] == inputs + (dk.data_ptr(), dv.data_ptr()) + tail
+    assert calls[1][2] == inputs + (dq.data_ptr(),) + tail
+    mma = 1 if dtype == torch.bfloat16 else 0
+    for wrapper in (kbwd.flash_bwd_dkv, kbwd.flash_bwd_dq):
+        assert (wrapper.launches, wrapper.mma_launches) == (1, mma)
+    kbwd.reset_launch_counts()
+    for wrapper in (kbwd.flash_bwd_dkv, kbwd.flash_bwd_dq):
+        assert wrapper.launches == wrapper.mma_launches == 0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_grads_at_kernel_tiles_match_pallas(name):
+    # the plain forward and backward at the tensor-core kernels' key tiles
+    # (what the card is held against in bf16) against the Pallas kernels'
+    # bf16 gradients in interpret mode
+    case = CASES[name]
+    causal, qo, ko, _ = case[6:]
+    q, k, v = _torch(_qkv(case, dtype=ml_dtypes.bfloat16), torch.bfloat16)
+    g = _torch([_cotangent(case, ml_dtypes.bfloat16)], torch.bfloat16)[0]
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
+              q_offset=qo, k_offset=ko)
+    out, m, l = kflash.flash_attention_reference(
+        q, k, v, block_k=kflash.kernel_block_k(torch.bfloat16),
+        with_lse=True, **kw)
+    grads = kbwd.flash_bwd_reference(
+        q, k, v, out, g, m, l,
+        block_k=kbwd.kernel_block_k(torch.bfloat16), **kw)
+    for label, got, want in zip("qkv", grads, _pallas_grads(name, True)):
+        assert got.dtype == torch.bfloat16
+        scale = max(np.abs(want).max(), 1e-30)
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= BF16_GRAD * scale, (f"d{label}", err, scale)
+
+
+def _split3(x):
+    """The tensor-core kernels' split of an f32 ds into bf16 terms
+    (``csrc/flash_bwd_mma.cu:split_fragments``), in the same steps: hi =
+    bf16(x), rest = x - hi, mid = bf16(rest), lo = bf16(rest - mid), each
+    in f32.  Returns ``(hi, rest, mid, lo)`` as f32 tensors."""
+    hi = x.to(torch.bfloat16).float()
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).float()
+    lo = (rest - mid).to(torch.bfloat16).float()
+    return hi, rest, mid, lo
+
+
+def _f32_from_bits(bits):
+    return torch.from_numpy(np.asarray(bits, np.uint32).view(np.float32))
+
+
+# exactness holds for zero and every f32 of magnitude in [2^-110, 3.39e38]
+# (biased exponent field 17 to 254, below bf16's overflow threshold
+# (2 - 2^-8) 2^127): lo is a multiple of 2^(e-23) below 2^(e-15), which
+# bf16 holds while e - 23 >= -133, its subnormal step
+_EXACT_MIN_EXP, _EXACT_MAX = 17, 3.39e38
+
+
+def _split_values(kind, rng, n=4096):
+    sign = rng.integers(0, 2, n, dtype=np.uint32) << 31
+    mant = rng.integers(0, 1 << 23, n, dtype=np.uint32)
+    if kind == "random":
+        exp = rng.integers(_EXACT_MIN_EXP, 255, n, dtype=np.uint32)
+    elif kind == "ties":
+        # the 16 bits below bf16's last place exactly half a step: a
+        # rounding tie for hi
+        exp = rng.integers(_EXACT_MIN_EXP, 255, n, dtype=np.uint32)
+        mant = (mant & ~np.uint32(0xFFFF)) | np.uint32(0x8000)
+    elif kind == "large":
+        exp = rng.integers(250, 255, n, dtype=np.uint32)
+    elif kind == "tiny_normal":
+        exp = rng.integers(_EXACT_MIN_EXP, _EXACT_MIN_EXP + 4, n,
+                           dtype=np.uint32)
+    x = _f32_from_bits(sign | (exp << 23) | mant)
+    if kind == "large":
+        x = torch.cat([x, torch.tensor([_EXACT_MAX, -_EXACT_MAX,
+                                        3.3895313892515355e38])])
+    return x[x.abs() <= _EXACT_MAX]
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "large", "tiny_normal",
+                                  "zero"])
+def test_ds_split_is_exact(kind):
+    # hi + mid + lo == ds exactly (summed in f64), each term a bf16 value,
+    # and both f32 subtractions exact, for ds of every exponent where the
+    # kernels' header claims it
+    rng = np.random.default_rng(["random", "ties", "large", "tiny_normal",
+                                 "zero"].index(kind))
+    if kind == "zero":
+        x = torch.tensor([0.0, -0.0])
+    else:
+        x = _split_values(kind, rng)
+    assert x.numel() > 0
+    hi, rest, mid, lo = _split3(x)
+    xd = x.double()
+    for t in (hi, mid, lo):
+        assert torch.equal(t, t.to(torch.bfloat16).float())
+    assert torch.equal(rest.double(), xd - hi.double())
+    assert torch.equal((rest - mid).double(), rest.double() - mid.double())
+    assert torch.equal(hi.double() + mid.double() + lo.double(), xd)
+    if kind != "zero":
+        # two terms leave up to 2^-16 of |ds|; the third removes it
+        two = (hi.double() + mid.double() - xd).abs() / xd.abs()
+        assert two.max() <= 2.0 ** -16
+
+
+def test_ds_split_below_exact_range():
+    # under 2^-110 the split is exact only to bf16's subnormal step:
+    # what is left is at most half of 2^-133
+    rng = np.random.default_rng(5)
+    exp = rng.integers(1, _EXACT_MIN_EXP, 4096, dtype=np.uint32)
+    mant = rng.integers(0, 1 << 23, 4096, dtype=np.uint32)
+    x = _f32_from_bits((exp << 23) | mant)
+    hi, _, mid, lo = _split3(x)
+    left = (hi.double() + mid.double() + lo.double() - x.double()).abs()
+    assert left.max() <= 2.0 ** -134
