@@ -24,16 +24,19 @@ Phases, each of which raises on failure (nothing is caught):
    for the device time per step by kernel and the device's idle share.
 5. kernels (flash forward): both forward kernels against their plain
    version (at each kernel's own key tile) on the card, with the row
-   statistics m and l: the bf16 tensor-core kernel at the decode path's
-   prefill shape [4, 8192, 8, 64] and the training path's [2, 8192, 16,
-   128], causal, and at [2, 2048, 16, 128]; both kernels (f32 and bf16)
-   on a padded case, q/k offsets with and without fully masked rows,
-   grouped-query heads and D 128 with offsets: the largest and the mean
-   output difference and the largest m and l difference, each within a
-   limit that planted faults exceed; every case is checked before the
-   phase raises.  The bf16 kernel is timed at both path shapes, the f32
-   kernel at the f32 decode check's prefill shape, each beside its
-   bound, its plain version and one scaled_dot_product_attention call.
+   statistics m and l: the bf16 kernel at the decode path's prefill
+   shape [4, 8192, 8, 64] and the training path's [2, 8192, 16, 128],
+   causal, and at [2, 2048, 16, 128]; the f32 (3xTF32) kernel at the
+   training path's shape; both kernels (f32 and bf16) on a padded case,
+   q/k offsets with and without fully masked rows, grouped-query heads
+   and D 128 with offsets: the largest and the mean output difference
+   and the largest m and l difference, each within a limit that planted
+   faults exceed; every case is checked before the phase raises.  The
+   bf16 kernel is timed at both path shapes, the f32 kernel at the f32
+   decode check's prefill shape [2, 1024, 8, 64] and at the training
+   path's shape, each beside its bound, its plain version and one
+   scaled_dot_product_attention call (with the kernels that call ran,
+   from a profiler trace).
 6. path (decode): the long-prompt serving point (batch 4, prompt 8192,
    256 generated tokens, bf16, flash prefill, kv_bucket 16) through
    ``make_global_decode`` with every launch count set to 0 just before
@@ -50,22 +53,24 @@ Phases, each of which raises on failure (nothing is caught):
    generation loop's idle share.
 8. kernels (flash backward): the backward kernels (dkv, dq) of each
    dtype against their plain versions (at the kernel's own key tile) on
-   the same inputs and the same forward (out, m, l): the bf16
-   tensor-core pair at the training path's shape [2, 8192, 16, 128]
-   causal, and both pairs (f32 and bf16) on a padded case, q/k offsets,
-   fully masked rows, grouped-query heads and D 32, the bf16 pair at
-   D 64 too; for each of dq, dk and dv the largest and the mean absolute
-   difference over max|plain|, each within a limit that planted faults
-   exceed; every case is checked before the phase raises.  The bf16 pair
-   is timed at the path shape, the f32 pair at the f32 decode check's
-   shape [2, 1024, 8, 64] causal, each beside its bound, its plain
-   version and the backward of one scaled_dot_product_attention call.
+   the same inputs and the same forward (out, m, l): both pairs at the
+   training path's shape [2, 8192, 16, 128] causal, and both pairs (f32
+   and bf16) on a padded case, q/k offsets, fully masked rows,
+   grouped-query heads and D 32, the bf16 pair at D 64 too; for each of
+   dq, dk and dv the largest and the mean absolute difference over
+   max|plain|, each within a limit that planted faults exceed; every
+   case is checked before the phase raises.  The bf16 pair is timed at
+   the path shape, the f32 pair at the f32 decode check's shape [2,
+   1024, 8, 64] causal and at the path shape, each beside its bound, its
+   plain version and the backward of one scaled_dot_product_attention
+   call (with the kernels its forward and backward ran, from a
+   profiler trace).
 9. path (train): the long-context training preset (~940M parameters,
    batch 2, seq 8192, bf16, flash attention; benchmarks/transformer.py
    SIZES["long"], without remat) through ``make_global_train_step``:
    one warm-up step, then timed steps with every launch count set to 0
    just before each and read just after it: 16 launches of each of
-   the tensor-core kernels (flash_fwd_mma, flash_bwd_dkv_mma,
+   the bf16 kernels (flash_fwd_mma, flash_bwd_dkv_mma,
    flash_bwd_dq_mma) per step and none of the f32 ones.  Losses finite,
    parameters changed; step ms, tokens/s, both MFU readings and the peak
    memory are printed.  Then at 2 layers of the same width and sequence
@@ -85,9 +90,10 @@ Without a CUDA device it exits 1 before printing any result.
 
 builds and runs the checks of phases 5 and 8 (not their timings) and the
 2-layer training gradients on this tree and, at the same time, on
-throw-away copies of it each with one fault planted in
-``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for the
-dropped diagonal tile the gradients too), in ``flash_bwd.cu``
+throw-away copies of it each with one fault planted (``FAULT_PLANS``)
+in ``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for
+the dropped diagonal tile the gradients too), in ``flash_fwd.cu``
+(``F32_FLASH_FAULTS``: the forward checks), in ``flash_bwd.cu``
 (``BWD_FAULTS``) or in ``flash_bwd_mma.cu`` (``BWD_MMA_FAULTS``, and
 ``BWD_MMA_READINGS``, read but not judged: the backward checks), and
 prints every copy's readings: the evidence for the limits.  It exits 0
@@ -129,11 +135,15 @@ SOURCES = ("sw_step", "flash_fwd", "flash_fwd_mma", "flash_bwd",
 FLASH_SOURCES = SOURCES[1:]
 
 # H100 SXM data-sheet peaks (dense): device memory, float32 outside the
-# tensor cores, bf16 in them.  The shallow-water kernels do float32
-# arithmetic on CUDA cores; attention's bound is the bf16 tensor-core
-# rate, whatever this first flash kernel runs on.
+# tensor cores, TF32 and bf16 in them.  The shallow-water kernels do
+# float32 arithmetic on CUDA cores.  Attention's bound in bf16 is the
+# bf16 tensor-core rate; in f32 it is the least time for f32-class
+# products: the lesser of the operations over the CUDA cores' f32 rate
+# and three times the operations (3xTF32: three TF32 products per f32
+# product) over the TF32 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 494.7e12
 PEAK_BF16_PER_S = 989e12
 
 # float operations per interior cell, counted once per intermediate
@@ -163,7 +173,12 @@ TIMED_LAUNCHES = 25
 # faults at least: out max 3.9e-3 (one bf16 step below |out| = 1) /
 # 7.8e-3, out mean 3.7e-7 / 8.2e-5, m and l 3.4e-4 / 2.7e-3 (the P.V
 # fault leaves m and l as they are).  The bf16 tensor-core kernel is held
-# to the same limits, read again against FLASH_FAULTS (PERF.md §6).
+# to the same limits, read again against FLASH_FAULTS (PERF.md §6).  The
+# f32 kernel (3xTF32 on the tensor cores) also drops each product's
+# small*small term and sums each k-step's products in the tensor cores:
+# sound at most out max 1.3e-6, mean 3.9e-8, m and l 4.2e-6 (l at the
+# training shape); each fault of F32_FLASH_FAULTS at its worst at least
+# out max 2.0e-3, mean 4.7e-5 (one_pass: one TF32 product a pair).
 FLASH_LIMITS = {
     torch.float32: {"out_max": 2e-5, "out_mean": 1e-6, "stat": 1e-5},
     torch.bfloat16: {"out_max": 6e-3, "out_mean": 5e-6, "stat": 1e-3},
@@ -197,8 +212,8 @@ TRAIN_CFG = tfm.TransformerConfig(
 TRAIN_LR = 1e-3  # run's SGD rate (benchmarks/transformer.py:252)
 TRAIN_TIMED_STEPS = 3
 TRAIN_CHECK_LAYERS = 2
-# flash launches per layer of one bf16 training step: the tensor-core
-# kernels, and none of the f32 ones
+# flash launches per layer of one bf16 training step: the bf16 kernels,
+# and none of the f32 ones
 TRAIN_LAUNCHES = {"flash_fwd": 0, "flash_fwd_mma": 1, "flash_bwd_dkv": 0,
                   "flash_bwd_dq": 0, "flash_bwd_dkv_mma": 1,
                   "flash_bwd_dq_mma": 1}
@@ -209,14 +224,16 @@ F32_TRAIN = dict(batch=2, seq=1024)
 
 # backward kernels against their plain versions, per gradient (dq, dk,
 # dv): the largest and the mean absolute difference over max|plain|.
-# They differ by the summation order alone: in f32 by a few ulps, in bf16
+# They differ by the summation order (and in the f32 dkv kernel by the
+# dropped small*small terms of 3xTF32): in f32 by a few ulps, in bf16
 # where an output rounds to the other bf16 neighbour (and, for the bf16
 # tensor-core kernels, where __expf rounds a weight to the other bf16
 # neighbour than torch.exp).  Each limit lies between the sound kernels'
 # readings and those of the planted faults of BWD_FAULTS (f32) and
 # BWD_MMA_FAULTS (bf16) (PERF.md §6).  Sound at most / each fault's
-# worst case at least: f32 max 1.9e-6 / 1.2e-2, mean 5.4e-8 / 3.6e-3;
-# bf16 (tensor cores) max 2.7e-3 / 7.6e-3, mean 1.4e-7 / 1.9e-4.
+# worst case at least: f32 (dkv in 3xTF32) max 4.2e-6 / 1.2e-3, mean
+# 5.4e-8 / 3.5e-5 (one_pass: one TF32 product a pair); bf16 (tensor
+# cores) max 2.7e-3 / 7.6e-3, mean 1.4e-7 / 1.9e-4.
 BWD_LIMITS = {
     torch.float32: {"max": 1e-5, "mean": 1e-6},
     torch.bfloat16: {"max": 3e-3, "mean": 1e-6},
@@ -258,10 +275,33 @@ FLASH_FAULTS = {
         "acc[n][e] = acc[n][e];",
     ),
 }
+# faults planted in copies of flash_fwd.cu (f32, 3xTF32) for
+# --fault-readings, each an exact replacement: the query tiles in the
+# lower half of the rows drop their diagonal key tile; the causal mask
+# applied with the C fragment's row and column swapped; the accumulator
+# not rescaled by corr; the small terms dropped (one TF32 product a pair,
+# 1xTF32: the readings must see the split)
+F32_FLASH_FAULTS = {
+    "diag_tile": FLASH_FAULTS["diag_tile"],
+    "mask_swap": (
+        "if (mask_causal && qpos[e / 2] < k_offset + key) x = kNeg;",
+        "if (mask_causal && q_offset + row0 + 2 * t + e % 2 < k_offset + k0 "
+        "+ kHalfK * kh + 8 * n + g + 8 * (e / 2)) x = kNeg;",
+    ),
+    "no_corr": (
+        "acc[n][e] = acc[n][e] * corr[e / 2] + part[e];",
+        "acc[n][e] = acc[n][e] + part[e];",
+    ),
+    "one_pass": (
+        "constexpr int kProducts = 3;",
+        "constexpr int kProducts = 1;",
+    ),
+}
 # faults planted in copies of flash_bwd.cu (f32) for --fault-readings,
 # each an exact replacement: the dkv kernel drops the diagonal query tile
 # of the key blocks in the lower half of the rows; query tiles are skipped
-# by the diagonal alone, which loses the fully masked rows' dO/n
+# by the diagonal alone, which loses the fully masked rows' dO/n; dkv's
+# small terms dropped (1xTF32)
 BWD_FAULTS = {
     "diag_tile": (
         "first = tile < n_tiles ? static_cast<int>(tile) : n_tiles;",
@@ -271,6 +311,10 @@ BWD_FAULTS = {
     "diagonal_skip": (
         "if (causal && q_offset >= k_offset) {",
         "if (causal) {",
+    ),
+    "one_pass": (
+        "constexpr int kProducts = 3;",
+        "constexpr int kProducts = 1;",
     ),
 }
 # faults planted in copies of flash_bwd_mma.cu (bf16) for
@@ -330,6 +374,16 @@ BWD_MMA_READINGS = {
         "        }",
     ),
 }
+# the planted copies of --fault-readings: (copy name prefix, source in
+# kernels/csrc, faults, the checks each copy runs, whether a copy must
+# fail); the forward's diag_tile copy (bf16) also runs the gradients
+FAULT_PLANS = (
+    ("fwd_", "flash_fwd_mma.cu", FLASH_FAULTS, "fwd", True),
+    ("fwd32_", "flash_fwd.cu", F32_FLASH_FAULTS, "fwd", True),
+    ("bwd_", "flash_bwd.cu", BWD_FAULTS, "bwd", True),
+    ("bwd_mma_", "flash_bwd_mma.cu", BWD_MMA_FAULTS, "bwd", True),
+    ("bwd_mma_", "flash_bwd_mma.cu", BWD_MMA_READINGS, "bwd", False),
+)
 
 
 def log(msg):
@@ -372,6 +426,27 @@ def time_ms(fn, n=TIMED_LAUNCHES, repeats=5, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+def library_kernels(fn, top=3):
+    """The device kernels that one call of ``fn`` ran, the longest
+    first, from a torch.profiler trace: which kernel a library call
+    timed beside a hand-written one took.  None where the profiler
+    recorded no device activity."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return sorted(us, key=us.get, reverse=True)[:top] or None
 
 
 def copy_bytes_per_s(device):
@@ -523,7 +598,8 @@ def reset_launch_counts():
 
 def launch_counts():
     """Launches of each kernel since the counts were last set to 0 (each
-    flash wrapper counts both its kernels and its tensor-core one)."""
+    flash wrapper counts both its kernels and its bf16 one in
+    ``mma_launches``)."""
     fwd, dkv, dq = kflash.flash_fwd, kbwd.flash_bwd_dkv, kbwd.flash_bwd_dq
     return {"sw_main": sw_step.sw_main.launches,
             "sw_visc": sw_step.sw_visc.launches,
@@ -697,9 +773,9 @@ def causal_pairs(tq, tk, q_offset, k_offset):
 
 
 def flash_check_cases():
-    """The forward kernels' check cases: the f32 kernel's and, in bf16,
-    the tensor-core kernel's, on the same shapes, and both transformer
-    paths' shapes."""
+    """The forward kernels' check cases: the f32 kernel's and the bf16
+    kernel's on the same shapes, both transformer paths' shapes in bf16,
+    and the training path's shape in f32 (its default dtype)."""
     b, t, h, d = (LONG["batch"], LONG["prompt"], DECODE_CFG.heads,
                   DECODE_CFG.head_dim)
     tb, tt = TRAIN["batch"], TRAIN["seq"]
@@ -723,34 +799,46 @@ def flash_check_cases():
             ("d128_offsets" + sfx, (1, 500, 700, 2, 2, 128), dtype, True,
              100, 40),
         ]
+    # last, so that every earlier case keeps its seed (its index)
+    cases.append(("train_path_f32", (tb, tt, tt, th, th, td),
+                  torch.float32, True, 0, 0))
     return cases
 
 
+def operations_ms(flops, dtype):
+    """(ms, route) of ``flops`` useful operations at the least time the
+    card needs for them in ``dtype``: bf16 on the bf16 tensor cores; f32
+    the lesser of the CUDA cores and 3xTF32 on the TF32 tensor cores."""
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16_PER_S * 1e3, "bf16 tensor cores"
+    return min((flops / PEAK_F32_PER_S * 1e3, "f32 CUDA cores"),
+               (3 * flops / PEAK_TF32_PER_S * 1e3, "3xTF32 tensor cores"))
+
+
 def flash_bounds(shape, dtype, with_lse):
-    """(flops, bytes, bound_ms, bound_by) of one causal forward at
-    ``shape``: 2 products of 2·D operations per visible pair over the
-    type's peak (bf16 on the tensor cores, f32 outside them); q, k, v
-    read once, out written once, and m and l (f32, one each a row) when
-    asked."""
+    """(flops, bytes, bound_ms, bound_by, route) of one causal forward
+    at ``shape``: 2 products of 2·D operations per visible pair at
+    :func:`operations_ms`; q, k, v read once, out written once, and m
+    and l (f32, one each a row) when asked."""
     b, tq, tk, hq, hk, d = shape
     esz = torch.tensor([], dtype=dtype).element_size()
     flops = 4 * d * b * hq * causal_pairs(tq, tk, 0, 0)
     nbytes = (2 * b * tq * hq * d + 2 * b * tk * hk * d) * esz
     if with_lse:
         nbytes += 2 * 4 * b * hq * tq
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_F32_PER_S
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / peak * 1e3
-    return (flops, nbytes, max(bytes_ms, flops_ms),
-            "bytes" if bytes_ms >= flops_ms else "operations")
+    flops_ms, route = operations_ms(flops, dtype)
+    if bytes_ms >= flops_ms:
+        return flops, nbytes, bytes_ms, "bytes", "device memory"
+    return flops, nbytes, flops_ms, "operations", route
 
 
 def flash_kernel_phase(device, timed=True):
     """Both forward kernels against their plain version at each kernel's
-    key tile; then (``timed``) the tensor-core kernel timed at both
-    transformer paths' shapes and the f32 kernel at the f32 decode
-    check's prefill shape, each beside its bound, its plain version and
-    one scaled_dot_product_attention call."""
+    key tile; then (``timed``) the bf16 kernel timed at both transformer
+    paths' shapes and the f32 kernel at the f32 decode check's prefill
+    shape and at the training path's shape, each beside its bound, its
+    plain version and one scaled_dot_product_attention call."""
     errs_by = {}
     failed = []
     for i, (name, shape, dtype, causal, qo, ko) in enumerate(
@@ -814,6 +902,8 @@ def flash_kernel_phase(device, timed=True):
          errs_by["train_path"]),
         ("flash_fwd", "", f32_shape, torch.float32, False, 5,
          worst(f32_names)),
+        ("flash_fwd", "_train_shape", tshape, torch.float32, True, 3,
+         errs_by["train_path_f32"]),
     ]
     for kname, key, shape, dtype, with_lse, n, errs in timings:
         q, k, v = flash_inputs(shape, dtype, device, seed=0)
@@ -830,15 +920,20 @@ def flash_kernel_phase(device, timed=True):
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True),
             n=10, repeats=3)
+        library_names = library_kernels(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True))
         del q, k, v, qt, kt, vt
-        flops, nbytes, bound_ms, bound_by = flash_bounds(shape, dtype,
-                                                         with_lse)
+        flops, nbytes, bound_ms, bound_by, route = flash_bounds(
+            shape, dtype, with_lse)
+        tflops = flops / (ms * 1e-3) / 1e12
         log(f"  {kname} at {list(shape)} {str(dtype)[6:]} causal"
             f"{' with m, l' if with_lse else ''}: {ms:.4f} ms per launch "
             f"(plain {plain_ms:.4f} ms, scaled_dot_product_attention "
             f"{library_ms:.4f} ms); {flops:.4e} flops, {nbytes / 1e6:.1f} "
-            f"MB; bound {bound_ms:.4f} ms by {bound_by} at the data-sheet "
-            f"peak ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
+            f"MB; bound {bound_ms:.4f} ms by {bound_by} ({route}) at the "
+            f"data-sheet peak ({tflops:.2f} TFLOP/s achieved); the "
+            f"library call ran {library_names or 'not measured'}")
         entry = kernels.setdefault(kname, {
             "name": kname,
             "route": "cuda",
@@ -854,9 +949,12 @@ def flash_kernel_phase(device, timed=True):
             f"plain_ms{key}": plain_ms,
             f"bound_ms{key}": bound_ms,
             f"bound_by{key}": bound_by,
+            f"bound_route{key}": route,
             f"library_ms{key}": library_ms,
+            f"library_kernels{key}": library_names,
             f"bytes{key}": nbytes,
             f"flops{key}": flops,
+            f"tflops{key}": tflops,
             f"shape{key}": list(shape),
         })
     return kernels["flash_fwd"], kernels["flash_fwd_mma"]
@@ -1048,13 +1146,13 @@ def decode_profile_phase(decode, params, prompts, path):
 
 
 def bwd_bounds(shape, dtype, causal):
-    """(flops, bytes, bound_ms, bound_by) of each backward kernel at
-    ``shape`` (B, Tq, Tk, Hq, Hkv, D), keyed "dkv" and "dq": dkv needs 4
-    products per visible pair (s, dP, dV, dK), dq 3 (s, dP, dQ), each 2·D
-    operations, over the type's peak (bf16 on the tensor cores, f32
-    outside them; the bf16 kernels' extra products for ds's mid and lo
-    terms are not counted); every input read once (q, k, v, dO, and m, l,
-    delta in f32), every output written once."""
+    """(flops, bytes, bound_ms, bound_by, route) of each backward kernel
+    at ``shape`` (B, Tq, Tk, Hq, Hkv, D), keyed "dkv" and "dq": dkv needs
+    4 products per visible pair (s, dP, dV, dK), dq 3 (s, dP, dQ), each
+    2·D operations, at :func:`operations_ms` (the bf16 kernels' extra
+    products for ds's mid and lo terms are not counted); every input read
+    once (q, k, v, dO, and m, l, delta in f32), every output written
+    once."""
     b, tq, tk, hq, hk, d = shape
     esz = torch.tensor([], dtype=dtype).element_size()
     pairs = causal_pairs(tq, tk, 0, 0) if causal else float(tq * tk)
@@ -1062,22 +1160,23 @@ def bwd_bounds(shape, dtype, causal):
     kv_bytes = b * tk * hk * d * esz
     stat_bytes = 3 * b * hq * tq * 4
     inputs = 2 * q_bytes + 2 * kv_bytes + stat_bytes
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_F32_PER_S
     res = {}
     for part, products, nbytes in (("dkv", 4, inputs + 2 * kv_bytes),
                                    ("dq", 3, inputs + q_bytes)):
         flops = 2 * products * d * b * hq * pairs
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        flops_ms = flops / peak * 1e3
-        res[part] = (flops, nbytes, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations")
+        flops_ms, route = operations_ms(flops, dtype)
+        res[part] = ((flops, nbytes, bytes_ms, "bytes", "device memory")
+                     if bytes_ms >= flops_ms else
+                     (flops, nbytes, flops_ms, "operations", route))
     return res
 
 
 def bwd_check_cases():
-    """The backward kernels' check cases: the training path's shape, and
-    padding, q/k offsets, fully masked rows, grouped-query heads and D 32
-    and 64 in each dtype (f32: flash_bwd.cu, bf16: flash_bwd_mma.cu)."""
+    """The backward kernels' check cases: the training path's shape in
+    each dtype, and padding, q/k offsets, fully masked rows,
+    grouped-query heads and D 32 and 64 (f32: flash_bwd.cu, bf16:
+    flash_bwd_mma.cu)."""
     b, t = TRAIN["batch"], TRAIN["seq"]
     h, d = TRAIN_CFG.heads, TRAIN_CFG.head_dim
     cases = [
@@ -1098,6 +1197,8 @@ def bwd_check_cases():
         ("gqa_bf16", (2, 1024, 1024, 8, 2, 128), torch.bfloat16, True, 0,
          0),
         ("d64_bf16", (2, 512, 512, 4, 4, 64), torch.bfloat16, True, 0, 0),
+        # last, so that every earlier case keeps its seed (its index)
+        ("path_f32", (b, t, t, h, h, d), torch.float32, True, 0, 0),
     ]
     return cases
 
@@ -1122,8 +1223,9 @@ def flash_bwd_kernel_phase(device, timed=True):
     """Both backward kernels of each dtype against their plain versions at
     the kernel's own key tile; then (``timed``) the bf16 pair timed at the
     training path's shape and the f32 pair at the f32 decode check's
-    shape, each beside its bound, its plain version and the backward of
-    one scaled_dot_product_attention call."""
+    shape and at the training path's shape, each beside its bound, its
+    plain version and the backward of one scaled_dot_product_attention
+    call."""
     cases = bwd_check_cases()
     errs_by = {}
     failed = []
@@ -1170,13 +1272,15 @@ def flash_bwd_kernel_phase(device, timed=True):
                  F32_DECODE["prompt"], DECODE_CFG.heads, DECODE_CFG.heads,
                  DECODE_CFG.head_dim)
     timings = [
-        # shape, dtype, the cases whose worst readings the entries carry
-        (cases[0][1], torch.bfloat16, ["path"]),
+        # shape, dtype, the cases whose worst readings the entries carry,
+        # key suffix
+        (cases[0][1], torch.bfloat16, ["path"], ""),
         (f32_shape, torch.float32,
-         [c[0] for c in cases if c[2] == torch.float32]),
+         [c[0] for c in cases if c[2] == torch.float32], ""),
+        (cases[0][1], torch.float32, ["path_f32"], "_train_shape"),
     ]
-    kernels = []
-    for shape, dtype, names in timings:
+    kernels = {}
+    for shape, dtype, names, key in timings:
         args, kw = bwd_inputs(shape, dtype, True, 0, 0, device, seed=0)
         plain = dict(block_k=kbwd.kernel_block_k(dtype), **kw)
         fns = {
@@ -1194,25 +1298,32 @@ def flash_bwd_kernel_phase(device, timed=True):
         library_ms = time_ms(
             lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
             n=5, repeats=3)
+        # the kernels it ran, traced with the forward that builds its
+        # graph, as the training profile traces a whole step
+        library_names = library_kernels(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            (q, k, v), g))
         del q, k, v, g, out
         bounds = bwd_bounds(shape, dtype, True)
         for part, (fn, plain_fn) in fns.items():
             kname = bwd_kernel_name(part, dtype)
             ms = time_ms(fn, n=3, repeats=3, warmup=1)
             plain_ms = time_ms(plain_fn, n=1, repeats=3, warmup=1)
-            flops, nbytes, bound_ms, bound_by = bounds[part]
+            flops, nbytes, bound_ms, bound_by, route = bounds[part]
+            tflops = flops / (ms * 1e-3) / 1e12
             grads = ("dk", "dv") if part == "dkv" else ("dq",)
-            worst = {key: max(errs_by[n][gr][key] for n in names
-                              for gr in grads)
-                     for key in ("max", "mean", "max_abs")}
+            worst = {k: max(errs_by[n][gr][k] for n in names
+                            for gr in grads)
+                     for k in ("max", "mean", "max_abs")}
             log(f"  {kname} at {list(shape)} {str(dtype)[6:]} causal: "
                 f"{ms:.4f} ms per launch (plain {plain_ms:.4f} ms; backward "
                 f"of scaled_dot_product_attention, dq, dk and dv, "
                 f"{library_ms:.4f} ms); {flops:.4e} flops, "
                 f"{nbytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
-                f"{bound_by} at the data-sheet peak "
-                f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved)")
-            kernels.append({
+                f"{bound_by} ({route}) at the data-sheet peak "
+                f"({tflops:.2f} TFLOP/s achieved); the library call's "
+                f"forward and backward ran {library_names or 'not measured'}")
+            entry = kernels.setdefault(kname, {
                 "name": kname,
                 "route": "cuda",
                 "source": "mpi4jax_tpu_torch/kernels/csrc/"
@@ -1223,20 +1334,25 @@ def flash_bwd_kernel_phase(device, timed=True):
                 "max_abs_err": worst["max_abs"],
                 "max_rel_err": worst["max"],
                 "mean_rel_err": worst["mean"],
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
                 "library_call": "backward of scaled_dot_product_attention "
                                 "(dq, dk and dv together)",
-                "bytes": nbytes,
-                "flops": flops,
-                "shape": list(shape),
                 "dtype": str(dtype)[6:],
             })
+            entry.update({
+                f"ms{key}": ms,
+                f"plain_ms{key}": plain_ms,
+                f"bound_ms{key}": bound_ms,
+                f"bound_by{key}": bound_by,
+                f"bound_route{key}": route,
+                f"library_ms{key}": library_ms,
+                f"library_kernels{key}": library_names,
+                f"bytes{key}": nbytes,
+                f"flops{key}": flops,
+                f"tflops{key}": tflops,
+                f"shape{key}": list(shape),
+            })
         del args
-    return kernels
+    return list(kernels.values())
 
 
 class PlainFlash(torch.autograd.Function):
@@ -1504,26 +1620,25 @@ def run_checks(device, parts):
 
 def fault_readings():
     """The kernel checks on this tree and on copies of it with one
-    planted fault each, all at once (one process each); prints every
-    reading.  A copy with a fault of ``FLASH_FAULTS`` (in
-    ``flash_fwd_mma.cu``) runs the forward checks, the ``diag_tile`` one
-    also the 2-layer training gradient; a copy with a fault of
+    planted fault each (``FAULT_PLANS``), all at once (one process each);
+    prints every reading.  A copy with a fault of ``FLASH_FAULTS`` (in
+    ``flash_fwd_mma.cu``) or of ``F32_FLASH_FAULTS`` (in
+    ``flash_fwd.cu``) runs the forward checks, the bf16 ``diag_tile`` one
+    also the 2-layer training gradients; a copy with a fault of
     ``BWD_FAULTS`` (in ``flash_bwd.cu``) or of ``BWD_MMA_FAULTS`` or
     ``BWD_MMA_READINGS`` (in ``flash_bwd_mma.cu``) the backward checks;
     the tree itself all three.  Exit 0 when the sound tree passes and
-    every fault of the three fault dictionaries fails (the copies of
+    every fault of the four fault dictionaries fails (the copies of
     ``BWD_MMA_READINGS`` are read, not judged)."""
     root = pathlib.Path(__file__).resolve().parent
     work = pathlib.Path(tempfile.mkdtemp(prefix="flash_faults_"))
-    plans = [(f"fwd_{name}", "flash_fwd_mma.cu", edit,
-              "fwd,grad" if name == "diag_tile" else "fwd")
-             for name, edit in FLASH_FAULTS.items()]
-    plans += [(f"bwd_{name}", "flash_bwd.cu", edit, "bwd")
-              for name, edit in BWD_FAULTS.items()]
-    plans += [(f"bwd_mma_{name}", "flash_bwd_mma.cu", edit, "bwd")
-              for name, edit in {**BWD_MMA_FAULTS,
-                                 **BWD_MMA_READINGS}.items()]
-    read_only = {f"bwd_mma_{name}" for name in BWD_MMA_READINGS}
+    plans = [(prefix + name, source, edit,
+              "fwd,grad" if prefix + name == "fwd_diag_tile" else parts)
+             for prefix, source, faults, parts, _ in FAULT_PLANS
+             for name, edit in faults.items()]
+    read_only = {prefix + name
+                 for prefix, _, faults, _, judged in FAULT_PLANS
+                 if not judged for name in faults}
     trees = {"sound": (root, "fwd,bwd,grad")}
     try:
         for name, source, (old, new), parts in plans:

@@ -9,9 +9,11 @@ plain PyTorch version.
 
 Dispatch is by the tensors' device, then by their dtype: bf16 CUDA
 tensors go to the tensor-core kernel in ``csrc/flash_fwd_mma.cu``
-(``mma.sync``, ``ldmatrix``, ``cp.async``), f32 CUDA tensors to the
-CUDA-core kernel in ``csrc/flash_fwd.cu`` (each built at first use, see
-``_build.py``), CPU tensors to the plain version
+(``mma.sync`` bf16, ``ldmatrix``, ``cp.async``), f32 CUDA tensors to the
+tensor-core kernel in ``csrc/flash_fwd.cu`` (``mma.sync`` TF32 in
+3xTF32: each f32 operand split by :func:`tf32_split`, three products a
+pair; ``cp.async``) (each built at first use, see ``_build.py``), CPU
+tensors to the plain version
 :func:`flash_attention_reference`.  A failed build or launch raises;
 nothing falls back to the plain version on the card.  The wrapper counts
 the launches of both kernels in ``flash_fwd.launches`` and those of the
@@ -25,6 +27,8 @@ kernel's tile.
 
 :func:`flash_supported` is the rule by which ``"auto"`` attention takes
 these kernels, decided from dtypes and shapes before any launch.
+:func:`tf32_split` mirrors the f32 kernels' split of an operand into
+its TF32 terms, for the tests.
 """
 
 import ctypes
@@ -47,6 +51,7 @@ __all__ = [
     "flash_supported",
     "kernel_block_k",
     "reset_launch_counts",
+    "tf32_split",
 ]
 
 BLOCK_Q = 64  # query rows per block of the f32 kernel (bf16: 64 or 128)
@@ -83,6 +88,26 @@ def _library(name):
     error_string.argtypes = [_I]
     error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tf32_split(x):
+    """The f32 kernels' split of f32 operands into TF32 terms
+    (``csrc/flash_fwd.cu:tf32_split``, ``csrc/flash_bwd.cu``), bit for
+    bit: ``big`` is ``x`` rounded to 10 explicit mantissa bits, to
+    nearest even (add ``0xfff`` plus the last kept bit to the f32
+    pattern, clear the low 13 bits), and ``small`` is ``x - big`` (exact
+    in f32) rounded the same way.  Returns ``(big, small)`` as f32
+    tensors; the tests use it, no launch does."""
+
+    def rne(t):
+        u = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+        u = torch.where(u >= 1 << 31, u - (1 << 32), u)
+        return u.to(torch.int32).view(torch.float32)
+
+    x = x.float()
+    big = rne(x)
+    return big, rne(x - big)
 
 
 def kernel_block_k(dtype):
@@ -232,8 +257,8 @@ def _check_operands(q, k, v):
 
 
 def _aligned(t):
-    """``t`` contiguous, with its data on a 16-byte boundary (the bf16
-    kernel copies rows in 16-byte pieces)."""
+    """``t`` contiguous, with its data on a 16-byte boundary (both
+    kernels copy rows in 16-byte pieces)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -20,10 +20,12 @@ f32 over the query heads of its group.
 
 Dispatch is by the tensors' device, then by their dtype: bf16 CUDA
 tensors go to the tensor-core kernels in ``csrc/flash_bwd_mma.cu``
-(``mma.sync``, ``ldmatrix``, ``cp.async``; ds enters the dK and dQ
+(``mma.sync`` bf16, ``ldmatrix``, ``cp.async``; ds enters the dK and dQ
 products as three bf16 terms whose sum is its f32 value), f32 CUDA
-tensors to the CUDA-core kernels in ``csrc/flash_bwd.cu`` (each built at
-first use, see ``_build.py``), CPU tensors to the plain versions
+tensors to the kernels in ``csrc/flash_bwd.cu``: dkv on the tensor cores
+in 3xTF32 (``mma.sync`` TF32, each f32 operand split into two TF32
+terms, three products a pair; ``cp.async``), dq on the CUDA cores (each
+built at first use, see ``_build.py``), CPU tensors to the plain versions
 :func:`flash_bwd_dkv_reference` and :func:`flash_bwd_dq_reference`.  A
 failed build or launch raises; nothing falls back to the plain versions
 or to the other dtype's kernels on the card.  Each wrapper counts the
@@ -272,7 +274,7 @@ def _prepare(q, k, v, g, m, l, delta):
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check_backward(q, k, v, g, m, l, delta)
-    # the bf16 kernels copy rows in 16-byte pieces
+    # the bf16 kernels and the f32 dkv kernel copy rows in 16-byte pieces
     return tuple(_aligned(t) for t in (q, k, v, g, m, l, delta))
 
 
