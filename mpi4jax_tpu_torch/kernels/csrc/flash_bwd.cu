@@ -7,12 +7,13 @@
 //                  that see them; on the tensor cores in 3xTF32.
 //   flash_bwd_dq   replaces mpi4jax_tpu/ops/flash.py:_bwd_dq_kernel for
 //                  f32 operands: dQ of one block of query rows,
-//                  accumulated over the keys they see; on the CUDA cores.
+//                  accumulated over the keys they see; on the tensor
+//                  cores in 3xTF32.
 // bf16 operands go to the bf16 tensor-core kernels of flash_bwd_mma.cu.
 //
 // Layout: q, dO and dq are row-major [B, Tq, Hq, D], k, v, dk and dv
 // [B, Tk, Hkv, D] (the [B, T, H, D] operands of flash_attention, read with
-// strides: no fold and no padding copy); the dkv kernel copies rows in
+// strides: no fold and no padding copy); both kernels copy rows in
 // 16-byte pieces, so every row must start on a 16-byte boundary (the
 // wrapper checks the base pointers).  Query head h reads kv head
 // h / (Hq / Hkv).  m, l (the forward's row statistics) and delta =
@@ -41,28 +42,29 @@
 // output element is written once by one thread: no atomics, and the
 // result does not depend on the order in which blocks run.
 //
-// f32 products on the tensor cores (dkv, 3xTF32), as flash_fwd.cu: each
-// f32 operand x is split into big = tf32(x) and small = tf32(x - big),
+// f32 products on the tensor cores (3xTF32), as flash_fwd.cu: each f32
+// operand x is split into big = tf32(x) and small = tf32(x - big),
 // rounded to nearest even at the 13th bit, and a product is taken as
 // big*big + big*small + small*big, three mma.sync.m16n8k8 TF32 products
 // (the small*small term, about 2^-22 of a product, dropped).  That covers
-// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q; the weights
-// p and ds stay f32 and are split like any operand.  The tensor cores'
-// own f32 accumulation is not round-to-nearest, and its error grows with
-// the products it runs over: over the 16 k-steps of S^T and dP^T at
-// D = 128 it moved dK by 8.8e-6 of its largest element at the training
-// shape (limit 1e-5, PERF.md §6).  So each k-step's three products of a
-// score or of dP are summed by mma.sync into a zeroed fragment and added
-// on the CUDA cores (round to nearest), and each 16-query chunk's dV and
-// dK products likewise into the f32 accumulators.  Statistics, masks and
-// expf stay on the CUDA cores in f32.
+// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q in dkv, and
+// S = Q K^T, dP = dO V^T and dQ += dS K in dq; the weights p and ds stay
+// f32 and are split like any operand.  The tensor cores' own f32
+// accumulation is not round-to-nearest, and its error grows with the
+// products it runs over: over the 16 k-steps of S^T and dP^T at D = 128
+// it moved dK by 8.8e-6 of its largest element at the training shape
+// (limit 1e-5, PERF.md §6).  So each k-step's three products of a score
+// or of dP are summed by mma.sync into a zeroed fragment and added on the
+// CUDA cores (round to nearest), and each 16-query chunk's dV and dK
+// products, and each 8-key chunk's dQ products, likewise into the f32
+// accumulators.  Statistics, masks and expf stay on the CUDA cores in
+// f32.
 //
-// What bounds it on the card: operations.  dkv does four products per
+// What bounds them on the card: operations.  dkv does four products per
 // visible (query, key) pair (s, dP, dV, dK), dq three (s, dP, dQ), each
 // 2·D operations: 1.10e12 and 8.2e11 at the training shape
 // ([2, 8192, 16, 128] causal).  f32-class products run at most at 494.7 / 3
-// = 165 TFLOP/s in 3xTF32, against 67 TFLOP/s on the CUDA cores, where
-// dq still runs them.
+// = 165 TFLOP/s in 3xTF32, against 67 TFLOP/s on the CUDA cores.
 //
 // Design:
 //   dkv: one block of 8 warps per (b*Hkv + kv head, 64-key tile), earliest
@@ -94,14 +96,30 @@
 //        V planes, 2 x 2 x 16 of the ring and 2 x 16 small rows, of 132
 //        floats, and the statistics: 186,240 bytes, which needs
 //        cudaFuncAttributeMaxDynamicSharedMemorySize.
-//   dq:  one block per (b*Hq + h, 64-row query tile), last (heaviest) tiles
-//        first, on the CUDA cores: D/32 threads share a query row, each
-//        owning 32 of its head dims (float4 chunks c with c % (D/32) == its
-//        part): q, dO and the f32 dQ accumulator in registers, 32-key
-//        tiles of k (pre-scaled) and v in shared memory, read as float4
-//        broadcasts.  A row's partial dot products are summed across its
-//        threads with a shuffle butterfly, which leaves the identical sum
-//        in each of them.
+//   dq:  the dkv design with the roles of queries and keys swapped (and
+//        the forward's fragment layout, queries on the C fragment's
+//        rows): one block of 8 warps per (b*Hq + h, 64-row query tile),
+//        last (heaviest) tiles first.  Each warp owns 16 query rows and
+//        one 8-key half of every 16-key tile, and sums its own dQ over the
+//        keys of its half; at the end the second half's warps hand their
+//        sums through shared memory to the first half's, which add them
+//        and write the rows.  Q and dO are staged once through cp.async
+//        and split in place into big and small planes (4 x 64 rows); K
+//        (scaled first) and V come in a two-stage cp.async ring of 16-key
+//        tiles, each arriving tile split in place with one small plane
+//        per operand, once per block.  Per tile: S = Q K_s^T and
+//        dP = dO V^T as C fragments (rows: queries lane/4 and +8, whose m,
+//        l and delta each lane holds in registers; columns: keys
+//        2 (lane % 4) and +1 of the warp's half); ds goes straight from
+//        the C fragment into the A fragment of dQ += dS K_s, the 8 keys
+//        taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (K_s's B row for
+//        fragment index t is key 2t).  The dQ accumulator is 4 D/8 f32 a
+//        lane.  Key tiles above the last row's diagonal are skipped.
+//        Shared memory at D = 128: 4 x 64 rows of Q and dO planes, 2 x 2 x
+//        16 of the ring and 2 x 16 small rows, of 132 floats: 185,856
+//        bytes, which needs cudaFuncAttributeMaxDynamicSharedMemorySize.
+//        The ring's tiles are 16 keys because 32 would not fit beside the
+//        Q and dO planes at D = 128.
 //
 // Built with -fmad=false (see _build.py): the CUDA-core arithmetic rounds
 // every product and sum on its own, as in the plain PyTorch version.
@@ -114,14 +132,13 @@
 
 namespace {
 
-constexpr int kBlockKeys = 64;  // dkv: keys per block (4 warps)
+constexpr int kThreads = 256;   // both kernels: 8 warps in two halves
+constexpr int kBlockKeys = 64;  // dkv: keys per block
 constexpr int kQTile = 16;      // dkv: query rows per shared-memory tile
 constexpr int kBlockQ = 64;     // dq: query rows per block
-constexpr int kKTile = 32;      // dq: keys per shared-memory tile
-constexpr int kDimsPerThread = 32;
-constexpr int kChunks = kDimsPerThread / 4;  // float4 chunks per thread
-constexpr int kPad = 4;         // dkv: floats of padding per shared row
-// dkv: tensor-core products per f32 product: big*small, small*big, big*big
+constexpr int kKTile = 16;      // dq: keys per shared-memory tile
+constexpr int kPad = 4;         // floats of padding per shared row
+// tensor-core products per f32 product: big*small, small*big, big*big
 constexpr int kProducts = 3;
 // _NEG of the JAX package: the double product rounded to float.
 constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
@@ -166,17 +183,6 @@ __device__ __forceinline__ void mma_1688(float (&d)[4],
 }
 
 // ---- end of the PTX helpers ----
-
-// Sum over the kParts threads that share a row (a butterfly: every one of
-// them ends with the identical sum).
-template <int kParts>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int lane = kParts / 2; lane > 0; lane /= 2) {
-    x = x + __shfl_xor_sync(0xffffffffu, x, lane);
-  }
-  return x;
-}
 
 // x rounded to TF32 (10 explicit mantissa bits), to nearest even, as
 // flash_fwd.cu's tf32_round (mirror: kernels/flash.py:tf32_split)
@@ -236,7 +242,7 @@ __device__ __forceinline__ void split_c_as_a(const float (&c)[4],
 // ------------------------------- dkv ------------------------------------
 
 constexpr int kKeyGroups = kBlockKeys / 16;  // warps of 16 keys a half
-constexpr int kDkvThreads = 2 * 32 * kKeyGroups;  // two query halves
+static_assert(2 * 32 * kKeyGroups == kThreads, "dkv: two query halves");
 
 template <int D>
 constexpr int dkv_smem_bytes() {
@@ -253,7 +259,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            size_t stride, int row0, int rows,
                                            int limit) {
   constexpr int kRowChunks = D / 4;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < rows * kRowChunks; idx += kDkvThreads) {
+  for (int idx = threadIdx.x; idx < rows * kRowChunks; idx += kThreads) {
     const int r = idx / kRowChunks;
     const int c = idx % kRowChunks;
     const bool in = row0 + r < limit;
@@ -270,7 +276,7 @@ template <int D>
 __device__ __forceinline__ void split_rows(float* big, float* small, int rows,
                                            float factor) {
   constexpr int kRowChunks = D / 4;
-  for (int idx = threadIdx.x; idx < rows * kRowChunks; idx += kDkvThreads) {
+  for (int idx = threadIdx.x; idx < rows * kRowChunks; idx += kThreads) {
     const int off = (idx / kRowChunks) * (D + kPad) + (idx % kRowChunks) * 4;
     const float4 x = *reinterpret_cast<const float4*>(big + off);
     float4 hi, lo;
@@ -284,7 +290,7 @@ __device__ __forceinline__ void split_rows(float* big, float* small, int rows,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ m, const float* __restrict__ l,
@@ -349,7 +355,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     stage_rows<D>(gs + stage * kTile, g + q_base, q_stride, q0, kQTile, Tq);
     float* st = stats + stage * 3 * kQTile;
     const size_t stat = (static_cast<size_t>(b) * Hq + h) * Tq + q0;
-    for (int i = threadIdx.x; i < kQTile; i += kDkvThreads) {
+    for (int i = threadIdx.x; i < kQTile; i += kThreads) {
       const bool live = q0 + i < Tq;
       st[i] = live ? m[stat + i] : 0.0f;
       st[kQTile + i] = live ? l[stat + i] : 1.0f;
@@ -534,51 +540,58 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------- dq -------------------------------------
 
+constexpr int kRowGroups = kBlockQ / 16;  // warps of 16 query rows a half
+static_assert(2 * 32 * kRowGroups == kThreads, "dq: two key halves");
+constexpr int kHalfK = kKTile / 2;        // keys of a tile per key half
+
 template <int D>
-__global__ void __launch_bounds__(kBlockQ * (D / kDimsPerThread))
+constexpr int dq_smem_bytes() {
+  return (4 * kBlockQ + 6 * kKTile) * (D + kPad) *
+         static_cast<int>(sizeof(float));
+}
+
+// The second bound is the blocks per SM that shared memory admits: at
+// D = 128 one, so ptxas may use up to 255 registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ g,
                     const float* __restrict__ m, const float* __restrict__ l,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Tq, int Tk, int Hq, int Hkv, int causal,
                     long long q_offset, long long k_offset, float scale) {
-  constexpr int kParts = D / kDimsPerThread;  // threads per query row
-  constexpr int kThreads = kBlockQ * kParts;
-  constexpr int kRowChunks = D / 4;
-  __shared__ float4 ks[kKTile][kRowChunks];  // scaled k rows
-  __shared__ float4 vs[kKTile][kRowChunks];
+  constexpr int kStride = D + kPad;          // floats per shared row
+  constexpr int kSteps = D / 8;              // k-steps of Q K^T, dO V^T
+  constexpr int kDimBlocks = D / 8;          // n-blocks of dQ
+  constexpr int kPlane = kBlockQ * kStride;  // floats per Q or dO plane
+  constexpr int kTile = kKTile * kStride;    // floats per K or V stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_big = reinterpret_cast<float*>(smem);
+  float* q_small = q_big + kPlane;
+  float* g_big = q_small + kPlane;
+  float* g_small = g_big + kPlane;
+  float* ks = g_small + kPlane;      // [2][kTile]: raw, then big (scaled)
+  float* vs = ks + 2 * kTile;        // [2][kTile]: raw, then big
+  float* k_small = vs + 2 * kTile;   // [kTile]
+  float* v_small = k_small + kTile;  // [kTile]
 
   const int bh = blockIdx.x;
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int part = tid % kParts;
-  const int row = q0 + tid / kParts;
-  const bool live = row < Tq;
-  const long long qpos = q_offset + row;
+  const int warp = threadIdx.x / 32;
+  const int rg = warp % kRowGroups;  // this warp's 16 rows of the block
+  const int kh = warp / kRowGroups;  // and its 8 keys of every tile
+  const int lane = threadIdx.x % 32;
+  const int gr = lane / 4;  // fragment row: query gr (and gr + 8)
+  const int t = lane % 4;   // fragment columns: keys 2t, 2t + 1
+  const int row0 = q0 + 16 * rg;  // this warp's first query row
 
-  // this thread's dims of its query row and of dO's
-  float qr[kDimsPerThread];
-  float gr[kDimsPerThread];
-  const size_t q_base = ((static_cast<size_t>(b) * Tq + row) * Hq + h) * D;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int d0 = 4 * (part + kParts * c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qr[4 * c + e] = live ? q[q_base + d0 + e] : 0.0f;
-      gr[4 * c + e] = live ? g[q_base + d0 + e] : 0.0f;
-    }
-  }
-  float acc[kDimsPerThread];
-#pragma unroll
-  for (int d = 0; d < kDimsPerThread; ++d) acc[d] = 0.0f;
-  const size_t stat = static_cast<size_t>(bh) * Tq + row;
-  const float m_row = live ? m[stat] : 0.0f;
-  const float l_row = live ? l[stat] : 1.0f;
-  const float delta_row = live ? delta[stat] : 0.0f;
+  const size_t q_stride = static_cast<size_t>(Hq) * D;
+  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
+  const size_t q_base = (static_cast<size_t>(b) * Tq * Hq + h) * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Tk * Hkv + hk) * D;
 
   // key tiles to visit: all of them, or (causal) those up to the last
   // row's diagonal; above it ds is 0 for every row
@@ -590,66 +603,167 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (needed < n_tiles) n_tiles = static_cast<int>(needed);
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kk0 = t * kKTile;
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kKTile * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const int key = kk0 + j;
-      float kx = 0.0f;
-      float vx = 0.0f;
-      if (key < Tk) {
-        const size_t off =
-            ((static_cast<size_t>(b) * Tk + key) * Hkv + hk) * D + d;
-        kx = k[off] * scale;
-        vx = v[off];
-      }
-      reinterpret_cast<float*>(ks[j])[d] = kx;
-      reinterpret_cast<float*>(vs[j])[d] = vx;
-    }
-    __syncthreads();
+  if (n_tiles > 0) {
+    stage_rows<D>(q_big, q + q_base, q_stride, q0, kBlockQ, Tq);
+    stage_rows<D>(g_big, g + q_base, q_stride, q0, kBlockQ, Tq);
+    stage_rows<D>(ks, k + kv_base, kv_stride, 0, kKTile, Tk);
+    stage_rows<D>(vs, v + kv_base, kv_stride, 0, kKTile, Tk);
+    cp_async_commit();
+  }
 
-    const int n_keys = min(kKTile, Tk - kk0);  // uniform over the block
-    for (int j = 0; j < n_keys; ++j) {
-      float s = 0.0f;
-      float dp = 0.0f;
+  // rows gr, gr + 8 of the C fragments and their statistics (a row past
+  // Tq gets m = 0, l = 1, delta = 0 against zero Q and dO rows: ds = 0)
+  long long qpos[2];
+  float m_row[2], l_row[2], delta_row[2];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = ks[j][part + kParts * c];
-        const float4 vv = vs[j][part + kParts * c];
-        s = s + qr[4 * c] * kk.x;
-        s = s + qr[4 * c + 1] * kk.y;
-        s = s + qr[4 * c + 2] * kk.z;
-        s = s + qr[4 * c + 3] * kk.w;
-        dp = dp + gr[4 * c] * vv.x;
-        dp = dp + gr[4 * c + 1] * vv.y;
-        dp = dp + gr[4 * c + 2] * vv.z;
-        dp = dp + gr[4 * c + 3] * vv.w;
-      }
-      s = row_sum<kParts>(s);
-      dp = row_sum<kParts>(dp);
-      const bool seen = !causal || qpos >= k_offset + kk0 + j;
-      if (!seen) continue;  // ds == 0: nothing to add
-      const float p = expf(s - m_row) / l_row;
-      const float ds = p * (dp - delta_row);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + gr + 8 * r;
+    const bool live = row < Tq;
+    const size_t stat = static_cast<size_t>(bh) * Tq + row;
+    qpos[r] = q_offset + row;
+    m_row[r] = live ? m[stat] : 0.0f;
+    l_row[r] = live ? l[stat] : 1.0f;
+    delta_row[r] = live ? delta[stat] : 0.0f;
+  }
+  float acc[kDimBlocks][4];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = ks[j][part + kParts * c];
-        acc[4 * c] = acc[4 * c] + ds * kk.x;
-        acc[4 * c + 1] = acc[4 * c + 1] + ds * kk.y;
-        acc[4 * c + 2] = acc[4 * c + 2] + ds * kk.z;
-        acc[4 * c + 3] = acc[4 * c + 3] + ds * kk.w;
-      }
+  for (int n = 0; n < kDimBlocks; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+  // this lane's A fragment offset in the Q and dO planes (rows 16 rg +
+  // gr, +8; dims t, +4), its B fragment offset in its key half of a K or
+  // V tile as the right operand of Q K^T (key 8 kh + gr; dims t, +4) and
+  // of dS K (keys 8 kh + 2t, +1; dim gr)
+  const int a_off = (16 * rg + gr) * kStride + t;
+  const int kb_off = (kHalfK * kh + gr) * kStride + t;
+  const int kd_off = (kHalfK * kh + 2 * t) * kStride + gr;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) {
+      const int next = (tile + 1) * kKTile;
+      stage_rows<D>(ks + (stage ^ 1) * kTile, k + kv_base, kv_stride, next,
+                    kKTile, Tk);
+      stage_rows<D>(vs + (stage ^ 1) * kTile, v + kv_base, kv_stride, next,
+                    kKTile, Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's K and V (and Q, dO) are staged
+    float* kt = ks + stage * kTile;
+    float* vt = vs + stage * kTile;
+    if (tile == 0) {
+      split_rows<D>(q_big, q_small, kBlockQ, 1.0f);
+      split_rows<D>(g_big, g_small, kBlockQ, 1.0f);
+    }
+    split_rows<D>(kt, k_small, kKTile, scale);
+    split_rows<D>(vt, v_small, kKTile, 1.0f);
+    __syncthreads();  // the split planes are complete
+    const int k0 = tile * kKTile;
+
+    // S = Q K_s^T and dP = dO V^T over this warp's 8 keys of the tile: A
+    // from the Q and dO planes, B from the K and V tiles
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int ao = a_off + 8 * st;
+      const uint32_t qa_big[4] = {
+          bits(q_big[ao]), bits(q_big[ao + 8 * kStride]),
+          bits(q_big[ao + 4]), bits(q_big[ao + 8 * kStride + 4])};
+      const uint32_t qa_small[4] = {
+          bits(q_small[ao]), bits(q_small[ao + 8 * kStride]),
+          bits(q_small[ao + 4]), bits(q_small[ao + 8 * kStride + 4])};
+      const int bo = kb_off + 8 * st;
+      const uint32_t kb_big[2] = {bits(kt[bo]), bits(kt[bo + 4])};
+      const uint32_t kb_small[2] = {bits(k_small[bo]),
+                                    bits(k_small[bo + 4])};
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_3xtf32(part, qa_big, qa_small, kb_big, kb_small);
+      accumulate(s, part);
+      const uint32_t ga_big[4] = {
+          bits(g_big[ao]), bits(g_big[ao + 8 * kStride]),
+          bits(g_big[ao + 4]), bits(g_big[ao + 8 * kStride + 4])};
+      const uint32_t ga_small[4] = {
+          bits(g_small[ao]), bits(g_small[ao + 8 * kStride]),
+          bits(g_small[ao + 4]), bits(g_small[ao + 8 * kStride + 4])};
+      const uint32_t vb_big[2] = {bits(vt[bo]), bits(vt[bo + 4])};
+      const uint32_t vb_small[2] = {bits(v_small[bo]),
+                                    bits(v_small[bo + 4])};
+      float dp_part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_3xtf32(dp_part, ga_big, ga_small, vb_big, vb_small);
+      accumulate(dp, dp_part);
+    }
+
+    // element e is query row0 + gr + 8 (e / 2), key k0 + 8 kh + 2 t +
+    // e % 2; dp becomes ds in place, 0 wherever the key is not visible
+    const bool mask_causal =
+        causal && k_offset + k0 + kKTile - 1 > q_offset + q0;
+    const bool mask_pad = k0 + kKTile > Tk;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + kHalfK * kh + 2 * t + e % 2;
+      bool seen = true;
+      if (mask_causal && qpos[e / 2] < k_offset + key) seen = false;
+      if (mask_pad && key >= Tk) seen = false;
+      const float p = expf(s[e] - m_row[e / 2]) / l_row[e / 2];
+      dp[e] = seen ? p * (dp[e] - delta_row[e / 2]) : 0.0f;
+    }
+
+    // dQ += dS K_s: dS as the split A fragment over this warp's 8 keys,
+    // K_s as B fragments (keys 8 kh + 2t, +1; dims 8n + gr)
+    uint32_t da_big[4], da_small[4];
+    split_c_as_a(dp, da_big, da_small);
+#pragma unroll
+    for (int n = 0; n < kDimBlocks; ++n) {
+      const int bo = kd_off + 8 * n;
+      const uint32_t kb_big[2] = {bits(kt[bo]), bits(kt[bo + kStride])};
+      const uint32_t kb_small[2] = {bits(k_small[bo]),
+                                    bits(k_small[bo + kStride])};
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_3xtf32(part, da_big, da_small, kb_big, kb_small);
+      accumulate(acc[n], part);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // the two key halves' sums of a row meet: the second half's warps hand
+  // dQ through shared memory (the Q planes, read no more) to the first
+  // half's, which add them and write the rows
+  constexpr int kXStride = 32 * kRowGroups;
+  float* xs = q_big + (32 * rg + lane);
+  static_assert(4 * kDimBlocks * kXStride <= kPlane,
+                "dQ of a half fits the Q plane");
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < kDimBlocks; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * n + e) * kXStride] = acc[n][e];
+    }
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int n = 0; n < kDimBlocks; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[n][e] = acc[n][e] + xs[(4 * n + e) * kXStride];
     }
   }
 
-  if (!live) return;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int d0 = 4 * (part + kParts * c);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + gr + 8 * r;
+    if (row >= Tq) continue;
+    float* o = dq + q_base + static_cast<size_t>(row) * q_stride;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[q_base + d0 + e] = acc[4 * c + e];
+    for (int n = 0; n < kDimBlocks; ++n) {
+      *reinterpret_cast<float2*>(o + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
   }
 }
 
@@ -675,7 +789,7 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
       bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.Hkv, (a.Tk + kBlockKeys - 1) / kBlockKeys);
-  const dim3 block(kDkvThreads);
+  const dim3 block(kThreads);
   flash_bwd_dkv_kernel<D><<<grid, block, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.m,
@@ -686,9 +800,14 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
 
 template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
+  constexpr int bytes = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.Hq, (a.Tq + kBlockQ - 1) / kBlockQ);
-  const dim3 block(kBlockQ * (D / kDimsPerThread));
-  flash_bwd_dq_kernel<D><<<grid, block, 0, a.stream>>>(
+  const dim3 block(kThreads);
+  flash_bwd_dq_kernel<D><<<grid, block, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.m,
       a.l, a.delta, static_cast<float*>(dq), a.Tq, a.Tk, a.Hq, a.Hkv,

@@ -17,17 +17,35 @@
 // H100's operations-per-byte balance point, so the only thing that
 // matters is to move each field once.
 //
-// Design (the simple first form): one thread per output cell on a 2-D
-// grid of 32 x 8 blocks.  A thread reads its radius-2 neighbourhood
-// straight from global memory and recomputes the ring-1 intermediates it
-// needs (fe, fn, q, ke); neighbouring threads share those reads through
-// L1/L2, so device memory still sees each field about once.  Every
-// neighbour an interior cell reads lies in rows r-1..r+1 and columns
-// c-1..c+1 of the block (the ghost ring holds the exchanged values), so
-// no x wrap happens in the kernel.  Ghost cells pass their input through
-// and get zero tendencies.  The Pallas kernels tile rows by 64 with 8-row
-// halo blocks and keep x whole for the TPU's lanes; none of that carries
-// over.  Shared-memory tiling is a later step.
+// Design of sw_main (the simple first form): one thread per output cell
+// on a 2-D grid of 32 x 8 blocks.  A thread reads its radius-2
+// neighbourhood straight from global memory and recomputes the ring-1
+// intermediates it needs (fe, fn, q, ke); neighbouring threads share
+// those reads through L1/L2, so device memory still sees each field about
+// once.  Every neighbour an interior cell reads lies in rows r-1..r+1 and
+// columns c-1..c+1 of the block (the ghost ring holds the exchanged
+// values), so no x wrap happens in the kernel.  Ghost cells pass their
+// input through and get zero tendencies.  The Pallas kernels tile rows by
+// 64 with 8-row halo blocks and keep x whole for the TPU's lanes; none of
+// that carries over.
+//
+// Design of sw_visc (column streams): each warp owns 32 consecutive
+// columns and walks 8 rows down them, one row per step, both fields at
+// once.  Lane 0 sits one column west of the 31 columns the warp updates
+// and only supplies their first western flux.  Per row a lane computes
+// the eastern flux gx of its cell from its eastern neighbour (the next
+// lane's value, by shuffle; lane 31 loads its own) and the northern
+// flux gy from the next row; the western flux comes from the previous
+// lane by shuffle and the southern one from the previous row, so every
+// flux is computed once rather than by both cells that share it: a field
+// costs 4 IEEE divisions a cell rather than 6.  Each cell is loaded once
+// by its own lane; only the column east of a warp (by lane 31) and the
+// rows just outside an 8-row strip are loaded again, from cache.  Every
+// value is the same expression of the same operands as in the plain
+// version, so the result is bit for bit the same.  A tiled form that
+// staged 128 x 16 cells and a ring in shared memory and computed the
+// fluxes into it ran slower on the card than one thread per cell, and
+// taller strips ran slower than 8 rows (PERF.md §6).
 //
 // Numerics follow the Pallas kernels term by term (same association of
 // every sum and product).  It is built without fast-math (q divides, and
@@ -190,39 +208,67 @@ sw_main_kernel(const float* __restrict__ h, const float* __restrict__ u,
 
 // -- sw_visc --------------------------------------------------------------
 
-__device__ __forceinline__ float laplacian(const float* __restrict__ w,
-                                           const Grid& g,
-                                           const ViscParams& p, int r,
-                                           int c) {
-  // viscous fluxes on ring 1, zero beyond the walls
-  auto gx = [&](int rr, int cc) {
-    if (wall_row(g, rr)) return 0.0f;
-    return p.nu * (at(w, g, rr, cc + 1) - at(w, g, rr, cc)) / p.dx;
-  };
-  auto gy = [&](int rr, int cc) {
-    if (wall_row(g, rr)) return 0.0f;
-    return p.nu * (at(w, g, rr + 1, cc) - at(w, g, rr, cc)) / p.dy;
-  };
-  return (gx(r, c) - gx(r, c - 1)) / p.dx + (gy(r, c) - gy(r - 1, c)) / p.dy;
-}
+constexpr int VISC_WARPS = 4;  // warps of a block, side by side in x
+constexpr int VISC_COLS = 31;  // columns a warp updates (lane 0 feeds them)
+constexpr int VISC_TY = 8;     // rows a block walks down
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * VISC_WARPS)
 sw_visc_kernel(const float* __restrict__ u, const float* __restrict__ v,
                float* __restrict__ u_out, float* __restrict__ v_out, Grid g,
                ViscParams p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= g.rows || c >= g.cols) return;
-  const size_t i = static_cast<size_t>(r) * g.cols + c;
-  const bool v_wall = g.is_north && r == g.ny_l + 1;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  // this lane's column: lane 0 sits one column west of the warp's
+  // VISC_COLS columns and only supplies their first western flux
+  const int c = (blockIdx.x * VISC_WARPS + warp) * VISC_COLS - 1 + lane;
+  const int r0 = blockIdx.y * VISC_TY;
+  const int r1 = min(r0 + VISC_TY, g.rows);
+  const bool col_in = c >= 0 && c < g.cols;
+  const bool east_in = c + 1 < g.cols;
+  auto load = [&](const float* w, int r) {
+    return col_in && r >= 0 && r < g.rows ? at(w, g, r, c) : 0.0f;
+  };
+  // viscous fluxes, zero beyond the walls
+  auto flux = [&](int r, float w0, float w1, float d) {
+    return wall_row(g, r) ? 0.0f : p.nu * (w1 - w0) / d;
+  };
 
-  if (!interior(g, r, c)) {
-    u_out[i] = u[i];
-    v_out[i] = v_wall ? 0.0f : v[i];
-    return;
+  // the stream of each field: this row's value and the southern flux
+  float uc = load(u, r0), vc = load(v, r0);
+  float gy_us = flux(r0 - 1, load(u, r0 - 1), uc, p.dy);
+  float gy_vs = flux(r0 - 1, load(v, r0 - 1), vc, p.dy);
+  for (int r = r0; r < r1; ++r) {
+    const float un = load(u, r + 1), vn = load(v, r + 1);
+    // the eastern neighbours from the next lane; lane 31 reads its own
+    float ue = __shfl_down_sync(kAll, uc, 1);
+    float ve = __shfl_down_sync(kAll, vc, 1);
+    if (lane == 31) {
+      ue = col_in && east_in ? at(u, g, r, c + 1) : 0.0f;
+      ve = col_in && east_in ? at(v, g, r, c + 1) : 0.0f;
+    }
+    const float gx_u = flux(r, uc, ue, p.dx), gx_v = flux(r, vc, ve, p.dx);
+    const float gx_uw = __shfl_up_sync(kAll, gx_u, 1);
+    const float gx_vw = __shfl_up_sync(kAll, gx_v, 1);
+    const float gy_u = flux(r, uc, un, p.dy), gy_v = flux(r, vc, vn, p.dy);
+    if (lane > 0 && col_in) {
+      float uo = uc, vo = vc;
+      if (interior(g, r, c)) {
+        uo = uc + p.dt * ((gx_u - gx_uw) / p.dx + (gy_u - gy_us) / p.dy);
+        vo = vc + p.dt * ((gx_v - gx_vw) / p.dx + (gy_v - gy_vs) / p.dy);
+      }
+      // v = 0 on the northern wall row (the last interior row), ghost
+      // columns included
+      if (g.is_north && r == g.ny_l + 1) vo = 0.0f;
+      const size_t i = static_cast<size_t>(r) * g.cols + c;
+      u_out[i] = uo;
+      v_out[i] = vo;
+    }
+    uc = un;
+    vc = vn;
+    gy_us = gy_u;
+    gy_vs = gy_v;
   }
-  u_out[i] = u[i] + p.dt * laplacian(u, g, p, r, c);
-  v_out[i] = v_wall ? 0.0f : v[i] + p.dt * laplacian(v, g, p, r, c);
 }
 
 constexpr int BLOCK_X = 32;
@@ -231,6 +277,11 @@ constexpr int BLOCK_Y = 8;
 dim3 grid_for(const Grid& g) {
   return dim3((g.cols + BLOCK_X - 1) / BLOCK_X,
               (g.rows + BLOCK_Y - 1) / BLOCK_Y);
+}
+
+dim3 visc_grid_for(const Grid& g) {
+  constexpr int kCols = VISC_WARPS * VISC_COLS;  // columns of a block
+  return dim3((g.cols + kCols - 1) / kCols, (g.rows + VISC_TY - 1) / VISC_TY);
 }
 
 }  // namespace
@@ -263,7 +314,7 @@ extern "C" int sw_visc_launch(const float* u, const float* v, float* u_out,
                               float dy, float nu, float dt, void* stream) {
   const Grid g{rows, cols, ny_l, nx_l, is_south, is_north};
   const ViscParams p{dx, dy, nu, dt};
-  sw_visc_kernel<<<grid_for(g), dim3(BLOCK_X, BLOCK_Y), 0,
+  sw_visc_kernel<<<visc_grid_for(g), dim3(32 * VISC_WARPS), 0,
                    static_cast<cudaStream_t>(stream)>>>(u, v, u_out, v_out,
                                                          g, p);
   return static_cast<int>(cudaGetLastError());

@@ -22,21 +22,22 @@ Dispatch is by the tensors' device, then by their dtype: bf16 CUDA
 tensors go to the tensor-core kernels in ``csrc/flash_bwd_mma.cu``
 (``mma.sync`` bf16, ``ldmatrix``, ``cp.async``; ds enters the dK and dQ
 products as three bf16 terms whose sum is its f32 value), f32 CUDA
-tensors to the kernels in ``csrc/flash_bwd.cu``: dkv on the tensor cores
+tensors to the kernels in ``csrc/flash_bwd.cu``: both on the tensor cores
 in 3xTF32 (``mma.sync`` TF32, each f32 operand split into two TF32
-terms, three products a pair; ``cp.async``), dq on the CUDA cores (each
-built at first use, see ``_build.py``), CPU tensors to the plain versions
+terms, three products a pair; ``cp.async``; each built at first use, see
+``_build.py``), CPU tensors to the plain versions
 :func:`flash_bwd_dkv_reference` and :func:`flash_bwd_dq_reference`.  A
 failed build or launch raises; nothing falls back to the plain versions
 or to the other dtype's kernels on the card.  Each wrapper counts the
 launches of both its kernels in ``.launches`` and those of its
 tensor-core kernel alone in ``.mma_launches``.
 
-The f32 dq kernel walks keys in tiles of :data:`BLOCK_K`, the bf16 one in
-tiles of :data:`BLOCK_K_MMA` (:func:`kernel_block_k`); the plain versions
-walk them in tiles of the size they are given (only dQ's f32 summation
-order depends on it), by default the tile of the kernel that runs their
-dtype on the card.
+The plain versions walk keys in tiles of the size they are given (only
+dQ's f32 summation order depends on it), by default
+:func:`kernel_block_k` of their dtype: :data:`BLOCK_K_MMA`, the bf16 dq
+kernel's tile, for bf16 and :data:`BLOCK_K` for f32.  The f32 dq kernel
+sums dQ in 8-key chunks of 16-key tiles, two halves of each tile apart
+and added at the end: the same sum in another f32 order.
 """
 
 import ctypes
@@ -71,7 +72,7 @@ __all__ = [
 
 BLOCK_KEYS = 64  # keys per thread block of the dkv kernel
 BLOCK_Q = 64  # query rows per thread block of the dq kernel
-BLOCK_K = 32  # keys per shared-memory tile of the f32 dq kernel
+BLOCK_K = 32  # keys per tile of the plain f32 versions
 BLOCK_K_MMA = 64  # keys per shared-memory tile of the bf16 dq kernel
 _MAX_GRID_Y = 65535
 # the backward kernels of each dtype: source csrc/<name>.cu, launchers
@@ -103,8 +104,8 @@ def _library(name, suffix):
 
 
 def kernel_block_k(dtype):
-    """Key tile of the dq kernel that runs ``dtype`` on the card:
-    :data:`BLOCK_K_MMA` for bf16, :data:`BLOCK_K` otherwise (f32)."""
+    """Key tile of the plain versions for ``dtype``: :data:`BLOCK_K_MMA`
+    (the bf16 dq kernel's tile) for bf16, :data:`BLOCK_K` otherwise."""
     return BLOCK_K_MMA if dtype == torch.bfloat16 else BLOCK_K
 
 
@@ -274,7 +275,7 @@ def _prepare(q, k, v, g, m, l, delta):
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check_backward(q, k, v, g, m, l, delta)
-    # the bf16 kernels and the f32 dkv kernel copy rows in 16-byte pieces
+    # every kernel copies rows in 16-byte pieces
     return tuple(_aligned(t) for t in (q, k, v, g, m, l, delta))
 
 

@@ -2,7 +2,7 @@
 planted faults that ``chip_smoke.py --fault-readings`` edits into the
 kernel sources.
 
-The f32 forward and dkv kernels (``kernels/csrc/flash_fwd.cu``,
+The f32 forward and backward kernels (``kernels/csrc/flash_fwd.cu``,
 ``flash_bwd.cu``) take each f32 product on the tensor cores as three
 TF32 products of big = tf32(x) and small = tf32(x - big).
 ``kernels/flash.py:tf32_split`` mirrors that split bit for bit; these
