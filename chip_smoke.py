@@ -14,15 +14,29 @@ Phases, each of which raises on failure (nothing is caught):
    one rank) each kernel is held against its plain PyTorch version on
    the same inputs on the card (sw_visc bit for bit), and timed beside
    its bound, its plain version and the measured device-to-device copy
-   rate.
+   rate; one sw_main launch captured in a CUDA graph and replayed must
+   equal the eager launch bit for bit.
 3. path (shallow water): the solver's main path, ``make_solver`` on the
    benchmark configuration for 0.1 model days, runs through the entry
    points with every kernel launch count set to 0 just before and read
-   just after; both step kernels must have launched once per step.  The
-   result must be finite and conserve mass, and 25 steps on the kernel
-   path must agree with 25 steps on the plain path from the same state.
-4. profile (shallow water): one chunk of 25 steps under torch.profiler,
-   for the device time per step by kernel and the device's idle share.
+   just after.  Its chunks are CUDA graphs (``make_multistep``): the
+   warm-up chunk runs eagerly, the rest are replays, so for both step
+   kernels the eager launches plus replays times the launches captured
+   per chunk must equal the steps.  The result must be finite and
+   conserve mass, and 25 steps on the kernel path must agree with 25
+   steps on the plain path from the same state.
+4. profile (shallow water): one replay of a 25-step chunk's graph under
+   torch.profiler: 25 device launches of each kernel, the device time
+   per step by kernel and the device's idle share under the graph.
+4b. schedules (shallow water): ghost 1, 2 and 4 at 3600x1800, 25 steps
+   each through ``make_multistep``: the graph replay equal to the eager
+   chunk bit for bit, the three schedules' h within 1e-3 of each other,
+   ghost 4 conserving mass, each schedule's ms per step under the graph
+   and its device time and idle share in one traced replay; bfloat16 at
+   ghost 1 and 4 finite after a replay, and ghost 2 in bfloat16 refused
+   on the card with the error that names ghost 1 and 4.
+4c. bench: ``mpi4jax_tpu_torch.bench.run_bench(quick=True)`` in this
+   process; its JSON record is printed on a line of its own.
 5. kernels (flash forward): both forward kernels against their plain
    version (at each kernel's own key tile) on the card, with the row
    statistics m and l: the bf16 kernel at the decode path's prefill
@@ -114,6 +128,7 @@ seeds of four cases (``WITNESS_CASES``): the evidence for the bf16
 limits' measure.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -130,6 +145,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 import torch.nn.functional as F
 
+from mpi4jax_tpu_torch import bench as port_bench
 from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
 from mpi4jax_tpu_torch.kernels import _build, sw_step
 from mpi4jax_tpu_torch.kernels import flash as kflash
@@ -558,6 +574,23 @@ def kernel_phase(cfg, comm, device, copy_rate):
         results[f"sw_main_first_step_{first_step}"] = (worst_abs, worst_rel)
     main_out = got  # the AB2 case: the main path's launch
 
+    # the same launch captured in a CUDA graph and replayed (the solver's
+    # chunks are graphs; the kernel library links its own CUDA runtime
+    # and launches on PyTorch's stream, which the capture must record)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = sw_step.sw_main(*inputs, iy=iy, first_step=False,
+                                   **geometry)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(main_out, replayed))
+    log(f"  sw_main captured in a CUDA graph and replayed: "
+        f"{'bit-identical to' if same else 'DIFFERS from'} the eager launch")
+    if not same:
+        raise RuntimeError("a replayed sw_main launch differs from the "
+                           "eager one")
+    del graph, replayed
+
     # viscosity inputs: the main kernel's u, v after their exchange
     u2, v2 = main_out[1].clone(), main_out[2].clone()
     for f in (u2, v2):
@@ -641,7 +674,10 @@ def reset_launch_counts():
 def launch_counts():
     """Launches of each kernel since the counts were last set to 0 (each
     flash wrapper counts both its kernels and its bf16 one in
-    ``mma_launches``)."""
+    ``mma_launches``).  The shallow-water wrappers count eager launches
+    only; a graph's launches are its replays times the launches its
+    capture recorded (``make_multistep``'s ``replays`` and
+    ``captured``)."""
     fwd, dkv, dq = kflash.flash_fwd, kbwd.flash_bwd_dkv, kbwd.flash_bwd_dq
     return {"sw_main": sw_step.sw_main.launches,
             "sw_visc": sw_step.sw_visc.launches,
@@ -655,20 +691,35 @@ def launch_counts():
 
 def path_phase(cfg, comm, device, kernels, state0, card):
     days = 0.1
-    solve = sw.make_solver(cfg, comm, num_multisteps=25, device=device)
+    chunk = 25
+    solve = sw.make_solver(cfg, comm, num_multisteps=chunk, device=device)
+    multi = solve.multistep
     reset_launch_counts()
     state, wall, steps = solve(days * sw.DAY_IN_SECONDS)
     launches = launch_counts()
-    total_steps = 1 + 25 + steps  # bootstrap, warm-up chunk, timed chunks
+    total_steps = 1 + chunk + steps  # bootstrap, warm-up chunk, timed chunks
     log(f"  make_solver: {steps} timed steps in {wall:.4f} s, "
-        f"{total_steps} steps in all; launches {launches}")
+        f"{total_steps} steps in all; eager launches {launches}; "
+        f"{multi.replays} graph replays of {multi.captured} launches")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        eager = launches[k["name"]]
+        captured = multi.captured.get(k["name"], 0)
+        k["launches"] = eager + multi.replays * captured
         if k["launches"] == 0:
             raise RuntimeError(f"the main path never launched {k['name']}")
+        if captured != chunk or multi.replays * chunk != steps:
+            raise RuntimeError(
+                f"{k['name']}: {multi.replays} replays of {captured} "
+                f"captured launches for {steps} timed steps of {chunk}-step "
+                f"chunks")
         if k["launches"] != total_steps:
-            raise RuntimeError(f"{k['name']} launched {k['launches']} times "
-                               f"in {total_steps} steps")
+            raise RuntimeError(
+                f"{k['name']} launched {eager} times eagerly and "
+                f"{multi.replays} x {captured} times from the graph in "
+                f"{total_steps} steps")
+        log(f"  {k['name']}: {eager} eager + {multi.replays} replays x "
+            f"{captured} captured = {k['launches']} launches = "
+            f"{total_steps} steps ok")
 
     for name, t in zip(sw.SWState._fields, state):
         if not torch.isfinite(t).all():
@@ -685,10 +736,11 @@ def path_phase(cfg, comm, device, kernels, state0, card):
     kernel_ms = sum(k["ms"] for k in kernels)
     log(f"  {rate:.4e} cell-updates/s, {step_ms:.4f} ms per step "
         f"(kernels {kernel_ms:.4f} ms of it), on {card}")
+    replays = multi.replays
+    del solve, multi, state
 
     # 25 steps on the kernel path and on the plain path, same start
-    multi = sw.make_multistep(cfg, comm, 25)
-    fast = multi(clone(state0))
+    fast = sw.make_multistep(cfg, comm, 25)(clone(state0))
     plain = clone(state0)
     for _ in range(25):
         plain = plain_step(plain, cfg, comm, False)
@@ -701,64 +753,175 @@ def path_phase(cfg, comm, device, kernels, state0, card):
             raise RuntimeError(f"kernel path and plain path disagree on "
                                f"{name} after 25 steps")
     return {"cell_updates_per_s": rate, "step_ms": step_ms,
-            "timed_steps": steps, "wall_s": wall}
+            "timed_steps": steps, "wall_s": wall, "graph_replays": replays}
 
 
-def profile_phase(cfg, comm, state, step_ms, kernels, n_steps=25):
-    """Where a step's time goes: device time per step by kernel from a
-    torch.profiler trace of one chunk, against the untraced step time
-    of the path phase (tracing slows the host, not the kernels).  Each
-    entry of ``kernels`` gets its device ms per launch in the trace
-    (``profile_ms``): the kernel phase's timing of back-to-back wrapper
-    calls reads the wrapper's host time instead where that is longer."""
+def device_trace(fn):
+    """``fn()`` under torch.profiler, synchronised: ``(per_kernel,
+    span_ms)``: device ms and launches by kernel name, and the device
+    timeline's span (first kernel's start to last kernel's end)."""
     from torch.autograd import DeviceType
 
-    multi = sw.make_multistep(cfg, comm, n_steps)
-    s = clone(state)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        multi(s)
+        fn()
         torch.cuda.synchronize()
     per_kernel = {}
-    host = {}
+    first, last = math.inf, -math.inf
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
+        # the ops' record_function ranges span kernels on the device side
+        # and are no device work of their own
         if getattr(e, "is_user_annotation", False):
-            # the ops' record_function ranges; on the device side they
-            # span kernels and are no device work of their own
-            if e.device_type == DeviceType.CPU:
-                host[e.name] = host.get(e.name, 0.0) + ms / n_steps
             continue
         if e.device_type == DeviceType.CUDA:
             total, count = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (total + ms, count + 1)
+            first = min(first, e.time_range.start)
+            last = max(last, e.time_range.end)
+    span_ms = (last - first) / 1e3 if per_kernel else 0.0
+    return per_kernel, span_ms
+
+
+def kernel_launches(per_kernel, name):
+    """(device ms, launches) of the kernel ``name`` in a trace."""
+    hits = [(ms, count) for kname, (ms, count) in per_kernel.items()
+            if f"{name}_kernel(" in kname]
+    return sum(ms for ms, _ in hits), sum(count for _, count in hits)
+
+
+def profile_phase(cfg, comm, state, step_ms, kernels, n_steps=25):
+    """Where a step's time goes under the graph: one replay of an
+    ``n_steps`` chunk (as the path runs it: donated, chained) under
+    torch.profiler, against the untraced step time of the path phase.
+    Each kernel must show ``n_steps`` device launches in the replay;
+    each entry of ``kernels`` gets its device ms per launch in the trace
+    (``profile_ms``): the kernel phase's timing of back-to-back wrapper
+    calls reads the wrapper's host time instead where that is longer."""
+    multi = sw.make_multistep(cfg, comm, n_steps, donate=True)
+    s = multi(clone(state))  # the eager chunk, then the capture
+    s = multi(s)  # copied into the graph's buffers, replayed
+    per_kernel, span_ms = device_trace(lambda: multi(s))
     if not per_kernel:
-        log("  the profiler recorded no device activity: device busy share "
-            "not measured")
-        return None
+        raise RuntimeError("the profiler recorded no device activity in a "
+                           "graph replay: the kernels' launches are not "
+                           "shown")
     busy = sum(ms for ms, _ in per_kernel.values()) / n_steps
-    log(f"  device busy {busy:.4f} ms per step of {step_ms:.4f} ms untraced "
-        f"(idle share {1 - busy / step_ms:.3f})")
+    span = span_ms / n_steps
+    log(f"  one graph replay of {n_steps} steps: device busy {busy:.4f} ms "
+        f"per step in a device timeline of {span:.4f} ms per step (idle "
+        f"share {1 - busy / span:.4f}); {step_ms:.4f} ms per step untraced "
+        f"under the graph (busy / untraced {busy / step_ms:.3f}; tracing "
+        f"lengthens the kernels)")
     for k in kernels:
-        hits = [(ms, count) for name, (ms, count) in per_kernel.items()
-                if f"{k['name']}_kernel(" in name]
-        if hits:
-            k["profile_ms"] = (sum(ms for ms, _ in hits)
-                               / sum(count for _, count in hits))
-            log(f"  {k['name']}: {k['profile_ms']:.4f} ms of device time "
-                f"per launch in the trace (kernel phase {k['ms']:.4f} ms)")
+        ms, count = kernel_launches(per_kernel, k["name"])
+        log(f"  {k['name']}: {count} device launches in the replay "
+            f"({'ok' if count == n_steps else 'FAIL'}, {n_steps} steps)")
+        if count != n_steps:
+            raise RuntimeError(f"{k['name']} launched {count} times in a "
+                               f"replay of {n_steps} steps")
+        k["profile_ms"] = ms / count
+        log(f"  {k['name']}: {k['profile_ms']:.4f} ms of device time "
+            f"per launch in the trace (kernel phase {k['ms']:.4f} ms)")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (ms, count) in top:
         log(f"    {ms / n_steps:.4f} ms/step, {count / n_steps:g} "
             f"launches/step: {name[:90]}")
-    for key, ms in sorted(host.items(), key=lambda kv: -kv[1]):
-        log(f"    host, traced: {ms:.4f} ms/step in {key}")
     return {"device_busy_ms_per_step": busy,
-            "idle_share": 1 - busy / step_ms,
+            "device_span_ms_per_step": span,
+            "idle_share": 1 - busy / span,
+            "busy_over_untraced_step": busy / step_ms,
             "launches_per_step": sum(c for _, c in per_kernel.values())
             / n_steps}
+
+
+def schedules_phase(cfg, comm, device, n_steps=25):
+    """Ghost 1, 2 and 4 at ``cfg``'s size through ``make_multistep``:
+    replay against eager bit for bit, the schedules against each other,
+    ghost 4's mass, ms per step under the graph, device time and idle
+    share of one traced replay; bfloat16 at ghost 1 and 4; ghost 2 in
+    bfloat16 refused on the card."""
+    result, h = {}, {}
+    for ghost in (1, 2, 4):
+        cfg_g = dataclasses.replace(cfg, ghost=ghost)
+        start = sw.make_first_step(cfg_g, comm)(
+            sw.make_init(cfg_g, comm, device=device)())
+        multi = sw.make_multistep(cfg_g, comm, n_steps, donate=True)
+        eager = multi(clone(start))  # the eager chunk, then the capture
+        replay = multi(clone(start))  # the graph
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(eager, replay))
+        log(f"  ghost {ghost}: {n_steps} steps replayed from the graph "
+            f"{'equal' if same else 'DIFFER from'} the eager chunk bit for "
+            f"bit; captured launches {multi.captured}")
+        if not same:
+            raise RuntimeError(f"ghost {ghost}: the graph replay differs "
+                               f"from the eager steps")
+        G = ghost
+        h[ghost] = replay.h[G:-G, G:-G].double()
+        mean_h = h[ghost].mean().item()
+        if ghost == 4 and not math.isclose(mean_h, cfg.depth,
+                                           rel_tol=MASS_RTOL):
+            raise RuntimeError(f"ghost 4: mass not conserved: mean h "
+                               f"{mean_h} vs depth {cfg.depth}")
+        del eager, start
+        s = replay
+        calls = 4
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            s = multi(s)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (calls * n_steps) * 1e3
+        per_kernel, span_ms = device_trace(lambda: multi(s))
+        busy = sum(ms for ms, _ in per_kernel.values()) / n_steps
+        span = span_ms / n_steps
+        launches = sum(c for _, c in per_kernel.values()) / n_steps
+        result[f"ghost{ghost}"] = {
+            "step_ms": step_ms, "device_busy_ms_per_step": busy,
+            "device_span_ms_per_step": span, "idle_share": 1 - busy / span,
+            "launches_per_step": launches, "mean_h": mean_h,
+            "cell_updates_per_s": cfg.ny * cfg.nx / (step_ms * 1e-3),
+        }
+        log(f"  ghost {ghost}: {step_ms:.4f} ms per step under the graph "
+            f"({cfg.ny * cfg.nx / (step_ms * 1e-3):.4e} cell-updates/s); "
+            f"one traced replay: device busy {busy:.4f} ms per step of a "
+            f"{span:.4f} ms timeline (idle share {1 - busy / span:.4f}), "
+            f"{launches:g} launches per step; mean h {mean_h:.7f}")
+        del multi, s, replay
+
+    for ghost in (2, 4):
+        err = (h[ghost] - h[1]).abs().max().item()
+        log(f"  h, ghost {ghost} vs ghost 1: max |difference| {err:.3e} "
+            f"(atol 1e-3) {'ok' if err <= 1e-3 else 'FAIL'}")
+        if not err <= 1e-3:
+            raise RuntimeError(f"ghost {ghost} and ghost 1 disagree on h")
+        result[f"h_ghost{ghost}_vs_ghost1"] = err
+
+    for ghost in (1, 4):
+        cfg_b = dataclasses.replace(cfg, ghost=ghost, dtype="bfloat16")
+        multi = sw.make_multistep(cfg_b, comm, n_steps, donate=True)
+        s = sw.make_first_step(cfg_b, comm)(
+            sw.make_init(cfg_b, comm, device=device)())
+        s = multi(multi(s))  # eager, then a replay
+        finite = all(bool(torch.isfinite(t).all()) for t in s)
+        log(f"  bfloat16 ghost {ghost}: {2 * n_steps + 1} steps "
+            f"({'finite' if finite else 'NOT finite'}), dtype {s.h.dtype}")
+        if not finite or s.h.dtype != torch.bfloat16:
+            raise RuntimeError(f"bfloat16 ghost {ghost}: not a finite "
+                               f"bfloat16 state")
+        del multi, s
+    try:
+        sw.make_init(dataclasses.replace(cfg, dtype="bfloat16"), comm,
+                     device=device)
+    except ValueError as exc:
+        if "ghost 1 and ghost 4" not in str(exc):
+            raise
+        log(f"  bfloat16 ghost 2 on the card refused: {exc}")
+    else:
+        raise RuntimeError("bfloat16 at ghost 2 on the card was not refused")
+    return result
 
 
 def ptxas_report(name):
@@ -1917,10 +2080,19 @@ def main(argv):
     log("phase path, shallow water (make_solver, 0.1 model days)")
     path = path_phase(cfg, comm, device, kernels, state0, card)
 
-    log("phase profile, shallow water (one chunk of 25 steps under "
-        "torch.profiler)")
+    log("phase profile, shallow water (one graph replay of 25 steps "
+        "under torch.profiler)")
     profile = profile_phase(cfg, comm, state0, path["step_ms"], kernels)
     del state0
+
+    log(f"phase schedules, shallow water (ghost 1, 2, 4 at {cfg.ny}x"
+        f"{cfg.nx}, 25-step graphs; bfloat16 at ghost 1 and 4)")
+    schedules = schedules_phase(cfg, comm, device)
+
+    log("phase bench (python -m mpi4jax_tpu_torch.bench --quick, in "
+        "process)")
+    bench_record = port_bench.run_bench(quick=True)
+    log(json.dumps(bench_record))
 
     log("phase kernels, flash attention (forward)")
     f32_kernel, flash_kernel = flash_kernel_phase(device)
@@ -1950,6 +2122,7 @@ def main(argv):
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
+                    "schedules": schedules, "bench": bench_record,
                     "decode_path": decode_path,
                     "decode_profile": decode_profile,
                     "train_path": train, "train_profile": train_profile,

@@ -9,22 +9,34 @@ and plain PyTorch versions.
   ``research/sw_step_pallas.py:_visc_kernel``.
 
 Both take and return the Pallas kernels' layout: every field, the
-tendencies included, is a float32 ``(ny_l + 4, nx_l + 4)`` block with a
-2-deep ghost ring; ghost cells pass the input through and tendencies are
-zero there.  Preconditions (established by the caller,
-``models.shallow_water``): the ghost rings of h, u, v were exchanged,
-and h's wall ghost rows were clamped to the adjacent interior row.
+tendencies included, is a ``(ny_l + 4, nx_l + 4)`` block with a 2-deep
+ghost ring (float32 for the kernels; the plain versions compute in the
+fields' dtype, as the JAX package computes in ``cfg.dtype``); ghost
+cells pass the input through and tendencies are zero there.
+Preconditions (established by the caller, ``models.shallow_water``):
+the ghost rings of h, u, v were exchanged, and h's wall ghost rows
+were clamped to the adjacent interior row.
+
+Beside them sit the helpers that every schedule of
+``models.shallow_water`` shares with the plain versions:
+:func:`scalars` (the model's constants as tensors of the dtype),
+:func:`grid_coords` (the grid as the JAX package rounds it) and
+:func:`ring_view`.
 
 Dispatch is by the tensors' device alone: CUDA tensors go to the
 hand-written kernels in ``csrc/sw_step.cu`` (built at first use, see
 ``_build.py``), CPU tensors to the plain versions
 :func:`sw_main_reference` / :func:`sw_visc_reference`.  A failed build
 or launch raises; nothing falls back to the plain versions on the card.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a
+call made while the current stream is being captured into a CUDA graph
+records the launch instead of making it, and counts in
+``<wrapper>.captures`` (the graph's replays launch it).
 """
 
 import ctypes
 import functools
+from types import SimpleNamespace
 
 import torch
 
@@ -37,6 +49,9 @@ __all__ = [
     "sw_main_reference",
     "sw_visc_reference",
     "reset_launch_counts",
+    "scalars",
+    "grid_coords",
+    "ring_view",
 ]
 
 G = 2  # ghost width: the kernels implement the wide-halo schedule only
@@ -77,8 +92,11 @@ def _check_shape(name, first, ny_l, nx_l):
 # -- ring views (the _ring_view / _i/_e/_w/_n/_s helpers of the JAX model)
 
 
-def _ring(a, r, dy=0, dx=0):
-    """Ring-``r`` view of a ghost-2 block, shifted by ``(dy, dx)``."""
+def ring_view(a, r, dy=0, dx=0, *, G=G):
+    """Ring-``r`` view of a ``(n + 2G)``-shaped block, shifted by
+    ``(dy, dx)``: the rows and columns within ``r`` rings of the
+    interior, read at offset ``(dy, dx)`` (the JAX package's
+    ``_ring_view``; ghost 2, the kernels' width, by default)."""
     y0 = G - r + dy
     x0 = G - r + dx
     return a[y0 : y0 + a.shape[0] - 2 * (G - r),
@@ -117,25 +135,51 @@ def _zero_wall_rows(a1, is_south, is_north, extra_north=False):
     return a1
 
 
-def _spacings(cfg, like):
-    """dx, dy as 0-d tensors on the fields' device.  PyTorch divides a
-    CUDA tensor by a host scalar as a product with the scalar's
-    reciprocal, which rounds differently from the kernels' IEEE
-    division; a device tensor divisor divides exactly, on the card as on
-    the CPU."""
-    return tuple(
-        torch.full((), d, dtype=like.dtype, device=like.device)
-        for d in (cfg.dx, cfg.dy)
-    )
+def scalars(cfg, dtype, device):
+    """The model's constants as 0-d tensors of ``dtype`` on ``device``,
+    made with ``torch.full`` (no host-to-device copy, so a CUDA
+    graph can capture them).
+
+    Two reasons.  PyTorch divides a CUDA tensor by a host scalar as a
+    product with the scalar's reciprocal, which rounds differently from
+    the kernels' IEEE division; a device tensor divisor divides exactly,
+    on the card as on the CPU.  And JAX casts a Python scalar to the
+    array's dtype before the operation (a weakly typed constant: 5e3 is
+    4992 in bfloat16), where PyTorch keeps it in float32 for a bfloat16
+    tensor; a tensor of the dtype rounds as JAX does.
+    """
+    values = dict(dx=cfg.dx, dy=cfg.dy, g=cfg.gravity, dt=cfg.dt,
+                  nu=cfg.lateral_viscosity, a=cfg.ab_a, b=cfg.ab_b,
+                  f=cfg.coriolis_f, beta=cfg.coriolis_beta)
+    return SimpleNamespace(**{
+        k: torch.full((), v, dtype=dtype, device=device)
+        for k, v in values.items()
+    })
+
+
+def grid_coords(n, ghost, offset, spacing):
+    """Physical coordinates of ``n + 2 * ghost`` cells along one axis,
+    ghosts included, as the JAX package builds them
+    (``(jnp.arange(-G, n + G, dtype) + offset) * spacing``): an iota in
+    the dtype, then the start added in the dtype, then the block's
+    global offset, then the product with ``spacing`` (a 0-d tensor of
+    the dtype).  In bfloat16 this matches JAX bit for bit, where
+    ``torch.arange(-G, n + G, dtype=torch.bfloat16)`` does not."""
+    dtype, device = spacing.dtype, spacing.device
+    iota = torch.arange(n + 2 * ghost, dtype=torch.float32,
+                        device=device).to(dtype)
+    j = iota + torch.full((), -ghost, dtype=dtype, device=device)
+    j = j + torch.full((), offset, dtype=dtype, device=device)
+    return j * spacing
 
 
 def sw_main_reference(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south,
                       is_north, iy, first_step):
     """Plain PyTorch version of :func:`sw_main`; returns
     ``(h, u, v, dh, du, dv)`` as new tensors."""
-    V = _ring
-    dx, dy = _spacings(cfg, h)
-    grav = cfg.gravity
+    V = ring_view
+    c = scalars(cfg, h.dtype, h.device)
+    dx, dy = c.dx, c.dy
 
     fe = 0.5 * (V(h, 1) + V(h, 1, 0, 1)) * V(u, 1)
     fn = 0.5 * (V(h, 1) + V(h, 1, 1, 0)) * V(v, 1)
@@ -145,9 +189,8 @@ def sw_main_reference(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south,
     dh_new = -(_i(fe) - _w(fe)) / dx - (_i(fn) - _s(fn)) / dy
 
     # Coriolis on the ring-1 rows: array row r has global y (r - 2 + iy*ny_l)*dy
-    rows = torch.arange(1, ny_l + 3, dtype=h.dtype, device=h.device)
-    yy = ((rows - 2.0) + float(iy * ny_l)) * dy
-    cor = (cfg.coriolis_f + yy * cfg.coriolis_beta)[:, None]
+    yy = grid_coords(ny_l, G, iy * ny_l, dy)[1:-1]
+    cor = (c.f + yy * c.beta)[:, None]
 
     rel_vort = (V(v, 1, 0, 1) - V(v, 1)) / dx - (V(u, 1, 1, 0) - V(u, 1)) / dy
     q = (cor + rel_vort) / (
@@ -155,11 +198,11 @@ def sw_main_reference(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south,
     )
     q = _zero_wall_rows(q, is_south, is_north)
 
-    du_new = -grav * (V(h, 0, 0, 1) - V(h, 0)) / dx + 0.5 * (
+    du_new = -c.g * (V(h, 0, 0, 1) - V(h, 0)) / dx + 0.5 * (
         _i(q) * 0.5 * (_i(fn) + _e(fn))
         + _s(q) * 0.5 * (_s(fn) + fn[:-2, 2:])
     )
-    dv_new = -grav * (V(h, 0, 1, 0) - V(h, 0)) / dy - 0.5 * (
+    dv_new = -c.g * (V(h, 0, 1, 0) - V(h, 0)) / dy - 0.5 * (
         _i(q) * 0.5 * (_i(fe) + _n(fe))
         + _w(q) * 0.5 * (_w(fe) + fe[2:, :-2])
     )
@@ -172,13 +215,13 @@ def sw_main_reference(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south,
     du_new = du_new - (_e(ke) - _i(ke)) / dx
     dv_new = dv_new - (_n(ke) - _i(ke)) / dy
 
-    dt = cfg.dt
+    dt = c.dt
     if first_step:
         h_inc = dt * dh_new
         u_inc = dt * du_new
         v_inc = dt * dv_new
     else:
-        a, b = cfg.ab_a, cfg.ab_b
+        a, b = c.a, c.b
         h_inc = dt * (a * dh_new + b * V(dh, 0))
         u_inc = dt * (a * du_new + b * V(du, 0))
         v_inc = dt * (a * dv_new + b * V(dv, 0))
@@ -200,9 +243,9 @@ def sw_main_reference(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south,
 def sw_visc_reference(u, v, *, cfg, ny_l, nx_l, is_south, is_north):
     """Plain PyTorch version of :func:`sw_visc`; returns ``(u, v)`` as
     new tensors."""
-    V = _ring
-    dx, dy = _spacings(cfg, u)
-    nu = cfg.lateral_viscosity
+    V = ring_view
+    c = scalars(cfg, u.dtype, u.device)
+    dx, dy, nu = c.dx, c.dy, c.nu
 
     def laplacian(w):
         gx = nu * (V(w, 1, 0, 1) - V(w, 1)) / dx
@@ -212,8 +255,8 @@ def sw_visc_reference(u, v, *, cfg, ny_l, nx_l, is_south, is_north):
         return (_i(gx) - _w(gx)) / dx + (_i(gy) - _s(gy)) / dy
 
     u_out, v_out = u.clone(), v.clone()
-    V(u_out, 0).add_(cfg.dt * laplacian(u))
-    V(v_out, 0).add_(cfg.dt * laplacian(v))
+    V(u_out, 0).add_(c.dt * laplacian(u))
+    V(v_out, 0).add_(c.dt * laplacian(v))
     if is_north:
         v_out[ny_l + G - 1] = 0.0
     return u_out, v_out
@@ -248,7 +291,7 @@ def sw_main(h, u, v, dh, du, dv, *, cfg, ny_l, nx_l, is_south, is_north,
             cfg.dt, cfg.ab_a, cfg.ab_b, int(first_step), stream,
         )
     _check_launch(lib, "sw_main", code)
-    sw_main.launches += 1
+    _count(sw_main)
     return tuple(outs)
 
 
@@ -277,15 +320,24 @@ def sw_visc(u, v, *, cfg, ny_l, nx_l, is_south, is_north):
             cfg.dx, cfg.dy, cfg.lateral_viscosity, cfg.dt, stream,
         )
     _check_launch(lib, "sw_visc", code)
-    sw_visc.launches += 1
+    _count(sw_visc)
     return u_out, v_out
 
 
-sw_main.launches = 0
-sw_visc.launches = 0
+def _count(wrapper):
+    """One launch of ``wrapper``'s kernel, or one recorded into the CUDA
+    graph being captured on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captures += 1
+    else:
+        wrapper.launches += 1
 
 
 def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
-    sw_main.launches = 0
-    sw_visc.launches = 0
+    """Set every kernel wrapper's launch and capture counts to 0."""
+    for wrapper in (sw_main, sw_visc):
+        wrapper.launches = 0
+        wrapper.captures = 0
+
+
+reset_launch_counts()

@@ -6,8 +6,8 @@ Adams-Bashforth-2 stepping with coefficients (1.6, -0.6), periodic x,
 solid walls in y, lateral viscosity), the same configuration object and
 the same driver functions.
 
-The port runs two of the JAX package's three schedules on one rank,
-chosen by ``cfg.ghost``:
+The port runs the JAX package's three schedules on one rank, chosen by
+``cfg.ghost``:
 
 * ``ghost=1`` (the default, as in the JAX package): the reference's
   narrow schedule, about 12 one-cell halo exchanges per step, in plain
@@ -23,14 +23,22 @@ chosen by ``cfg.ghost``:
   5. the ``sw_visc`` kernel: lateral viscosity.
 
   Fields on a CUDA device go through the hand-written kernels of
-  ``kernels/sw_step.py``; fields on the CPU through their plain versions.
+  ``kernels/sw_step.py``; fields on the CPU through their plain versions;
+* ``ghost=4`` (periodic x): the single-exchange schedule, one batched
+  4-deep exchange of (h, u, v) per step with everything else recomputed
+  locally, in plain PyTorch (the JAX package has no kernel for it).
 
-``ghost=4`` (the single-exchange schedule) raises, naming its ROADMAP
-item.  The state carries full-shaped tendencies at every ghost width
-(the Pallas layout; :func:`crop_state` gives the JAX wide-halo layout).
+Every schedule computes in ``cfg.dtype`` ("float32", "bfloat16",
+"float16" or "float64"), as the JAX package does, with the model's
+constants rounded to that dtype first (JAX's weakly typed scalars).
+The kernels compute float32 only, so ghost 2 on the card takes float32
+alone and raises for another dtype when the solver is built.  The state
+carries full-shaped tendencies at every ghost width (the Pallas layout;
+:func:`crop_state` gives the JAX wide-halo layout).
 
-PyTorch runs eagerly, so ``make_multistep`` is a Python loop over steps
-where the JAX package compiles one ``fori_loop``.
+``make_multistep`` stands for the JAX package's one XLA executable
+(``jit`` around a ``fori_loop``): on the card it captures a chunk of
+steps in a CUDA graph and replays it; on the CPU it is a Python loop.
 """
 
 import math
@@ -41,12 +49,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mpi4jax_tpu_torch.kernels.sw_step import sw_main, sw_visc
+from mpi4jax_tpu_torch.kernels.sw_step import (
+    grid_coords,
+    ring_view,
+    scalars,
+    sw_main,
+    sw_visc,
+)
 from mpi4jax_tpu_torch.ops import reductions
 from mpi4jax_tpu_torch.ops._core import as_token
 from mpi4jax_tpu_torch.ops.allreduce import allreduce
 from mpi4jax_tpu_torch.ops.collectives import allgather, scan
-from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
+from mpi4jax_tpu_torch.parallel.halo import (
+    halo_exchange_2d,
+    halo_exchange_2d_batch,
+)
 from mpi4jax_tpu_torch.utils.runtime import drain, resolve_device
 
 __all__ = [
@@ -68,8 +85,14 @@ __all__ = [
 
 DAY_IN_SECONDS = 86_400.0
 WIDE = 2  # the ghost width of the wide-halo schedule (the kernels')
+SINGLE = 4  # the ghost width of the single-exchange schedule
 
-GHOST_ITEM = "ROADMAP.md Queue 1 item 2 (the ghost-4 schedule)"
+DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float64": torch.float64,
+}
 
 
 @dataclass(frozen=True)
@@ -89,8 +112,7 @@ class SWConfig:
     ab_b: float = -0.6
     dtype: str = "float32"
     # Ghost-ring width: 1 = the reference's narrow schedule, 2 = the
-    # wide-halo schedule, 4 = the single-exchange schedule (not ported
-    # yet).
+    # wide-halo schedule, 4 = the single-exchange schedule.
     ghost: int = 1
 
     @property
@@ -133,21 +155,46 @@ class SWState(NamedTuple):
     dv: torch.Tensor
 
 
-def _check_schedule(cfg):
-    if cfg.ghost == 4:
-        raise NotImplementedError(
-            f"ghost=4 (the single-exchange schedule) is not ported yet: "
-            f"{GHOST_ITEM}"
-        )
-    if cfg.ghost not in (1, WIDE):
+def _check_schedule(cfg, comm):
+    """The JAX package's schedule errors, raised when a driver function
+    is built (the JAX package raises them when it traces the step)."""
+    if cfg.ghost not in (1, WIDE, SINGLE):
         raise ValueError(f"ghost width must be 1, 2 or 4, got {cfg.ghost}")
     if cfg.ghost == WIDE and not cfg.periodic_x:
         raise NotImplementedError(
-            "the wide-halo schedule requires periodic_x=True, as in the "
-            "JAX package"
+            "wide-halo schedule currently requires periodic_x=True "
+            "(x-boundary clamps are not implemented); use ghost=1"
         )
-    if cfg.dtype != "float32":
-        raise ValueError(f"the kernels run float32, got dtype={cfg.dtype!r}")
+    if cfg.ghost == SINGLE:
+        if not cfg.periodic_x:
+            raise NotImplementedError(
+                "single-exchange schedule requires periodic_x=True; use "
+                "ghost=1"
+            )
+        ny_l, nx_l = cfg.local_interior(comm)
+        if ny_l < SINGLE or nx_l < SINGLE:
+            raise ValueError(
+                f"ghost=4 needs local blocks >= 4x4, got {ny_l}x{nx_l}"
+            )
+    if cfg.dtype not in DTYPES:
+        raise ValueError(
+            f"dtype must be one of {sorted(DTYPES)}, got {cfg.dtype!r}"
+        )
+
+
+def _check_device(cfg, device):
+    """Ghost 2 on the card runs the kernels, which compute float32."""
+    if device.type == "cuda" and cfg.ghost == WIDE and cfg.dtype != "float32":
+        raise ValueError(
+            f"dtype={cfg.dtype!r} at ghost 2 on the card: the wide-halo "
+            "schedule runs the sw_main and sw_visc kernels, which compute "
+            "float32; ghost 1 and ghost 4 run that dtype on the card"
+        )
+
+
+def torch_dtype(cfg):
+    """The torch dtype named by ``cfg.dtype``."""
+    return DTYPES[cfg.dtype]
 
 
 def _device_coords(comm):
@@ -156,18 +203,19 @@ def _device_coords(comm):
 
 
 def _local_mesh_coords(cfg, comm, device):
-    """Physical coordinates of the local block, ghosts included."""
+    """Physical coordinates of the local block, ghosts included, in
+    ``cfg.dtype`` and rounded as the JAX package rounds them."""
     G = cfg.ghost
     ny_l, nx_l = cfg.local_interior(comm)
     iy, ix = _device_coords(comm)
-    f32 = torch.float32
-    jy = torch.arange(-G, ny_l + G, dtype=f32, device=device) + float(iy * ny_l)
-    jx = torch.arange(-G, nx_l + G, dtype=f32, device=device) + float(ix * nx_l)
-    return torch.meshgrid(jy * cfg.dy, jx * cfg.dx, indexing="ij")
+    c = scalars(cfg, torch_dtype(cfg), device)
+    y = grid_coords(ny_l, G, iy * ny_l, c.dy)
+    x = grid_coords(nx_l, G, ix * nx_l, c.dx)
+    return torch.meshgrid(y, x, indexing="ij")
 
 
-def _coriolis(cfg, yy):
-    return cfg.coriolis_f + yy * cfg.coriolis_beta
+def _coriolis(c, yy):
+    return c.f + yy * c.beta
 
 
 def _wall_masks(comm):
@@ -179,20 +227,28 @@ def _wall_masks(comm):
 
 def initial_state(cfg, comm, *, device="cuda", token=None):
     """Geostrophically balanced zonal jet plus a perturbation, built on
-    this rank's block; returns ``(SWState, token)``."""
-    _check_schedule(cfg)
+    this rank's block in ``cfg.dtype``; returns ``(SWState, token)``."""
+    _check_schedule(cfg, comm)
     device = resolve_device(device)
+    _check_device(cfg, device)
     token = as_token(token)
     G = cfg.ghost
+    dtype = torch_dtype(cfg)
+    c = scalars(cfg, dtype, device)
+
+    def k(value):
+        """A Python constant as JAX uses it: rounded to the dtype."""
+        return torch.full((), value, dtype=dtype, device=device)
+
     yy, xx = _local_mesh_coords(cfg, comm, device)
     ly, lx = cfg.length_y, cfg.length_x
 
-    u0 = 10.0 * torch.exp(-((yy - 0.5 * ly) ** 2) / (0.02 * lx) ** 2)
+    u0 = k(10.0) * torch.exp(-((yy - k(0.5 * ly)) ** 2) / k((0.02 * lx) ** 2))
     v0 = torch.zeros_like(u0)
 
     # geostrophic balance h_y = -(f/g) u, integrated along global y: a
     # local cumsum plus the exclusive prefix of the blocks to the south
-    integrand = -cfg.dy * u0 * _coriolis(cfg, yy) / cfg.gravity
+    integrand = -c.dy * u0 * _coriolis(c, yy) / c.g
     local_cum = torch.cumsum(integrand[G:-G, :], dim=0)
     local_total = local_cum[-1, :]
     incl, token = scan(local_total, reductions.SUM, comm=comm.sub("y"),
@@ -206,15 +262,15 @@ def initial_state(cfg, comm, *, device="cuda", token=None):
     # centre around the mean depth
     local_sum = h_geo[G:-G, G:-G].sum()
     total, token = allreduce(local_sum, reductions.SUM, comm=comm, token=token)
-    h_mean = total / float(cfg.ny * cfg.nx)
+    h_mean = total / k(float(cfg.ny * cfg.nx))
 
     h0 = (
-        cfg.depth
+        k(cfg.depth)
         + h_geo
         - h_mean
-        + 0.2
-        * torch.sin(xx / lx * 10.0 * math.pi)
-        * torch.cos(yy / ly * 8.0 * math.pi)
+        + k(0.2)
+        * torch.sin(xx / k(lx) * k(10.0) * k(math.pi))
+        * torch.cos(yy / k(ly) * k(8.0) * k(math.pi))
     )
 
     per = (False, cfg.periodic_x)
@@ -226,14 +282,14 @@ def initial_state(cfg, comm, *, device="cuda", token=None):
     return SWState(h0, u0, v0, *zeros), token
 
 
-def clamp_wall_ghost_rows(h, comm, ny_l):
+def clamp_wall_ghost_rows(h, comm, ny_l, ghost=WIDE):
     """Clamp ``h``'s wall-side ghost rows to the adjacent interior row,
     in place, so that the kernels can read ``hc == h``.
 
     The only consumer of h's true wall ghost rows is the pressure
     gradient of the wall-row ``v``, which the wall condition zeroes.
     """
-    G = WIDE
+    G = ghost
     is_north, is_south = _wall_masks(comm)
     if is_south:
         h[:G] = h[G : G + 1]
@@ -247,13 +303,18 @@ def shallow_water_step(state, cfg, comm, *, first_step=False, token=None):
 
     ``cfg.ghost == 1``: the reference's narrow schedule (:func:`_step_narrow`);
     ``cfg.ghost == 2``: the wide-halo schedule through the kernels
-    (:func:`_step`).  Halo exchanges may write the ghost rings of the
-    input's h, u, v in place; the step's results are new tensors.
+    (:func:`_step`); ``cfg.ghost == 4``: the single-exchange schedule
+    (:func:`_step_wide4`).  Halo exchanges may write the ghost rings of
+    the input's h, u, v in place; the step's results are new tensors.
     """
-    _check_schedule(cfg)
+    _check_schedule(cfg, comm)
+    _check_device(cfg, state.h.device)
     if cfg.ghost == 1:
         return _step_narrow(state, cfg, comm, first_step=first_step,
                             token=token)
+    if cfg.ghost == SINGLE:
+        return _step_wide4(state, cfg, comm, first_step=first_step,
+                           token=token)
     return _step(state, cfg, comm, first_step=first_step, token=token,
                  main=sw_main, visc=sw_visc)
 
@@ -300,7 +361,9 @@ def _step_narrow(state, cfg, comm, *, first_step, token):
     token = as_token(token)
     per = (False, cfg.periodic_x)
     is_north, _ = _wall_masks(comm)
-    dx, dy, g = cfg.dx, cfg.dy, cfg.gravity
+    h, u, v, dh, du, dv = state
+    c = scalars(cfg, h.dtype, h.device)
+    dx, dy, g = c.dx, c.dy, c.g
 
     def exchange(a):
         nonlocal token
@@ -314,7 +377,6 @@ def _step_narrow(state, cfg, comm, *, first_step, token):
             a[-2, :] = 0.0
         return a
 
-    h, u, v, dh, du, dv = state
     zeros = torch.zeros_like(h)
 
     # cell-centred height with edge-padded ghosts, then exchanged
@@ -334,7 +396,7 @@ def _step_narrow(state, cfg, comm, *, first_step, token):
     # potential vorticity (planetary + relative, over face-mean depth)
     yy, _ = _local_mesh_coords(cfg, comm, h.device)
     rel_vort = (_e(v) - _i(v)) / dx - (_n(u) - _i(u)) / dy
-    q_int = (_coriolis(cfg, yy)[1:-1, 1:-1] + rel_vort) / (
+    q_int = (_coriolis(c, yy)[1:-1, 1:-1] + rel_vort) / (
         0.25 * (_i(hc) + _e(hc) + _n(hc) + _ne(hc))
     )
     q = exchange(_with_interior(zeros, q_int))
@@ -369,13 +431,13 @@ def _step_narrow(state, cfg, comm, *, first_step, token):
     _i(dv_new).add_(-(_n(ke) - _i(ke)) / dy)
 
     # time step: forward Euler bootstrap, then AB2
-    dt = cfg.dt
+    dt = c.dt
     if first_step:
         u = _with_interior(u, _i(u) + dt * _i(du_new))
         v = _with_interior(v, _i(v) + dt * _i(dv_new))
         h = _with_interior(h, _i(h) + dt * _i(dh_new))
     else:
-        a, b = cfg.ab_a, cfg.ab_b
+        a, b = c.a, c.b
         u = _with_interior(u, _i(u) + dt * (a * _i(du_new) + b * _i(du)))
         v = _with_interior(v, _i(v) + dt * (a * _i(dv_new) + b * _i(dv)))
         h = _with_interior(h, _i(h) + dt * (a * _i(dh_new) + b * _i(dh)))
@@ -383,8 +445,8 @@ def _step_narrow(state, cfg, comm, *, first_step, token):
     v = wall_v(v)
 
     # lateral friction (the JAX package's form: v's branch reads v)
-    nu = cfg.lateral_viscosity
-    if nu > 0:
+    nu = c.nu
+    if cfg.lateral_viscosity > 0:
         for f in (u, v):
             gx = exchange(_with_interior(zeros, nu * (_e(f) - _i(f)) / dx))
             gy = exchange(_with_interior(zeros, nu * (_n(f) - _i(f)) / dy))
@@ -426,6 +488,137 @@ def _step(state, cfg, comm, *, first_step, token, main, visc):
     return SWState(h, u, v, dh, du, dv), token
 
 
+def _step_wide4(state, cfg, comm, *, first_step, token):
+    """The single-exchange (ghost-4) schedule, term by term as
+    ``mpi4jax_tpu/models/shallow_water.py:_step_wide4`` computes it:
+
+        exchange h, u, v (width 4, one batched exchange)
+        ring 3: fluxes, potential vorticity, kinetic energy
+        ring 2: tendencies, AB2 update of h, u, v
+        ring 1: viscosity gradients of the locally updated u, v
+        interior: viscosity divergence
+
+    Tendencies are full-shaped and valid on ring 2; they are never
+    exchanged.  JAX's ``jnp.where`` masks of the wall rows become
+    assignments to the rows they select (a rank's walls are known on the
+    host)."""
+    G = SINGLE
+    token = as_token(token)
+    ny_l, _ = cfg.local_interior(comm)
+    is_north, is_south = _wall_masks(comm)
+    h, u, v, dh, du, dv = state
+    c = scalars(cfg, h.dtype, h.device)
+    dx, dy, g, dt = c.dx, c.dy, c.g, c.dt
+
+    # --- the step's only exchange round ---
+    (h, u, v), token = halo_exchange_2d_batch(
+        [h, u, v], comm, periodic=(False, True), token=token, width=G
+    )
+
+    # cell-centred height: wall ghost rows clamped (edge-pad semantics)
+    hc = clamp_wall_ghost_rows(h.clone(), comm, ny_l, ghost=G)
+
+    def V(a, r, dyr=0, dxr=0, *, G=G):
+        return ring_view(a, r, dyr, dxr, G=G)
+
+    def zero_wall(a, ring, extra_north_interior=False):
+        """Zero, in place, the rows of a ring-``ring`` field that lie
+        beyond a wall (and the last interior row for the northern
+        flux)."""
+        if is_south:
+            a[:ring] = 0.0
+        if is_north:
+            a[ny_l + ring:] = 0.0
+            if extra_north_interior:
+                a[ny_l + ring - 1] = 0.0
+        return a
+
+    # --- ring-3 intermediates, all local ---
+    fe = 0.5 * (V(hc, 3) + V(hc, 3, 0, 1)) * V(u, 3)
+    fn = 0.5 * (V(hc, 3) + V(hc, 3, 1, 0)) * V(v, 3)
+    fe = zero_wall(fe, 3)
+    fn = zero_wall(fn, 3, extra_north_interior=True)
+
+    yy, _ = _local_mesh_coords(cfg, comm, h.device)
+    rel_vort = (V(v, 3, 0, 1) - V(v, 3)) / dx - (V(u, 3, 1, 0) - V(u, 3)) / dy
+    q = (_coriolis(c, V(yy, 3)) + rel_vort) / (
+        0.25 * (V(hc, 3) + V(hc, 3, 0, 1) + V(hc, 3, 1, 0) + V(hc, 3, 1, 1))
+    )
+    q = zero_wall(q, 3)
+
+    ke = 0.5 * (
+        0.5 * (V(u, 3) ** 2 + V(u, 3, 0, -1) ** 2)
+        + 0.5 * (V(v, 3) ** 2 + V(v, 3, -1, 0) ** 2)
+    )
+    ke = zero_wall(ke, 3)
+
+    # --- ring-2 tendencies (ring-2 views of the ring-3 fields) ---
+    def R2(a, dyr=0, dxr=0):
+        return ring_view(a, 2, dyr, dxr, G=3)
+
+    dh_new = -(R2(fe) - R2(fe, 0, -1)) / dx - (R2(fn) - R2(fn, -1, 0)) / dy
+    du_new = -g * (V(h, 2, 0, 1) - V(h, 2)) / dx + 0.5 * (
+        R2(q) * 0.5 * (R2(fn) + R2(fn, 0, 1))
+        + R2(q, -1, 0) * 0.5 * (R2(fn, -1, 0) + R2(fn, -1, 1))
+    )
+    dv_new = -g * (V(h, 2, 1, 0) - V(h, 2)) / dy - 0.5 * (
+        R2(q) * 0.5 * (R2(fe) + R2(fe, 1, 0))
+        + R2(q, 0, -1) * 0.5 * (R2(fe, 0, -1) + R2(fe, 1, -1))
+    )
+    du_new = du_new - (R2(ke, 0, 1) - R2(ke)) / dx
+    dv_new = dv_new - (R2(ke, 1, 0) - R2(ke)) / dy
+
+    # --- AB2 update on ring 2 (wall ranks freeze the rows beyond it) ---
+    if first_step:
+        h2 = V(h, 2) + dt * dh_new
+        u2 = V(u, 2) + dt * du_new
+        v2 = V(v, 2) + dt * dv_new
+    else:
+        a, b = c.a, c.b
+        h2 = V(h, 2) + dt * (a * dh_new + b * V(dh, 2))
+        u2 = V(u, 2) + dt * (a * du_new + b * V(du, 2))
+        v2 = V(v, 2) + dt * (a * dv_new + b * V(dv, 2))
+    for new, old in ((h2, h), (u2, u), (v2, v)):
+        if is_south:
+            new[:2] = V(old, 2)[:2]
+        if is_north:
+            new[ny_l + 2:] = V(old, 2)[ny_l + 2:]
+
+    def wall_v(a):
+        """v = 0 on the northern wall row (the last interior row)."""
+        if is_north:
+            a[ny_l + 1] = 0.0
+        return a
+
+    v2 = wall_v(v2)
+
+    # --- viscosity on the locally recomputed ring-2 velocities ---
+    nu = c.nu
+    if cfg.lateral_viscosity > 0:
+
+        def visc_div(w2):
+            gx = nu * (V(w2, 1, 0, 1, G=2) - V(w2, 1, G=2)) / dx
+            gy = nu * (V(w2, 1, 1, 0, G=2) - V(w2, 1, G=2)) / dy
+            gx = zero_wall(gx, 1)
+            gy = zero_wall(gy, 1)
+            return (V(gx, 0, G=1) - V(gx, 0, 0, -1, G=1)) / dx + (
+                V(gy, 0, G=1) - V(gy, 0, -1, 0, G=1)
+            ) / dy
+
+        for w2 in (u2, v2):
+            V(w2, 0, G=2).add_(dt * visc_div(w2))
+        v2 = wall_v(v2)
+
+    # --- one store per field ---
+    out = []
+    for full, ring2 in ((h, h2), (u, u2), (v, v2), (dh, dh_new),
+                        (du, du_new), (dv, dv_new)):
+        new = full.clone()
+        V(new, 2).copy_(ring2)
+        out.append(new)
+    return SWState(*out), token
+
+
 def pad_state(state):
     """Lift a state with interior-shaped tendencies (the JAX wide-halo
     layout) to full-shaped ones, the ghost width read from the shapes; a
@@ -455,8 +648,9 @@ def crop_state(state, ghost=WIDE):
 
 def make_init(cfg, comm, *, device="cuda"):
     """Initial-condition builder: ``init() -> SWState`` on ``device``."""
-    _check_schedule(cfg)
+    _check_schedule(cfg, comm)
     device = resolve_device(device)
+    _check_device(cfg, device)
 
     def init():
         state, _tok = initial_state(cfg, comm, device=device)
@@ -467,7 +661,7 @@ def make_init(cfg, comm, *, device="cuda"):
 
 def make_first_step(cfg, comm):
     """The Euler bootstrap step: ``first(state) -> SWState``."""
-    _check_schedule(cfg)
+    _check_schedule(cfg, comm)
 
     def first(state):
         state, _tok = shallow_water_step(state, cfg, comm, first_step=True)
@@ -476,16 +670,99 @@ def make_first_step(cfg, comm):
     return first
 
 
-def make_multistep(cfg, comm, num_steps):
-    """``multi(state) -> SWState`` advancing ``num_steps`` AB2 steps."""
-    _check_schedule(cfg)
+def make_multistep(cfg, comm, num_steps, *, donate=False):
+    """``multi(state) -> SWState`` advancing ``num_steps`` AB2 steps: the
+    JAX package's ``make_multistep``, one executable for the chunk.
 
-    def multi(state):
+    On the CPU it is a loop of eager steps.  On the card:
+
+    1. the first call runs the chunk eagerly on a side stream (the
+       kernels' build, the allocator's first blocks) and returns that
+       result; then it captures one chunk in a ``torch.cuda.CUDAGraph``
+       on static copies of the state, the capture ending with copies of
+       the outputs back into those buffers, so that replays chain;
+    2. every later call copies the caller's state into the static
+       buffers (unless it passed them back) and replays the graph.
+
+    ``donate=True`` returns the static buffers themselves, so the state
+    passed in is consumed, as with JAX's ``donate_argnums``: use it for
+    ``state = multi(state)`` loops.  ``donate=False`` returns clones, so
+    a later call never overwrites an earlier result.  A capture that
+    fails raises; nothing falls back to the eager loop on the card.
+
+    ``multi.replays`` counts the replays; ``multi.captured`` holds the
+    kernel launches one chunk's graph makes (``{"sw_main": n,
+    "sw_visc": n}``, 0 where the schedule runs no kernel), which the
+    wrappers' host-side ``launches`` counts do not see.  The graph and
+    its memory pool live as long as ``multi``.
+    """
+    _check_schedule(cfg, comm)
+
+    def chunk(state):
         for _ in range(num_steps):
             state, _tok = shallow_water_step(state, cfg, comm)
         return state
 
+    graph = None
+    static = None
+
+    def multi(state):
+        nonlocal graph, static
+        if state.h.device.type != "cuda":
+            return chunk(state)
+        _check_device(cfg, state.h.device)
+        if graph is None:
+            out = _run_on_side_stream(chunk, state)
+            graph, static = _capture(chunk, state, multi, num_steps)
+            return out
+        if any(a is not b for a, b in zip(state, static)):
+            for a, b in zip(static, state):
+                a.copy_(b)
+        graph.replay()
+        multi.replays += 1
+        if donate:
+            return static
+        return SWState(*(t.clone() for t in static))
+
+    multi.replays = 0
+    multi.captured = {}
     return multi
+
+
+def _run_on_side_stream(fn, state):
+    """``fn(state)`` on a fresh stream ordered after the current one,
+    its outputs handed back to the current stream."""
+    current = torch.cuda.current_stream(state.h.device)
+    side = torch.cuda.Stream(state.h.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn(state)
+    current.wait_stream(side)
+    for t in out:
+        t.record_stream(current)
+    return out
+
+
+def _capture(chunk, state, multi, num_steps):
+    """Capture ``chunk`` on static copies of ``state``; returns
+    ``(graph, static)`` and sets ``multi.captured``."""
+    static = SWState(*(t.clone() for t in state))
+    graph = torch.cuda.CUDAGraph()
+    wrappers = (sw_main, sw_visc)
+    before = [w.captures for w in wrappers]
+    try:
+        with torch.cuda.graph(graph):
+            out = chunk(static)
+            for a, b in zip(static, out):
+                a.copy_(b)
+    except RuntimeError as exc:
+        raise RuntimeError(
+            f"CUDA graph capture of a {num_steps}-step shallow-water chunk "
+            f"failed: {exc}"
+        ) from exc
+    multi.captured = {w.__name__: w.captures - n
+                      for w, n in zip(wrappers, before)}
+    return graph, static
 
 
 def make_solver(cfg, comm, num_multisteps=10, on_chunk=None, *,
@@ -498,16 +775,20 @@ def make_solver(cfg, comm, num_multisteps=10, on_chunk=None, *,
     At least one chunk is timed even when the warm-up already passed
     ``t1``.  ``on_chunk(state, t_seconds)``, if given, runs after every
     chunk (the warm-up one included) and its time counts in the wall
-    clock.
+    clock.  The chunks run through ``make_multistep(..., donate=True)``
+    (on the card: the warm-up chunk eagerly, then graph replays), which
+    ``solve.multistep`` holds; so on the card the state ``on_chunk``
+    sees is overwritten by the next chunk, and a callback copies what it
+    keeps.
     """
     init = make_init(cfg, comm, device=device)
     first = make_first_step(cfg, comm)
-    multi = make_multistep(cfg, comm, num_multisteps)
+    multi = make_multistep(cfg, comm, num_multisteps, donate=True)
 
     def solve(t1):
         state = first(init())
         t = cfg.dt
-        state = multi(state)  # warm-up chunk (kernel builds, allocator)
+        state = multi(state)  # warm-up chunk (kernel builds, capture)
         t += cfg.dt * num_multisteps
         drain(state.h)
         if on_chunk is not None:
@@ -524,6 +805,7 @@ def make_solver(cfg, comm, num_multisteps=10, on_chunk=None, *,
         wall = time.perf_counter() - start
         return state, wall, steps
 
+    solve.multistep = multi
     return solve
 
 
@@ -553,10 +835,12 @@ def config_from_jax(cfg_fields):
 
 
 def state_from_jax(arrays, cfg, *, device="cuda"):
-    """Port state on ``device`` from six numpy arrays ``(h, u, v, dh, du,
-    dv)`` of a one-rank JAX state at ``cfg.ghost``: full-shaped
-    tendencies (the narrow and Pallas layouts) or interior-shaped ones
-    (the wide-halo layout)."""
+    """Port state in ``cfg.dtype`` on ``device`` from six numpy arrays
+    ``(h, u, v, dh, du, dv)`` of a one-rank JAX state at ``cfg.ghost``:
+    full-shaped tendencies (the narrow, single-exchange and Pallas
+    layouts) or interior-shaped ones (the wide-halo layout).  A bfloat16
+    JAX array (an ``ml_dtypes`` numpy dtype, which torch cannot take) is
+    widened to float32 in numpy first, which is exact."""
     device = resolve_device(device)
     h, u, v, dh, du, dv = (np.asarray(a) for a in arrays)
     G = cfg.ghost
@@ -572,11 +856,17 @@ def state_from_jax(arrays, cfg, *, device="cuda"):
             )
 
     def tensor(a):
-        return torch.tensor(a, dtype=torch.float32, device=device)
+        if a.dtype not in (np.float16, np.float32, np.float64):
+            a = a.astype(np.float32)
+        return torch.tensor(a, device=device).to(torch_dtype(cfg))
 
     return pad_state(SWState(*(tensor(a) for a in (h, u, v, dh, du, dv))))
 
 
 def state_to_numpy(state):
-    """The state's six fields as numpy arrays (full-shaped tendencies)."""
-    return SWState(*(t.detach().cpu().numpy() for t in state))
+    """The state's six fields as numpy arrays (full-shaped tendencies;
+    bfloat16 widened to float32, which numpy can hold)."""
+    return SWState(*(
+        (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+        for t in state
+    ))

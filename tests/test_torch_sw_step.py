@@ -197,14 +197,16 @@ def test_cpu_wrappers_run_plain_versions(walls, first_step):
 
 
 def test_step_rejects_unported_schedules():
-    # ghost 4 is not ported; the wide-halo schedule needs periodic x,
-    # while the narrow one (ghost 1, the default) takes either
+    # the wide-halo (ghost 2) and single-exchange (ghost 4) schedules
+    # need periodic x, as in the JAX package, while the narrow one
+    # (ghost 1, the default) takes either; every width the JAX package
+    # takes is ported
     comm = MeshComm()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        tsw.make_first_step(tsw.SWConfig(ny=8, nx=8, ghost=4), comm)
-    with pytest.raises(NotImplementedError, match="periodic_x"):
-        tsw.make_multistep(
-            tsw.SWConfig(ny=8, nx=8, ghost=2, periodic_x=False), comm, 1)
+    for ghost in (2, 4):
+        with pytest.raises(NotImplementedError, match="periodic_x"):
+            tsw.make_multistep(tsw.SWConfig(ny=8, nx=8, ghost=ghost,
+                                            periodic_x=False), comm, 1)
+        tsw.make_first_step(tsw.SWConfig(ny=8, nx=8, ghost=ghost), comm)
     for periodic_x in (True, False):
         tsw.make_first_step(
             tsw.SWConfig(ny=8, nx=8, periodic_x=periodic_x), comm)
