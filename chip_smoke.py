@@ -11,11 +11,14 @@ Phases, each of which raises on failure (nothing is caught):
    nvcc per source, all started together; nvcc's seconds per source and
    ptxas's registers and spills per kernel and head dim are printed.
 2. kernels (shallow water): at the published 3600x1800 domain (ghost 2,
-   one rank) each kernel is held against its plain PyTorch version on
-   the same inputs on the card (sw_visc bit for bit), and timed beside
-   its bound, its plain version and the measured device-to-device copy
-   rate; one sw_main launch captured in a CUDA graph and replayed must
-   equal the eager launch bit for bit.
+   one rank) each kernel is held bit for bit against its plain PyTorch
+   version on the same inputs on the card, sw_main for both first-step
+   values there and on three small blocks of random fields
+   (``SW_CHECK_CASES``: both walls; each wall alone on a second rank's
+   block, iy = 1), and timed beside its bound, its plain version and
+   the measured device-to-device copy rate; one sw_main launch captured
+   in a CUDA graph and replayed must equal the eager launch bit for
+   bit.
 3. path (shallow water): the solver's main path, ``make_solver`` on the
    benchmark configuration for 0.1 model days, runs through the entry
    points with every kernel launch count set to 0 just before and read
@@ -105,10 +108,11 @@ Without a CUDA device it exits 1 before printing any result.
 
     python3 chip_smoke.py --fault-readings
 
-builds and runs the checks of phases 5 and 8 (not their timings) and the
-2-layer training gradients on this tree and, at the same time, on
-throw-away copies of it each with one fault planted (``FAULT_PLANS``)
-in ``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for
+builds and runs the checks of phases 2, 5 and 8 (not their timings)
+and the 2-layer training gradients on this tree and, at the same time,
+on throw-away copies of it each with one fault planted (``FAULT_PLANS``)
+in ``sw_step.cu`` (``SW_FAULTS``: the sw_main checks), in
+``flash_fwd_mma.cu`` (``FLASH_FAULTS``: the forward checks, and for
 the dropped diagonal tile the gradients too), in ``flash_fwd.cu``
 (``F32_FLASH_FAULTS``: the forward checks), in ``flash_bwd.cu``
 (``BWD_FAULTS``) or in ``flash_bwd_mma.cu`` (``BWD_MMA_FAULTS``, and
@@ -116,9 +120,16 @@ the dropped diagonal tile the gradients too), in ``flash_fwd.cu``
 prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes and every fault fails.
 
-    python3 chip_smoke.py --check fwd,bwd,grad
+    python3 chip_smoke.py --check fwd,bwd,grad,sw
 
-runs those checks (any of the three) on this tree alone.
+runs those checks (any of the four) on this tree alone.
+
+    python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
+
+builds each ``sw_step.cu`` named (an earlier commit's, or an edited
+copy: another form of sw_main), holds its sw_main to the plain version
+bit for bit and times it in turns with the tree's own at the bench
+shape.
 
     python3 chip_smoke.py --witness-readings
 
@@ -128,6 +139,7 @@ seeds of four cases (``WITNESS_CASES``): the evidence for the bf16
 limits' measure.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -430,10 +442,40 @@ BWD_MMA_READINGS = {
         "        }",
     ),
 }
+# faults planted in copies of sw_step.cu for --fault-readings, each an
+# exact replacement in sw_main: the strip's prologue no longer hands
+# q(r-1) and fn(r-1) to its first row, which reads the zeros they start
+# from; the western potential vorticity taken from two lanes west; the
+# northern flux no longer zero on the ring rows beyond a wall
+SW_FAULTS = {
+    "prologue": (
+        "    q_s = q_c;\n    fn_s = fn_c;\n",
+        "    if (r >= r0) {\n      q_s = q_c;\n      fn_s = fn_c;\n    }\n",
+    ),
+    "west_lane": (
+        "__shfl_up_sync(kAll, q_c, 1)",
+        "__shfl_up_sync(kAll, q_c, 2)",
+    ),
+    "fn_wall": (
+        "const bool fn_zero = wall_c || (g.is_north && r == g.ny_l + 1);",
+        "const bool fn_zero = g.is_north && r == g.ny_l + 1;",
+    ),
+}
+# sw_main against its plain version beside the bench shape: (name,
+# (ny_l, nx_l), is_south, is_north, iy).  Blocks whose widths are no
+# multiple of a warp's 30 columns and whose heights are no multiple of a
+# strip's 4 rows; both walls (one rank, as the path), then each wall
+# alone on the block of a second rank in y (iy = 1)
+SW_CHECK_CASES = (
+    ("walls", (45, 97), True, True, 0),
+    ("south_iy1", (61, 143), True, False, 1),
+    ("north_iy1", (61, 143), False, True, 1),
+)
 # the planted copies of --fault-readings: (copy name prefix, source in
 # kernels/csrc, faults, the checks each copy runs, whether a copy must
 # fail); the forward's diag_tile copy (bf16) also runs the gradients
 FAULT_PLANS = (
+    ("sw_", "sw_step.cu", SW_FAULTS, "sw", True),
     ("fwd_", "flash_fwd_mma.cu", FLASH_FAULTS, "fwd", True),
     ("fwd32_", "flash_fwd.cu", F32_FLASH_FAULTS, "fwd", True),
     ("bwd_", "flash_bwd.cu", BWD_FAULTS, "bwd", True),
@@ -528,51 +570,87 @@ def clone(state):
     return sw.SWState(*(t.clone() for t in state))
 
 
-def kernel_phase(cfg, comm, device, copy_rate):
+def sw_bench_inputs(cfg, comm, device):
+    """sw_main's inputs at the bench shape as the step gives them: a
+    non-trivial state (the initial state plus a few plain steps, v != 0)
+    with h, u, v exchanged and h's wall ghost rows clamped.  Returns
+    ``(state, inputs, geometry, iy)``."""
     ny_l, nx_l = cfg.local_interior(comm)
     is_north, is_south = sw._wall_masks(comm)
     iy, _ = sw._device_coords(comm)
     geometry = dict(cfg=cfg, ny_l=ny_l, nx_l=nx_l, is_south=is_south,
                     is_north=is_north)
-
-    # a non-trivial state (v != 0): the initial state plus a few steps
     state = sw.make_init(cfg, comm, device=device)()
     state = plain_step(state, cfg, comm, True)
     for _ in range(4):
         state = plain_step(state, cfg, comm, False)
     if state.v.abs().max().item() == 0.0:
         raise RuntimeError("kernel-phase state has v == 0")
-
-    # the main kernel's inputs as the step gives them: exchanged, clamped
-    per = (False, True)
     h, u, v, dh, du, dv = clone(state)
     for f in (h, u, v):
-        halo_exchange_2d(f, comm, periodic=per, width=cfg.ghost)
+        halo_exchange_2d(f, comm, periodic=(False, True), width=cfg.ghost)
     sw.clamp_wall_ghost_rows(h, comm, ny_l)
-    inputs = (h, u, v, dh, du, dv)
-    rows, cols = h.shape
-    cells = rows * cols
-    interior = ny_l * nx_l
-    results = {}
+    return state, (h, u, v, dh, du, dv), geometry, iy
 
-    for first_step in (True, False):
-        kw = dict(iy=iy, first_step=first_step, **geometry)
-        got = sw_step.sw_main(*inputs, **kw)
-        want = sw_step.sw_main_reference(*inputs, **kw)
-        torch.cuda.synchronize()
-        worst_abs, worst_rel = 0.0, 0.0
-        for name, w, g in zip(sw.SWState._fields, want, got):
-            tol = KERNEL_TOL["tendency" if name.startswith("d") else "state"]
-            ok, err, rel = rel_close(w, g, tol)
-            log(f"  sw_main first_step={first_step} {name}: max_abs_err "
-                f"{err:.3e}, max_err/max|plain| {rel:.3e} (limit {tol:g}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"sw_main disagrees with its plain "
-                                   f"version on {name}")
-            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        results[f"sw_main_first_step_{first_step}"] = (worst_abs, worst_rel)
-    main_out = got  # the AB2 case: the main path's launch
+
+def sw_case_inputs(cfg, interior, seed, device):
+    """Fields of an ``interior`` block with its ghost ring, from
+    ``seed``: h about the depth, u and v about 1 m/s, tendencies about
+    1e-4."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (interior[0] + 4, interior[1] + 4)
+
+    def draw(scale, offset=0.0):
+        return (offset + scale * torch.randn(shape, generator=gen)).to(device)
+
+    return (draw(1.0, cfg.depth), draw(1.0), draw(1.0), draw(1e-4),
+            draw(1e-4), draw(1e-4))
+
+
+def sw_main_checks(inputs, geometry, iy, device):
+    """sw_main held to its plain version bit for bit (``torch.equal``),
+    with the largest difference beside it: at the bench shape's
+    ``inputs`` and at ``SW_CHECK_CASES``, each for both first_step
+    values; every case runs before a failure raises.  Then one bench
+    launch captured in a CUDA graph and replayed must equal the eager
+    launch.  Returns the bench shape's ``{first_step: (max_abs_err,
+    max_err / max|plain|)}`` and its AB2 outputs."""
+    cfg = geometry["cfg"]
+    cases = [("bench", inputs, geometry, iy)]
+    for seed, (name, interior, south, north, case_iy) in enumerate(
+            SW_CHECK_CASES):
+        cases.append((name, sw_case_inputs(cfg, interior, seed, device),
+                      dict(cfg=cfg, ny_l=interior[0], nx_l=interior[1],
+                           is_south=south, is_north=north), case_iy))
+    bench, failed = {}, []
+    for case, args, geo, case_iy in cases:
+        for first_step in (True, False):
+            kw = dict(iy=case_iy, first_step=first_step, **geo)
+            got = sw_step.sw_main(*args, **kw)
+            want = sw_step.sw_main_reference(*args, **kw)
+            torch.cuda.synchronize()
+            worst_abs, worst_rel = 0.0, 0.0
+            for name, w, g in zip(sw.SWState._fields, want, got):
+                # the tolerance the first form was held to, read beside
+                # the bit-exact verdict
+                tol = KERNEL_TOL["tendency" if name.startswith("d")
+                                 else "state"]
+                close, err, rel = rel_close(w, g, tol)
+                ok = torch.equal(w, g)
+                log(f"  sw_main {case} {tuple(args[0].shape)} first_step="
+                    f"{first_step} {name}: max_abs_err {err:.3e}, "
+                    f"max_err/max|plain| {rel:.3e} "
+                    f"({'within' if close else 'outside'} {tol:g}; "
+                    f"bit-exact required) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"{case} first_step={first_step} {name}")
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if case == "bench":
+                bench[first_step] = (worst_abs, worst_rel)
+                main_out = got  # the AB2 case: the main path's launch
+    if failed:
+        raise RuntimeError(f"sw_main differs from its plain version: "
+                           f"{', '.join(failed)}")
 
     # the same launch captured in a CUDA graph and replayed (the solver's
     # chunks are graphs; the kernel library links its own CUDA runtime
@@ -589,7 +667,17 @@ def kernel_phase(cfg, comm, device, copy_rate):
     if not same:
         raise RuntimeError("a replayed sw_main launch differs from the "
                            "eager one")
-    del graph, replayed
+    return bench, main_out
+
+
+def kernel_phase(cfg, comm, device, copy_rate):
+    state, inputs, geometry, iy = sw_bench_inputs(cfg, comm, device)
+    rows, cols = inputs[0].shape
+    cells = rows * cols
+    interior = geometry["ny_l"] * geometry["nx_l"]
+    per = (False, True)
+    bench, main_out = sw_main_checks(inputs, geometry, iy, device)
+    results = {f"sw_main_first_step_{k}": err for k, err in bench.items()}
 
     # viscosity inputs: the main kernel's u, v after their exchange
     u2, v2 = main_out[1].clone(), main_out[2].clone()
@@ -924,13 +1012,12 @@ def schedules_phase(cfg, comm, device, n_steps=25):
     return result
 
 
-def ptxas_report(name):
-    """ptxas's report of ``csrc/<name>.cu`` from its build log: one
-    ``(kernel, template arguments, registers, spill stores, spill loads)``
-    per compiled kernel (bytes of spill)."""
+def ptxas_report(log_path):
+    """ptxas's report from a build log: one ``(kernel, template
+    arguments, registers, spill stores, spill loads)`` per compiled
+    kernel (bytes of spill)."""
     rows, kernel = [], None
-    for line in (_build.library_dir(name) / "build.log").read_text(
-            ).splitlines():
+    for line in log_path.read_text().splitlines():
         entry = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", line)
         if "Compiling entry function" in line and entry:
             args = re.findall(r"(f|13__nv_bfloat16|Li(\d+)E)",
@@ -963,7 +1050,8 @@ def build_phase(sources=SOURCES):
     report = {}
     for name in sources:
         log(f"  {name}.cu: nvcc {_build.build_seconds(name):.2f} s")
-        for kernel, args, regs, stores, loads in ptxas_report(name):
+        for kernel, args, regs, stores, loads in ptxas_report(
+                _build.library_dir(name) / "build.log"):
             log(f"    ptxas: {kernel}<{args}>: {regs} registers, spill "
                 f"stores {stores} bytes, spill loads {loads} bytes")
             report[f"{kernel}<{args}>"] = {
@@ -1953,14 +2041,23 @@ def train_profile_phase(device, train):
             "flash_share": {name: ms / busy for name, ms in flash.items()}}
 
 
+def sw_check(device):
+    """Phase 2's sw_main checks at the bench configuration, untimed."""
+    cfg = sw.SWConfig().bench_size()
+    _, inputs, geometry, iy = sw_bench_inputs(cfg, MeshComm(), device)
+    sw_main_checks(inputs, geometry, iy, device)
+
+
 def run_checks(device, parts):
     """The kernel checks named in ``parts`` (``fwd``: phase 5's cases,
-    ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient),
-    without timings, after building the flash kernels.  Every check runs
-    and prints its readings even when an earlier one failed; returns 1
-    when any failed."""
-    build_phase(FLASH_SOURCES)
+    ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient,
+    ``sw``: phase 2's sw_main checks), without timings, after building
+    the kernels they need.  Every check runs and prints its readings even
+    when an earlier one failed; returns 1 when any failed."""
+    build_phase((("sw_step",) if "sw" in parts else ())
+                + (FLASH_SOURCES if set(parts) - {"sw"} else ()))
     checks = {
+        "sw": lambda: sw_check(device),
         "fwd": lambda: flash_kernel_phase(device, timed=False),
         "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
         "grad": lambda: (train_grad_check(device),
@@ -1976,20 +2073,126 @@ def run_checks(device, parts):
     return 1 if failed else 0
 
 
+def sass_counts(lib_path, kernel):
+    """Instructions of ``kernel`` in ``lib_path`` as cuobjdump -sass
+    lists them (static: a loop's body once): all, and those of each
+    opcode that sw_main's design counts (MUFU.RCP: one per IEEE
+    division, and one in the slow path they share; global and shared
+    loads, stores, cp.async and shuffles).
+    None where the toolkit has no cuobjdump."""
+    tool = pathlib.Path(shutil.which("cuobjdump")
+                        or pathlib.Path(_build._nvcc()).parent / "cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    body = re.split(r"\n\s*Function : ", out)
+    code = next((b for b in body if kernel in b.split("\n", 1)[0]), "")
+    ops = re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", code)
+    counts = {"all": len(ops)}
+    for op in ("MUFU.RCP", "LDG", "LDS", "STG", "LDGSTS", "SHFL"):
+        counts[op] = sum(o == op or o.startswith(op + ".") for o in ops)
+    return counts
+
+
+def sw_forms(device, sources):
+    """Build the tree's sw_step.cu and each of ``sources`` (another form
+    of sw_main, such as an earlier commit's), one nvcc each, all at
+    once; hold every form's sw_main to the plain version bit for bit at
+    the bench shape for both first_step values; then time them in turns
+    at the bench shape's AB2 launch (CUDA events over ``TIMED_LAUNCHES``
+    launches, 5 rounds of every form in turn, the median), with ptxas's
+    registers and spills and the SASS opcode counts.  Each form runs
+    through the wrapper ``sw_step.sw_main`` with its library in place of
+    the tree's.  Returns 1 when a form differs from the plain version."""
+    work = pathlib.Path(tempfile.mkdtemp(prefix="sw_forms_"))
+    try:
+        libs = {"tree": _build.library_dir("sw_step") / "libsw_step.so"}
+        for i, src in enumerate(sources):
+            (work / f"lib_{i}").mkdir()
+            libs[str(src)] = work / f"lib_{i}" / "libsw_step.so"
+        with ThreadPoolExecutor(len(libs)) as pool:
+            futures = [pool.submit(sw_step._library)] + [
+                pool.submit(_build._compile, "sw_step", src,
+                            libs[str(src)].parent, libs[str(src)])
+                for src in sources]
+            for f in futures:
+                f.result()
+        library = sw_step._library
+        tree_lib = library()
+        cfg = sw.SWConfig().bench_size()
+        _, inputs, geometry, iy = sw_bench_inputs(cfg, MeshComm(), device)
+        rows, cols = inputs[0].shape
+
+        def launcher(lib, first_step):
+            def launch():
+                sw_step._library = lambda: lib
+                try:
+                    return sw_step.sw_main(*inputs, iy=iy,
+                                           first_step=first_step, **geometry)
+                finally:
+                    sw_step._library = library
+            return launch
+
+        launches, failed = {}, []
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            for fn in ("sw_main_launch", "sw_step_error_string"):
+                getattr(lib, fn).argtypes = getattr(tree_lib, fn).argtypes
+                getattr(lib, fn).restype = getattr(tree_lib, fn).restype
+            for first_step in (True, False):
+                got = launcher(lib, first_step)()
+                want = sw_step.sw_main_reference(
+                    *inputs, iy=iy, first_step=first_step, **geometry)
+                torch.cuda.synchronize()
+                if not all(torch.equal(w, g) for w, g in zip(want, got)):
+                    failed.append(f"{name} first_step={first_step}")
+            launches[name] = launcher(lib, False)
+        times = {name: [] for name in libs}
+        for _ in range(5):
+            for name, launch in launches.items():
+                times[name].append(time_ms(launch, repeats=1))
+        nbytes = 12 * rows * cols * 4
+        readings = {}
+        for name, path in libs.items():
+            ms = statistics.median(times[name])
+            ptxas = ptxas_report(path.parent / "build.log")
+            regs = [r for r in ptxas if r[0] == "sw_main_kernel"][0][2:]
+            sass = sass_counts(path, "sw_main_kernel")
+            readings[name] = {"ms": ms, "registers": regs[0],
+                              "spill_stores": regs[1],
+                              "spill_loads": regs[2], "sass": sass}
+            verdict = ("DIFFERS from the plain version"
+                       if any(f.startswith(name + " ") for f in failed)
+                       else "bit-identical to the plain version")
+            log(f"  sw_main form {name}: {ms:.4f} ms (runs "
+                f"{', '.join(f'{x:.4f}' for x in times[name])}), "
+                f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, {regs[0]} "
+                f"registers, spill stores {regs[1]} bytes, spill loads "
+                f"{regs[2]} bytes, {verdict}; SASS {sass}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"sw_forms": readings, "failed": failed,
+                    "card": card_line()}))
+    return 1 if failed else 0
+
+
 def fault_readings():
     """The kernel checks on this tree and on copies of it with one
     planted fault each (``FAULT_PLANS``), all at once (one process each);
-    prints every reading.  A copy with a fault of ``FLASH_FAULTS`` (in
-    ``flash_fwd_mma.cu``) or of ``F32_FLASH_FAULTS`` (in
-    ``flash_fwd.cu``) runs the forward checks, the bf16 ``diag_tile`` one
-    also the 2-layer training gradients; a copy with a fault of
-    ``BWD_FAULTS`` (in ``flash_bwd.cu``) or of ``BWD_MMA_FAULTS`` or
-    ``BWD_MMA_READINGS`` (in ``flash_bwd_mma.cu``) the backward checks;
-    the tree itself all three.  Exit 0 when the sound tree passes and
-    every fault of the four fault dictionaries fails (the copies of
-    ``BWD_MMA_READINGS`` are read, not judged)."""
+    prints every reading.  A copy with a fault of ``SW_FAULTS`` (in
+    ``sw_step.cu``) runs the sw_main checks; one with a fault of
+    ``FLASH_FAULTS`` (in ``flash_fwd_mma.cu``) or of
+    ``F32_FLASH_FAULTS`` (in ``flash_fwd.cu``) the forward checks, the
+    bf16 ``diag_tile`` one also the 2-layer training gradients; one with
+    a fault of ``BWD_FAULTS`` (in ``flash_bwd.cu``) or of
+    ``BWD_MMA_FAULTS`` or ``BWD_MMA_READINGS`` (in ``flash_bwd_mma.cu``)
+    the backward checks; the tree itself all four.  Exit 0 when the
+    sound tree passes and every fault of the five fault dictionaries
+    fails (the copies of ``BWD_MMA_READINGS`` are read, not judged)."""
     root = pathlib.Path(__file__).resolve().parent
-    work = pathlib.Path(tempfile.mkdtemp(prefix="flash_faults_"))
+    work = pathlib.Path(tempfile.mkdtemp(prefix="kernel_faults_"))
     plans = [(prefix + name, source, edit,
               "fwd,grad" if prefix + name == "fwd_diag_tile" else parts)
              for prefix, source, faults, parts, _ in FAULT_PLANS
@@ -1997,7 +2200,7 @@ def fault_readings():
     read_only = {prefix + name
                  for prefix, _, faults, _, judged in FAULT_PLANS
                  if not judged for name in faults}
-    trees = {"sound": (root, "fwd,bwd,grad")}
+    trees = {"sound": (root, "fwd,bwd,grad,sw")}
     try:
         for name, source, (old, new), parts in plans:
             tree = work / name
@@ -2027,8 +2230,9 @@ def fault_readings():
             log(f"tree {name}, checks {trees[name][1]} (exit "
                 f"{proc.returncode}):")
             for line in out.splitlines():
-                if any(word in line for word in ("flash_", "gradient",
-                                                 "check", "Error")):
+                if any(word in line for word in ("flash_", "sw_main",
+                                                 "gradient", "check",
+                                                 "Error")):
                     log(f"  {line.strip()}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2054,8 +2258,10 @@ def main(argv):
     if argv == ["--witness-readings"]:
         return witness_readings(device)
     if len(argv) == 2 and argv[0] == "--check" and set(
-            argv[1].split(",")) <= {"fwd", "bwd", "grad"}:
+            argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw"}:
         return run_checks(device, argv[1].split(","))
+    if argv[:1] == ["--sw-forms"] and len(argv) > 1:
+        return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

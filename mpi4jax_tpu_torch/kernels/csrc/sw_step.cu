@@ -12,22 +12,43 @@
 // tendencies included (the Pallas kernels' full-shaped layout).
 //
 // What bounds them on the card: memory.  sw_main reads six fields and
-// writes six (12 x 4 B per cell) for some 80 float operations per cell;
-// sw_visc reads and writes two fields each.  Both are far below the
-// H100's operations-per-byte balance point, so the only thing that
-// matters is to move each field once.
+// writes six (12 x 4 B per cell: 312.1 MB at the 3600 x 1800 bench
+// block, 0.0932 ms at the H100's 3.35 TB/s) for some 83 float operations
+// per cell; sw_visc reads and writes two fields each.  Both are far
+// below the H100's operations-per-byte balance point, so what matters
+// is to move each field once and to keep the arithmetic out of the
+// loads' way.
 //
-// Design of sw_main (the simple first form): one thread per output cell
-// on a 2-D grid of 32 x 8 blocks.  A thread reads its radius-2
-// neighbourhood straight from global memory and recomputes the ring-1
-// intermediates it needs (fe, fn, q, ke); neighbouring threads share
-// those reads through L1/L2, so device memory still sees each field about
-// once.  Every neighbour an interior cell reads lies in rows r-1..r+1 and
-// columns c-1..c+1 of the block (the ghost ring holds the exchanged
-// values), so no x wrap happens in the kernel.  Ghost cells pass their
-// input through and get zero tendencies.  The Pallas kernels tile rows by
-// 64 with 8-row halo blocks and keep x whole for the TPU's lanes; none of
-// that carries over.
+// What held sw_main's first form back: one thread per cell on 32 x 8
+// blocks, each recomputing from global memory the ring-1 intermediates
+// it needs (4 fe, 4 fn, 3 q, 3 ke): 15 IEEE divisions a cell where 9
+// do, about 23 loads a cell where 6 do, and a wall-row branch in every
+// intermediate.  Its issue time and its memory time added up: 0.1830 ms
+// a launch, 1.71 TB/s (H100 80GB HBM3, 700 W).
+//
+// Design of sw_main (column streams, as sw_visc below): each warp owns 32
+// consecutive columns and walks a 4-row strip down them after one prologue
+// step at the row above.  Lane 0 sits one column west of the 30 columns the
+// warp updates and lane 31 one column east.  At row r a lane computes fe(r+1),
+// fn(r), q(r) and ke(r+1) once, from the rows r and r+1 of its column, and
+// carries fe(r), fn(r-1), q(r-1) and ke(r) from the previous step; the
+// western neighbours (fe, q, u) come from lane - 1 and the eastern ones (fn,
+// ke, h, v) from lane + 1 by shuffle: 9 divisions, 6 loads and 6 stores a
+// cell.  The next row's fields are in flight while a row is computed, in a
+// two-row ring in shared memory that each lane fills for its own column by
+// cp.async. Every value is the same expression of the same operands, in the
+// same association, as in the plain version, so the result is bit for bit the
+// same.  The forms tried, each bit for bit the same and timed in turns as an
+// edited copy of this file by chip_smoke.py --sw-forms, per launch on the
+// bench block (H100 80GB HBM3, 700 W): this one 0.1333 ms (2.34 TB/s); the
+// next row loaded into registers instead 0.1394, no row in flight 0.1363
+// (registers) and 0.1401 (ring), two rows 0.1446 and 0.1344; 31 columns a
+// warp, lane 31 loading its eastern column itself, 0.1416; strips of 8, 16
+// and 32 rows 0.1476, 0.1620 and 0.1837.  Taller strips recompute the prologue
+// less often but run slower (likely: the rows that the blocks in flight touch
+// outgrow the 50 MB L2; not measured).  A copy of the same fields in the same
+// pattern with the arithmetic removed runs no faster than the whole kernel,
+// so the access pattern, not the arithmetic, now sets its time (PERF.md §6).
 //
 // Design of sw_visc (column streams): each warp owns 32 consecutive
 // columns and walks 8 rows down them, one row per step, both fields at
@@ -94,53 +115,56 @@ __device__ __forceinline__ bool interior(const Grid& g, int r, int c) {
   return r >= G && r < g.ny_l + G && c >= G && c < g.nx_l + G;
 }
 
-// -- ring-1 intermediates of sw_main (hc == h: the wall ghost rows of h
-// were clamped to the adjacent interior row before the launch) ----------
+// -- sw_main --------------------------------------------------------------
 
-__device__ __forceinline__ float fe_at(const float* __restrict__ h,
-                                       const float* __restrict__ u,
-                                       const Grid& g, int r, int c) {
-  if (wall_row(g, r)) return 0.0f;
-  return 0.5f * (at(h, g, r, c) + at(h, g, r, c + 1)) * at(u, g, r, c);
+constexpr int MAIN_WARPS = 4;  // warps of a block, side by side in x
+constexpr int MAIN_COLS = 30;  // columns a warp updates (lanes 1..MAIN_COLS)
+constexpr int MAIN_TY = 4;     // rows a block walks down
+
+// ---- PTX helpers: the kernel's only inline assembly ----
+
+// 4-byte asynchronous copy global -> shared; bytes is 4, or 0 to
+// zero-fill the destination without reading the source
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ float fn_at(const float* __restrict__ h,
-                                       const float* __restrict__ v,
-                                       const Grid& g, int r, int c) {
-  // the northern flux is also zero on the last interior row (v = 0 on
-  // the north wall)
-  if (wall_row(g, r) || (g.is_north && r == g.ny_l + 1)) return 0.0f;
-  return 0.5f * (at(h, g, r, c) + at(h, g, r + 1, c)) * at(v, g, r, c);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float q_at(const float* __restrict__ h,
-                                      const float* __restrict__ u,
-                                      const float* __restrict__ v,
-                                      const Grid& g, const MainParams& p,
-                                      int r, int c) {
-  if (wall_row(g, r)) return 0.0f;
-  // Coriolis f + beta * y at the row's global y coordinate
-  const float yy =
-      ((static_cast<float>(r) - 2.0f) + static_cast<float>(p.iy * g.ny_l)) *
-      p.dy;
-  const float cor = p.cor_f + yy * p.cor_beta;
-  const float rel_vort = (at(v, g, r, c + 1) - at(v, g, r, c)) / p.dx -
-                         (at(u, g, r + 1, c) - at(u, g, r, c)) / p.dy;
-  const float depth = 0.25f * (at(h, g, r, c) + at(h, g, r, c + 1) +
-                               at(h, g, r + 1, c) + at(h, g, r + 1, c + 1));
-  return (cor + rel_vort) / depth;
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float ke_at(const float* __restrict__ u,
-                                       const float* __restrict__ v,
-                                       const Grid& g, int r, int c) {
-  if (wall_row(g, r)) return 0.0f;
-  const float u0 = at(u, g, r, c), uw = at(u, g, r, c - 1);
-  const float v0 = at(v, g, r, c), vs = at(v, g, r - 1, c);
+// ---- end of the PTX helpers ----
+
+// One row of a lane's column as the stream carries it: h, u, v and the
+// tendencies (zero on the first step and on rows the strip does not
+// update).
+struct Row {
+  float h, u, v, dh, du, dv;
+};
+
+// mass flux 0.5 (h0 + h1) w: fe from h(r, c), h(r, c+1), u(r, c); fn from
+// h(r, c), h(r+1, c), v(r, c)
+__device__ __forceinline__ float flux(float h0, float h1, float w) {
+  return 0.5f * (h0 + h1) * w;
+}
+
+// kinetic energy from u(r, c), u(r, c-1), v(r, c), v(r-1, c)
+__device__ __forceinline__ float kinetic(float u0, float uw, float v0,
+                                         float vs) {
   return 0.5f * (0.5f * (u0 * u0 + uw * uw) + 0.5f * (v0 * v0 + vs * vs));
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * MAIN_WARPS)
 sw_main_kernel(const float* __restrict__ h, const float* __restrict__ u,
                const float* __restrict__ v, const float* __restrict__ dh,
                const float* __restrict__ du, const float* __restrict__ dv,
@@ -148,62 +172,142 @@ sw_main_kernel(const float* __restrict__ h, const float* __restrict__ u,
                float* __restrict__ v_out, float* __restrict__ dh_out,
                float* __restrict__ du_out, float* __restrict__ dv_out,
                Grid g, MainParams p) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= g.rows || c >= g.cols) return;
-  const size_t i = static_cast<size_t>(r) * g.cols + c;
-  // v = 0 on the northern wall row (the last interior row), ghost
-  // columns included
-  const bool v_wall = g.is_north && r == g.ny_l + 1;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  // this lane's column: lane 0 sits one column west of the warp's
+  // MAIN_COLS columns, lane 31 one column east
+  const int base = (blockIdx.x * MAIN_WARPS + warp) * MAIN_COLS;
+  if (base >= g.cols) return;  // the whole warp: no column to update
+  const int c = base - 1 + lane;
+  const bool updates = lane >= 1 && lane <= MAIN_COLS && c < g.cols;
+  const int r0 = blockIdx.y * MAIN_TY;
+  const int r1 = min(r0 + MAIN_TY, g.rows);
 
-  if (!interior(g, r, c)) {
-    h_out[i] = h[i];
-    u_out[i] = u[i];
-    v_out[i] = v_wall ? 0.0f : v[i];
-    dh_out[i] = 0.0f;
-    du_out[i] = 0.0f;
-    dv_out[i] = 0.0f;
-    return;
+  // The rows of the stream, r0 - 1 to r1, each copied by cp.async into a
+  // ring of two rows in shared memory one step before the step that
+  // takes it.  Each lane copies and reads only its own ring slots, so
+  // waiting for its own copies is all the synchronisation needed.
+  __shared__ float ring[2][6][32 * MAIN_WARPS];
+  const int t = threadIdx.x;
+  auto stage = [&](int k) {  // row k's fields, tendencies where updated
+    const int s = (k + 2) % 2;
+    const bool in = c >= 0 && c < g.cols && k >= 0 && k < g.rows;
+    const size_t i = in ? static_cast<size_t>(k) * g.cols + c : 0;
+    const bool tend = in && !p.first_step && k >= r0 && k < r1;
+    cp_async_4(&ring[s][0][t], h + i, in ? 4 : 0);
+    cp_async_4(&ring[s][1][t], u + i, in ? 4 : 0);
+    cp_async_4(&ring[s][2][t], v + i, in ? 4 : 0);
+    cp_async_4(&ring[s][3][t], dh + i, tend ? 4 : 0);
+    cp_async_4(&ring[s][4][t], du + i, tend ? 4 : 0);
+    cp_async_4(&ring[s][5][t], dv + i, tend ? 4 : 0);
+  };
+  // row k, once its copies have landed, with row k + 1 put in flight (an
+  // empty group past the strip keeps the count of groups in flight)
+  auto take = [&](int k) {
+    if (k + 1 <= r1) stage(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    const int s = (k + 2) % 2;
+    return Row{ring[s][0][t], ring[s][1][t], ring[s][2][t],
+               ring[s][3][t], ring[s][4][t], ring[s][5][t]};
+  };
+  stage(r0 - 1);
+  cp_async_commit();
+
+  // The step at row r (cur: row r, nxt: row r+1) computes fe(r+1),
+  // fn(r), q(r) and ke(r+1) once and takes row r's others from the
+  // previous step (fe(r), fn(r-1), q(r-1), ke(r)); the neighbours come
+  // from lane - 1 (fe, q, u: west) and lane + 1 (fn, ke, h, v: east) by
+  // shuffle.  The step at r0 - 1 is the strip's prologue: it computes
+  // the intermediates row r0 takes from it and updates nothing.
+  Row cur = take(r0 - 1);
+  float hc_e = __shfl_down_sync(kAll, cur.h, 1);  // h(r, c+1)
+  float fe_c = 0.0f, fe_w = 0.0f;   // fe(r, c), fe(r, c-1)
+  float fn_s = 0.0f, fn_se = 0.0f;  // fn(r-1, c), fn(r-1, c+1)
+  float q_s = 0.0f;                 // q(r-1, c)
+  float ke_c = 0.0f, ke_e = 0.0f;   // ke(r, c), ke(r, c+1)
+  for (int r = r0 - 1; r < r1; ++r) {
+    const Row nxt = take(r + 1);
+    // every lane shuffles: a lane that sat one out would hang the warp
+    const float hn_e = __shfl_down_sync(kAll, nxt.h, 1);
+    const float vc_e = __shfl_down_sync(kAll, cur.v, 1);
+    const float un_w = __shfl_up_sync(kAll, nxt.u, 1);
+
+    // ring-1 rows beyond a wall hold zero in every intermediate; the
+    // northern flux is also zero on the last interior row
+    const bool wall_c = wall_row(g, r), wall_n = wall_row(g, r + 1);
+    const bool fn_zero = wall_c || (g.is_north && r == g.ny_l + 1);
+    const float fe_n = wall_n ? 0.0f : flux(nxt.h, hn_e, nxt.u);
+    const float fn_c = fn_zero ? 0.0f : flux(cur.h, nxt.h, cur.v);
+    // Coriolis f + beta * y at the row's global y coordinate
+    const float yy = ((static_cast<float>(r) - 2.0f) +
+                      static_cast<float>(p.iy * g.ny_l)) *
+                     p.dy;
+    const float cor = p.cor_f + yy * p.cor_beta;
+    const float rel_vort = (vc_e - cur.v) / p.dx - (nxt.u - cur.u) / p.dy;
+    const float depth = 0.25f * (cur.h + hc_e + nxt.h + hn_e);
+    const float q_c = wall_c ? 0.0f : (cor + rel_vort) / depth;
+    const float ke_n = wall_n ? 0.0f : kinetic(nxt.u, un_w, nxt.v, cur.v);
+
+    const float fe_nw = __shfl_up_sync(kAll, fe_n, 1);
+    const float q_w = __shfl_up_sync(kAll, q_c, 1);
+    const float fn_e = __shfl_down_sync(kAll, fn_c, 1);
+    const float ke_ne = __shfl_down_sync(kAll, ke_n, 1);
+
+    if (r >= r0 && updates) {
+      const size_t i = static_cast<size_t>(r) * g.cols + c;
+      // v = 0 on the northern wall row (the last interior row), ghost
+      // columns included
+      const bool v_wall = g.is_north && r == g.ny_l + 1;
+      if (!interior(g, r, c)) {
+        h_out[i] = cur.h;
+        u_out[i] = cur.u;
+        v_out[i] = v_wall ? 0.0f : cur.v;
+        dh_out[i] = 0.0f;
+        du_out[i] = 0.0f;
+        dv_out[i] = 0.0f;
+      } else {
+        const float dh_new = -(fe_c - fe_w) / p.dx - (fn_c - fn_s) / p.dy;
+        float du_new = -p.grav * (hc_e - cur.h) / p.dx +
+                       0.5f * (q_c * 0.5f * (fn_c + fn_e) +
+                               q_s * 0.5f * (fn_s + fn_se));
+        float dv_new = -p.grav * (nxt.h - cur.h) / p.dy -
+                       0.5f * (q_c * 0.5f * (fe_c + fe_n) +
+                               q_w * 0.5f * (fe_w + fe_nw));
+        du_new = du_new - (ke_e - ke_c) / p.dx;
+        dv_new = dv_new - (ke_n - ke_c) / p.dy;
+
+        float h_inc, u_inc, v_inc;
+        if (p.first_step) {
+          h_inc = p.dt * dh_new;
+          u_inc = p.dt * du_new;
+          v_inc = p.dt * dv_new;
+        } else {
+          h_inc = p.dt * (p.ab_a * dh_new + p.ab_b * cur.dh);
+          u_inc = p.dt * (p.ab_a * du_new + p.ab_b * cur.du);
+          v_inc = p.dt * (p.ab_a * dv_new + p.ab_b * cur.dv);
+        }
+        h_out[i] = cur.h + h_inc;
+        u_out[i] = cur.u + u_inc;
+        v_out[i] = v_wall ? 0.0f : cur.v + v_inc;
+        dh_out[i] = dh_new;
+        du_out[i] = du_new;
+        dv_out[i] = dv_new;
+      }
+    }
+
+    // row r + 1 takes over this step's values
+    cur = nxt;
+    hc_e = hn_e;
+    fe_c = fe_n;
+    fe_w = fe_nw;
+    q_s = q_c;
+    fn_s = fn_c;
+    fn_se = fn_e;
+    ke_c = ke_n;
+    ke_e = ke_ne;
   }
-
-  const float fe_c = fe_at(h, u, g, r, c), fe_w = fe_at(h, u, g, r, c - 1);
-  const float fe_n = fe_at(h, u, g, r + 1, c);
-  const float fe_nw = fe_at(h, u, g, r + 1, c - 1);
-  const float fn_c = fn_at(h, v, g, r, c), fn_s = fn_at(h, v, g, r - 1, c);
-  const float fn_e = fn_at(h, v, g, r, c + 1);
-  const float fn_se = fn_at(h, v, g, r - 1, c + 1);
-  const float q_c = q_at(h, u, v, g, p, r, c);
-  const float q_s = q_at(h, u, v, g, p, r - 1, c);
-  const float q_w = q_at(h, u, v, g, p, r, c - 1);
-  const float ke_c = ke_at(u, v, g, r, c), ke_e = ke_at(u, v, g, r, c + 1);
-  const float ke_n = ke_at(u, v, g, r + 1, c);
-
-  const float dh_new = -(fe_c - fe_w) / p.dx - (fn_c - fn_s) / p.dy;
-  float du_new = -p.grav * (at(h, g, r, c + 1) - at(h, g, r, c)) / p.dx +
-                 0.5f * (q_c * 0.5f * (fn_c + fn_e) +
-                         q_s * 0.5f * (fn_s + fn_se));
-  float dv_new = -p.grav * (at(h, g, r + 1, c) - at(h, g, r, c)) / p.dy -
-                 0.5f * (q_c * 0.5f * (fe_c + fe_n) +
-                         q_w * 0.5f * (fe_w + fe_nw));
-  du_new = du_new - (ke_e - ke_c) / p.dx;
-  dv_new = dv_new - (ke_n - ke_c) / p.dy;
-
-  float h_inc, u_inc, v_inc;
-  if (p.first_step) {
-    h_inc = p.dt * dh_new;
-    u_inc = p.dt * du_new;
-    v_inc = p.dt * dv_new;
-  } else {
-    h_inc = p.dt * (p.ab_a * dh_new + p.ab_b * dh[i]);
-    u_inc = p.dt * (p.ab_a * du_new + p.ab_b * du[i]);
-    v_inc = p.dt * (p.ab_a * dv_new + p.ab_b * dv[i]);
-  }
-  h_out[i] = h[i] + h_inc;
-  u_out[i] = u[i] + u_inc;
-  v_out[i] = v_wall ? 0.0f : v[i] + v_inc;
-  dh_out[i] = dh_new;
-  du_out[i] = du_new;
-  dv_out[i] = dv_new;
 }
 
 // -- sw_visc --------------------------------------------------------------
@@ -271,12 +375,10 @@ sw_visc_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
-
-dim3 grid_for(const Grid& g) {
-  return dim3((g.cols + BLOCK_X - 1) / BLOCK_X,
-              (g.rows + BLOCK_Y - 1) / BLOCK_Y);
+dim3 main_grid_for(const Grid& g) {
+  constexpr int kCols = MAIN_WARPS * MAIN_COLS;  // columns of a block
+  return dim3((g.cols + kCols - 1) / kCols,
+              (g.rows + MAIN_TY - 1) / MAIN_TY);
 }
 
 dim3 visc_grid_for(const Grid& g) {
@@ -301,7 +403,7 @@ extern "C" int sw_main_launch(const float* h, const float* u, const float* v,
   const Grid g{rows, cols, ny_l, nx_l, is_south, is_north};
   const MainParams p{dx, dy, grav, cor_f, cor_beta, dt, ab_a, ab_b,
                      iy, first_step};
-  sw_main_kernel<<<grid_for(g), dim3(BLOCK_X, BLOCK_Y), 0,
+  sw_main_kernel<<<main_grid_for(g), dim3(32 * MAIN_WARPS), 0,
                    static_cast<cudaStream_t>(stream)>>>(
       h, u, v, dh, du, dv, h_out, u_out, v_out, dh_out, du_out, dv_out, g,
       p);
