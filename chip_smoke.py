@@ -57,18 +57,32 @@ Phases, each of which raises on failure (nothing is caught):
    from a profiler trace).
 6. path (decode): the long-prompt serving point (batch 4, prompt 8192,
    256 generated tokens, bf16, flash prefill, kv_bucket 16) through
-   ``make_global_decode`` with every launch count set to 0 just before
-   and read just after: exactly one launch of the bf16 flash kernel per
-   layer, and none of the f32 one.  Tokens are
-   [4, 8448] with the prompt echoed; prefill ms, generate ms per step,
-   generated tokens/s and the bytes bound are printed.  The kernel
-   prefill's last-position logits are held against a prefill on the
-   plain flash version, and in f32 (prompt 1024, batch 2, max_len 1152)
-   the kernel path (one launch of the f32 flash kernel per layer) and
-   the plain path give identical tokens.
+   ``make_global_decode``, every launch count set to 0 just before each
+   call and read just after: the prefill launches the bf16 flash kernel
+   once per layer and the f32 one never; the first call runs eagerly and
+   captures one CUDA graph of the generate step per cache view length
+   (16), every later call captures none and replays them 255 times.
+   Tokens are [4, 8448] with the prompt echoed, and the graph decode
+   equals the eager decoder (``_greedy_decode``, same flash prefill) by
+   ``torch.equal``: on these prompts, on other prompts, and with other
+   parameter tensors (captured anew); a categorical decode (top_k 50,
+   temperature 0.8, a fixed key) equals its eager run too, and the
+   threefry bits of its first draw on the card equal the CPU's.  On a
+   difference the first differing position and the eager logits there
+   are printed.  Prefill ms, ms per generated token, generated tokens/s
+   and the bytes bound are printed.  The kernel prefill's last-position
+   logits are held against a prefill on the plain flash version, and in
+   f32 (prompt 1024, batch 2, max_len 1152) the graphs, the eager
+   decoder (one launch of the f32 flash kernel per layer) and the plain
+   path give identical tokens.
 7. profile (decode): one decode call under torch.profiler, for device
-   time by kernel in the prefill and the generation loop, and the
-   generation loop's idle share.
+   time by kernel in the prefill and the generation loop, the loop's
+   device time and launches per replayed step, and its idle share
+   against the untraced loop and against its traced timeline.
+7b. short-prompt decode: the bench's two batch-16 legs
+   (``bench.DECODE_LEGS``: prompt 16, max_len 512, bf16, without and
+   with kv_bucket 16) through ``run_decode(batches=1)``, generated
+   tokens/s.
 8. kernels (flash backward): the backward kernels (dkv, dq) of each
    dtype against their plain versions (at the kernel's own key tile) on
    the same inputs and the same forward (out, m, l): both pairs at the
@@ -98,7 +112,11 @@ Phases, each of which raises on failure (nothing is caught):
    gradient on the plain path (the kernels' plain versions as the
    attention function), leaf by leaf; and likewise in f32 at the decode
    model's width (batch 2, seq 1024), where the f32 kernels launch once
-   per layer each.
+   per layer each.  The bf16 check runs on seed 1 and three more and also
+   reads each path against a float64 witness of the gradient (the same
+   loss from the same bf16 inputs in float64): per leaf the kernel path's
+   mean difference from it within ``TRAIN_WITNESS_RATIO`` of the plain
+   path's, which sees a forward fault the largest difference cannot.
 10. profile (train): one step under torch.profiler, for device time by
    kernel, the flash kernels' share of it and the idle share.
 
@@ -118,7 +136,8 @@ the dropped diagonal tile the gradients too), in ``flash_fwd.cu``
 (``BWD_FAULTS``) or in ``flash_bwd_mma.cu`` (``BWD_MMA_FAULTS``, and
 ``BWD_MMA_READINGS``, read but not judged: the backward checks), and
 prints every copy's readings: the evidence for the limits.  It exits 0
-when the sound tree passes and every fault fails.
+when the sound tree passes, every fault fails and the dropped diagonal
+tile fails the gradient check too.
 
     python3 chip_smoke.py --check fwd,bwd,grad,sw
 
@@ -156,6 +175,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mpi4jax_tpu_torch import bench as port_bench
 from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
@@ -166,6 +186,8 @@ from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
+from mpi4jax_tpu_torch.utils import prng
+from mpi4jax_tpu_torch.utils.runtime import graph_capture
 
 SOURCES = ("sw_step", "flash_fwd", "flash_fwd_mma", "flash_bwd",
            "flash_bwd_mma")
@@ -236,6 +258,8 @@ DECODE_CFG = tfm.TransformerConfig(
 LONG = transformer_decode.LONG
 # the f32 token-identity check, kernel path against plain path
 F32_DECODE = dict(batch=2, prompt=1024, max_len=1152)
+# the categorical decode held to its eager run on the graphs
+CATEGORICAL = dict(temperature=0.8, top_k=50, seed=1234)
 
 # the long-context training preset (benchmarks/transformer.py:71-74) at
 # full width and depth, bf16, without remat (its "names" save-list is a
@@ -304,6 +328,19 @@ WITNESS_SEEDS = 8
 # other way, and every later bf16 activation carries that on; readings
 # 2.2e-3 (ln_f) to 1.25e-2 (embed), PERF.md §6.
 TRAIN_GRAD_LIMIT = 5e-2
+# ... which cannot see a forward kernel that drops the diagonal key tile
+# of half the query rows (FLASH_FAULTS["diag_tile"]: 2.1e-2 to 3.8e-2 on
+# four seeds), since a sound kernel's rare rounding flips move a few
+# elements as far.  So each path is also read against a float64
+# witness, the exact gradient of the same loss from the same bf16 inputs
+# (witness_loss_and_grads), and per leaf the kernel path's mean
+# |difference| from it may exceed the plain path's by at most this
+# factor ("ratio"), on seed 1 and this many more.  Readings (PERF.md §6),
+# every leaf of four seeds: sound 0.985-1.015; diag_tile 1.54-2.35.  The mean difference between the two paths alone
+# does not separate them: sound 5.8e-5 (head) to 1.2e-3 (ln1), the fault
+# 1.8e-4 (head) to 4.3e-3 (ln2).
+TRAIN_WITNESS_RATIO = 1.2
+TRAIN_GRAD_EXTRA_SEEDS = 3
 # the same in f32: the f32 kernels differ from their plain versions by
 # f32 summation order (about 1e-6 of the largest output: FLASH_LIMITS,
 # BWD_LIMITS), which two layers carry through LayerNorm and the matmuls'
@@ -656,7 +693,7 @@ def sw_main_checks(inputs, geometry, iy, device):
     # chunks are graphs; the kernel library links its own CUDA runtime
     # and launches on PyTorch's stream, which the capture must record)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         replayed = sw_step.sw_main(*inputs, iy=iy, first_step=False,
                                    **geometry)
     graph.replay()
@@ -1281,9 +1318,109 @@ def synced_seconds(fn):
     return res, time.perf_counter() - t0
 
 
+def first_difference(got, want):
+    """(row, position) of the first token where ``got`` and ``want``
+    differ, by position, or None."""
+    rows, cols = torch.nonzero(got != want, as_tuple=True)
+    if not len(cols):
+        return None
+    i = int(torch.argmin(cols * got.shape[0] + rows))
+    return int(rows[i]), int(cols[i])
+
+
+def step_logits(params, prompts, cfg, max_len, target, key=None, **kw):
+    """The eager decoder's logits from which it chooses the token at
+    position ``target`` (at least the prompt length), for every row."""
+    tp = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1)).sub("tp")
+    loop = tfm._DecodeLoop(params, prompts, cfg, max_len, comm_tp=tp,
+                           batched=True, **kw)
+    if target == loop.p_len:  # the prefill's choice
+        return tfm._prefill_sharded(
+            params, prompts, cfg, tp, loop.hq_l, loop.hk_l, max_len,
+            impl=kw["prefill_impl"])[1]
+    loop.prepare(params, prompts, key)
+    for view_len, first, stop in loop.segments:
+        loop.pos.fill_(first)
+        for pos in range(first, stop):
+            if pos + 1 == target:
+                return tfm._decode_step_sharded(
+                    params, loop.cache[:, :, :, :view_len],
+                    loop.out[:, pos], loop.pos, cfg, tp, loop.hq_l,
+                    loop.hk_l)[1]
+            loop.step(params, view_len)
+    raise ValueError(f"no step chooses position {target}")
+
+
+def hold_graph_to_eager(label, got, params, prompts, cfg, max_len, **kw):
+    """The graph decode's tokens ``got`` against the eager decoder
+    (``tfm._greedy_decode``) on the same inputs, by ``torch.equal``; on a
+    difference, the first differing position and the eager logits there
+    are printed before it raises."""
+    tp = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1)).sub("tp")
+    want = tfm._greedy_decode(params, prompts, cfg, max_len, comm_tp=tp,
+                              batched=True, **kw)
+    same = torch.equal(got, want)
+    log(f"  {label}: graph replays and the eager decoder give "
+        f"{'identical' if same else 'DIFFERENT'} tokens")
+    if same:
+        return
+    row, col = first_difference(got, want)
+    loop_kw = {"sampler": "greedy", "temperature": 1.0, "top_k": None,
+               **kw}
+    logits = step_logits(params, prompts, cfg, max_len, col,
+                         **loop_kw)[row].float()
+    top = torch.topk(logits, 4)
+    log(f"  first difference: row {row}, position {col}: graph token "
+        f"{int(got[row, col])}, eager {int(want[row, col])}; eager logits "
+        f"top 4 {top.values.tolist()} at {top.indices.tolist()}")
+    raise RuntimeError(f"{label}: graph decode differs from eager")
+
+
+def bmm_out_dtype_probe(device):
+    """Whether this torch takes ``torch.bmm(a, b, out_dtype=
+    torch.float32)`` on bf16 CUDA operands (f32 scores without widening
+    the KV view first), and how far it is from the widened product."""
+    a = torch.randn(4, 8, 64, device=device).to(torch.bfloat16)
+    b = torch.randn(4, 64, 256, device=device).to(torch.bfloat16)
+    try:
+        got = torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.bmm(bf16, bf16, out_dtype=torch.float32): not "
+            f"available ({type(exc).__name__}: {str(exc)[:120]})")
+        return None
+    err = (got - a.float() @ b.float()).abs().max().item()
+    log(f"  torch.bmm(bf16, bf16, out_dtype=torch.float32): available, "
+        f"{got.dtype}, max |difference| from the widened f32 product "
+        f"{err:.3e}")
+    return err
+
+
+def counted_decode(decode, *args):
+    """One call of ``decode`` with every launch count set to 0 just
+    before: (tokens, seconds, kernel launches, graphs captured, steps
+    replayed)."""
+    captures, replays = decode.captures, decode.replays
+    reset_launch_counts()
+    out, wall = synced_seconds(lambda: decode(*args))
+    return (out, wall, launch_counts(), decode.captures - captures,
+            decode.replays - replays)
+
+
+def check_decode_counts(label, counts, want):
+    """``counts`` (launches, captures, replays) against ``want``."""
+    launches, captures, replays = counts
+    got = {"flash_fwd_mma": launches["flash_fwd_mma"],
+           "flash_fwd": launches["flash_fwd"], "captures": captures,
+           "replays": replays}
+    log(f"  {label}: {got}")
+    if got != want:
+        raise RuntimeError(f"{label}: {got}, expected {want}")
+
+
 def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     cfg = DECODE_CFG
     batch, p_len, max_len = LONG["batch"], LONG["prompt"], LONG["max_len"]
+    bucket = LONG["kv_bucket"]
     comm = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1))
     dp, tp = comm.sub("dp"), comm.sub("tp")
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1292,28 +1429,37 @@ def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     prompts = torch.randint(0, cfg.vocab, (batch, p_len), generator=gen,
                             device=device, dtype=torch.int32)
     decode = tfm.make_global_decode(
-        dp, tp, cfg, max_len, kv_bucket=LONG["kv_bucket"],
+        dp, tp, cfg, max_len, kv_bucket=bucket,
         prefill_impl=LONG["prefill_impl"], device=device,
     )
-    _, warm_s = synced_seconds(lambda: decode(params, prompts))
+    n_views = len(tfm._segments(p_len, max_len, bucket))
+    n_steps = max_len - 1 - p_len
+    eager_kw = dict(kv_bucket=bucket, prefill_impl="flash")
+    flash = {"flash_fwd_mma": cfg.layers, "flash_fwd": 0}
 
-    reset_launch_counts()
-    out, wall = synced_seconds(lambda: decode(params, prompts))
-    launches = launch_counts()
-    log(f"  make_global_decode(prefill_impl='flash', kv_bucket="
-        f"{LONG['kv_bucket']}): one decode {wall:.4f} s (warm-up "
-        f"{warm_s:.4f} s); launches {launches}")
-    for kname, want in (("flash_fwd_mma", cfg.layers), ("flash_fwd", 0)):
-        if launches[kname] != want:
-            raise RuntimeError(f"{kname} launched {launches[kname]} times "
-                               f"in one bf16 decode, expected {want}")
+    # the first call runs eagerly and captures a graph per view length;
+    # every later one replays them
+    first, warm_s, *counts = counted_decode(decode, params, prompts)
+    check_decode_counts("first call (eager, then the captures)", counts,
+                        {**flash, "captures": n_views, "replays": 0})
+    out, wall, *counts = counted_decode(decode, params, prompts)
+    check_decode_counts("second call (graph replays)", counts,
+                        {**flash, "captures": 0, "replays": n_steps})
+    launches = counts[0]
     flash_kernel["launches"] = launches["flash_fwd_mma"]
+    log(f"  make_global_decode(prefill_impl='flash', kv_bucket={bucket}): "
+        f"{n_views} graphs, {n_steps} replays a decode; one decode "
+        f"{wall:.4f} s (first call {warm_s:.4f} s)")
     if tuple(out.shape) != (batch, max_len) or out.dtype != torch.int32:
         raise RuntimeError(f"decode returned {out.dtype} {tuple(out.shape)}")
     if not torch.equal(out[:, :p_len], prompts):
         raise RuntimeError("decode did not echo the prompt")
     if not ((out >= 0) & (out < cfg.vocab)).all():
         raise RuntimeError("decode produced tokens outside the vocabulary")
+    if not torch.equal(out, first):
+        raise RuntimeError("the graph replays differ from the first call")
+    hold_graph_to_eager(f"bf16 batch {batch}, prompt {p_len}", out, params,
+                        prompts, cfg, max_len, **eager_kw)
 
     hq = cfg.heads
     (_, logits), prefill_s = synced_seconds(lambda: tfm._prefill_sharded(
@@ -1333,13 +1479,37 @@ def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
     sheet_rate = batch * PEAK_BYTES_PER_S / bytes_per_step
     log(f"  prefill {prefill_s * 1e3:.4f} ms ({cfg.layers} flash launches, "
         f"{flash_kernel['ms'] * cfg.layers:.4f} ms of kernel time at the "
-        f"kernel phase's rate); generate {gen_step_ms:.4f} ms per step "
-        f"over {n_gen} steps")
+        f"kernel phase's rate); generate {gen_step_ms:.4f} ms per "
+        f"generated token after it ({n_gen} tokens, {n_steps} replayed "
+        f"steps)")
     log(f"  {rate:.2f} generated tokens/s (best of 2 bursts of 2 decodes, "
         f"{best:.4f} s per decode); bytes per generated step "
         f"{bytes_per_step:.4e} (params {params_bytes:.4e}): bound "
         f"{bound_rate:.2f} tokens/s at the measured copy rate, "
         f"{sheet_rate:.2f} at the data-sheet rate")
+
+    # the state across calls: other prompts replay the same graphs; other
+    # parameter tensors are captured anew
+    prompts2 = torch.randint(0, cfg.vocab, (batch, p_len), generator=gen,
+                             device=device, dtype=torch.int32)
+    out2, _, *counts = counted_decode(decode, params, prompts2)
+    check_decode_counts("other prompts", counts,
+                        {**flash, "captures": 0, "replays": n_steps})
+    hold_graph_to_eager("bf16, other prompts", out2, params, prompts2, cfg,
+                        max_len, **eager_kw)
+    gen2 = torch.Generator(device=device).manual_seed(1)
+    params2 = tfm.init_params(cfg, generator=gen2, dtype=torch.bfloat16,
+                              device=device)
+    decode(params2, prompts2)  # eager, then the captures
+    out3, _, *counts = counted_decode(decode, params2, prompts2)
+    check_decode_counts("other parameter tensors, second call", counts,
+                        {**flash, "captures": 0, "replays": n_steps})
+    if decode.captures != 2 * n_views:
+        raise RuntimeError(f"{decode.captures} graphs captured, expected "
+                           f"{2 * n_views}")
+    hold_graph_to_eager("bf16, other parameter tensors", out3, params2,
+                        prompts2, cfg, max_len, **eager_kw)
+    del params2, out2, out3
 
     # kernel prefill against plain prefill, bf16, full width
     _, plain_logits = tfm._prefill_sharded(
@@ -1357,52 +1527,92 @@ def decode_path_phase(device, flash_kernel, f32_kernel, copy_rate):
         raise RuntimeError("kernel and plain prefill disagree at bf16")
     plain_out = tfm._greedy_decode(
         params, prompts, cfg, max_len, comm_tp=tp, batched=True,
-        kv_bucket=LONG["kv_bucket"], prefill_impl=plain_flash)
+        kv_bucket=bucket, prefill_impl=plain_flash)
     token_share = (plain_out[:, p_len:] == out[:, p_len:]).float().mean(
         ).item()
     log(f"  bf16 generated tokens identical, kernel vs plain prefill: "
         f"{token_share:.4f} of {batch * n_gen}")
-    bf16_run = (decode, params, prompts)
-    del out, plain_out
+    del plain_out
 
-    # f32: kernel path and plain path give identical tokens
+    # categorical sampling on the graphs, against its eager run
+    cat_kw = dict(sampler="categorical", temperature=CATEGORICAL["temperature"],
+                  top_k=CATEGORICAL["top_k"])
+    key = torch.tensor([0, CATEGORICAL["seed"]])
+    sample = tfm.make_global_decode(
+        dp, tp, cfg, max_len, kv_bucket=bucket, prefill_impl="flash",
+        device=device, **cat_kw)
+    sample(params, prompts, key)  # eager, then the captures
+    drawn, cat_wall, *counts = counted_decode(sample, params, prompts, key)
+    check_decode_counts("categorical, second call", counts,
+                        {**flash, "captures": 0, "replays": n_steps})
+    hold_graph_to_eager(
+        f"bf16 categorical (top_k {cat_kw['top_k']}, temperature "
+        f"{cat_kw['temperature']})", drawn, params, prompts, cfg, max_len,
+        key=prng.raw_key(key, device), **cat_kw, **eager_kw)
+    share = (drawn[:, p_len:] == out[:, p_len:]).float().mean().item()
+    log(f"  categorical: one decode {cat_wall:.4f} s; {share:.4f} of its "
+        f"tokens equal the greedy decode's")
+    card_keys = prng.fold_in(prng.fold_in(prng.raw_key(key, device), p_len),
+                             torch.arange(batch, device=device))
+    host_keys = prng.fold_in(prng.fold_in(prng.raw_key(key), p_len),
+                             torch.arange(batch))
+    bits_same = torch.equal(prng.random_bits(card_keys, (cfg.vocab,)).cpu(),
+                            prng.random_bits(host_keys, (cfg.vocab,)))
+    log(f"  threefry random_bits of the first draw's row keys, "
+        f"[{batch}, {cfg.vocab}]: card and CPU "
+        f"{'identical' if bits_same else 'DIFFERENT'}")
+    if not bits_same:
+        raise RuntimeError("the card's threefry bits differ from the CPU's")
+    bf16_run = (decode, params, prompts)
+    del out, sample, drawn
+
+    # f32: the graphs, the eager decoder and the plain prefill's decode
+    # give identical tokens
     fb, fp, fm = F32_DECODE["batch"], F32_DECODE["prompt"], \
         F32_DECODE["max_len"]
     params32 = tfm.init_params(cfg, generator=gen, device=device)
     prompts32 = torch.randint(0, cfg.vocab, (fb, fp), generator=gen,
                               device=device, dtype=torch.int32)
     decode32 = tfm.make_global_decode(
-        dp, tp, cfg, fm, kv_bucket=LONG["kv_bucket"], prefill_impl="flash",
+        dp, tp, cfg, fm, kv_bucket=bucket, prefill_impl="flash",
         device=device)
-    reset_launch_counts()
-    kernel_out = decode32(params32, prompts32)
-    launches = launch_counts()
-    f32_launches = launches["flash_fwd"]
-    if f32_launches != cfg.layers or launches["flash_fwd_mma"]:
-        raise RuntimeError(f"one f32 decode launched the f32 kernel "
-                           f"{f32_launches} times and the bf16 kernel "
-                           f"{launches['flash_fwd_mma']} times, expected "
-                           f"{cfg.layers} and 0")
-    f32_kernel["launches"] = f32_launches
+    n32 = len(tfm._segments(fp, fm, bucket))
+    _, _, *counts = counted_decode(decode32, params32, prompts32)
+    f32_flash = {"flash_fwd_mma": 0, "flash_fwd": cfg.layers}
+    check_decode_counts("f32 first call (eager, then the captures)", counts,
+                        {**f32_flash, "captures": n32, "replays": 0})
+    f32_kernel["launches"] = counts[0]["flash_fwd"]
+    kernel_out, _, *counts = counted_decode(decode32, params32, prompts32)
+    check_decode_counts("f32 second call (graph replays)", counts,
+                        {**f32_flash, "captures": 0,
+                         "replays": fm - 1 - fp})
+    hold_graph_to_eager(f"f32 batch {fb}, prompt {fp}, max_len {fm}",
+                        kernel_out, params32, prompts32, cfg, fm,
+                        **eager_kw)
     plain_out = tfm._greedy_decode(
         params32, prompts32, cfg, fm, comm_tp=tp, batched=True,
-        kv_bucket=LONG["kv_bucket"], prefill_impl=plain_flash)
+        kv_bucket=bucket, prefill_impl=plain_flash)
     same = torch.equal(kernel_out, plain_out)
-    log(f"  f32 batch {fb}, prompt {fp}, max_len {fm}: {f32_launches} "
-        f"launches of the f32 kernel; kernel and plain prefill give "
+    log(f"  f32: kernel and plain prefill give "
         f"{'identical' if same else 'DIFFERENT'} tokens")
     if not same:
         raise RuntimeError("kernel and plain paths differ in f32")
+    bmm_err = bmm_out_dtype_probe(device)
     return {"prefill_ms": prefill_s * 1e3, "generate_ms_per_step":
             gen_step_ms, "tokens_per_s": rate, "decode_s": best,
+            "bmm_out_dtype_err": bmm_err,
             "bytes_per_step": bytes_per_step, "bound_tokens_per_s":
-            bound_rate, "bf16_token_share": token_share}, bf16_run
+            bound_rate, "bf16_token_share": token_share, "graphs": n_views,
+            "replays_per_decode": n_steps, "categorical_decode_s": cat_wall,
+            "categorical_greedy_share": share}, bf16_run
 
 
 def decode_profile_phase(decode, params, prompts, path):
-    """Device time by kernel over one decode call, split at the end of
-    the prefill's last flash launch, and the generation loop's idle
-    share against its untraced time from the path phase."""
+    """Device time by kernel over one decode call (its generate steps
+    graph replays), split at the end of the prefill's last flash launch;
+    the generation loop's device time and launches per replayed step, and
+    its idle share against its untraced time from the path phase and
+    against the span of its own timeline in the trace."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -1425,6 +1635,10 @@ def decode_profile_phase(decode, params, prompts, path):
         total, count = part.get(e.name, (0.0, 0))
         part[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
     n_gen = LONG["max_len"] - LONG["prompt"]
+    steps = path["replays_per_decode"]
+    generate = [e for e in kernels if e.time_range.start >= flash_end]
+    span_ms = (max(e.time_range.end for e in generate)
+               - min(e.time_range.start for e in generate)) / 1e3
     res = {}
     for name, part in phases.items():
         busy = sum(ms for ms, _ in part.values())
@@ -1438,14 +1652,40 @@ def decode_profile_phase(decode, params, prompts, path):
                    if "flash_fwd_mma_kernel" in kname)
     gen_untraced_ms = path["generate_ms_per_step"] * n_gen
     idle = 1 - res["generate"]["device_ms"] / gen_untraced_ms
+    gen_ms = res["generate"]["device_ms"]
     log(f"  flash kernel {flash_ms:.4f} ms of the prefill's "
         f"{res['prefill']['device_ms']:.4f} ms device time; generation: "
-        f"{res['generate']['device_ms'] / n_gen:.4f} ms device time per "
-        f"step of {path['generate_ms_per_step']:.4f} ms untraced (idle "
-        f"share {idle:.3f})")
+        f"{gen_ms / n_gen:.4f} ms device time per generated token of "
+        f"{path['generate_ms_per_step']:.4f} ms untraced (idle share "
+        f"{idle:.4f}); per replayed step {gen_ms / steps:.4f} ms in "
+        f"{res['generate']['launches'] / steps:.2f} launches, the "
+        f"generation's traced timeline {span_ms:.4f} ms (idle share "
+        f"{1 - gen_ms / span_ms:.4f})")
     res["flash_ms"] = flash_ms
     res["generate_idle_share"] = idle
+    res["generate_ms_per_replay"] = gen_ms / steps
+    res["launches_per_replay"] = res["generate"]["launches"] / steps
+    res["generate_traced_idle_share"] = 1 - gen_ms / span_ms
     return res
+
+
+def short_decode_phase(device):
+    """The bench's two batch-16 decode legs (``bench.DECODE_LEGS``,
+    ``run_decode`` at the decode benchmark's short prompt, bf16) with one
+    timed burst each: generated tokens/s and seconds per decode."""
+    recs = {}
+    for leg, key, kw in port_bench.DECODE_LEGS:
+        if kw["batch"] != 16:
+            continue
+        rec = transformer_decode.run_decode(
+            **port_bench.DECODE_MODEL, **kw, bf16=True, batches=1,
+            device=device)
+        steps = rec["max_len"] - 1 - rec["prompt"]
+        log(f"  {key}: {rec['value']:.2f} generated tokens/s, "
+            f"{rec['wall_s']:.4f} s a decode ({steps} generate steps, "
+            f"{rec['wall_s'] / steps * 1e3:.4f} ms each with the prefill)")
+        recs[key] = rec["value"]
+    return recs
 
 
 
@@ -1936,59 +2176,180 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
             "params_m": n_params / 1e6}
 
 
+class WitnessAttention(torch.autograd.Function):
+    """Causal softmax attention in float64, one (batch, query head) at a
+    time, its gradient by :func:`witness_grads`: the attention of the
+    training gradient's float64 witness (no [B, H, T, T] tensor is held,
+    so it runs at the training path's sequence)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        b, tq, hq, d = q.shape
+        group = hq // k.shape[2]
+        scale = 1.0 / math.sqrt(d)
+        visible = torch.ones(tq, k.shape[1], dtype=torch.bool,
+                             device=q.device).tril()
+        out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+        for bi in range(b):
+            for h in range(hq):
+                s = (q[bi, :, h] @ k[bi, :, h // group].T) * scale
+                s.masked_fill_(~visible, -math.inf)
+                out[bi, :, h] = torch.softmax(s, dim=-1) @ v[bi, :, h // group]
+                del s
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        grads = witness_grads(q, k, v, g, causal=True, scale=ctx.scale,
+                              q_offset=0, k_offset=0)
+        return grads["dq"], grads["dk"], grads["dv"]
+
+
+def witness_train_attention(q, k, v, *, causal):
+    assert causal
+    return WitnessAttention.apply(q.double(), k.double(), v.double())
+
+
+def _witness_nll_sum(x, head, targets):
+    logits = x @ head
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+
+def witness_loss_and_grads(params, batch, cfg, comm_tp, comm_sp,
+                           chunk=1024):
+    """The float64 witness of :func:`loss_and_grads`: the same loss and
+    its gradient computed in float64 from the same (bf16) parameters and
+    tokens, attention by :class:`WitnessAttention` and the cross-entropy
+    in float64.  Each layer and each ``chunk`` of tokens' logits is
+    recomputed in the backward, so the float64 activations of one layer
+    or chunk live at a time (at the training preset's width, some
+    10 GB)."""
+    leaves = [t.detach().double().requires_grad_(True)
+              for t in tfm._leaves(params)]
+    p64 = tfm.TransformerParams(
+        embed=leaves[0], blocks=tfm.BlockParams(*leaves[1:-2]),
+        ln_f=leaves[-2], head=leaves[-1])
+    tokens, targets = batch
+    hidden, aux = tfm._forward_sharded(
+        p64, tokens, cfg._replace(attn_impl=witness_train_attention),
+        comm_tp, comm_sp, remat=True, return_hidden=True)
+    total = aux.double()
+    for c0 in range(0, tokens.shape[1], chunk):
+        total = total + checkpoint(
+            _witness_nll_sum, hidden[:, c0:c0 + chunk], p64.head,
+            targets[:, c0:c0 + chunk], use_reentrant=False)
+    loss = total / targets.numel()
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def grad_readings(kernel, plain, witness=None):
+    """The measures of one gradient leaf: the kernel path against the
+    plain path (``kp_max``, ``kp_mean``: max and mean |difference| over
+    max|plain|) and, given a float64 witness, each path against it
+    (``kw_*``, ``pw_*``: over max|witness|) and the kernel path's mean
+    difference from it over the plain path's (``ratio``)."""
+    k, p = kernel.double(), plain.double()
+    p_top = max(p.abs().max().item(), 1e-300)
+    kp = (k - p).abs()
+    out = {"kp_max": kp.max().item() / p_top,
+           "kp_mean": kp.mean().item() / p_top}
+    if witness is not None:
+        w = witness.double()
+        w_top = max(w.abs().max().item(), 1e-300)
+        for name, x in (("kw", k), ("pw", p)):
+            diff = (x - w).abs()
+            out[f"{name}_max"] = diff.max().item() / w_top
+            out[f"{name}_mean"] = diff.mean().item() / w_top
+        out["ratio"] = out["kw_mean"] / max(out["pw_mean"], 1e-300)
+    out["finite"] = bool(torch.isfinite(k).all())
+    return out
+
+
 def train_grad_check(device, dtype=torch.bfloat16):
     """The gradient at 2 layers, kernel path against plain path, leaf by
-    leaf: in bf16 at the training preset's width and sequence (returns
-    the worst reading), in f32 at the decode model's width, batch 2, seq
-    1024 (returns the worst reading and the kernel path's launches, each
-    flash kernel of f32 once per layer).  Raises above the limit."""
+    leaf, each leaf within ``TRAIN_GRAD_LIMIT`` (bf16) or
+    ``F32_GRAD_LIMIT`` (f32) by max|difference| over max|plain|.  bf16:
+    at the training preset's width and sequence, on seed 1 and
+    ``TRAIN_GRAD_EXTRA_SEEDS`` more (:func:`extra_seeds`), each path also
+    read against the float64 witness (:func:`witness_loss_and_grads`),
+    and every leaf's kernel-path mean difference from it within
+    ``TRAIN_WITNESS_RATIO`` of the plain path's; returns the worst of
+    each measure.  f32: at
+    the decode model's width, batch 2, seq 1024, on seed 1; returns the
+    worst reading and the kernel path's launches (each f32 flash kernel
+    once per layer).  Every seed is read before it raises."""
     world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
     tp, sp = world.sub("tp"), world.sub("sp")
     bf16 = dtype == torch.bfloat16
+    name = str(dtype)[6:]
     check_cfg = (TRAIN_CFG if bf16 else F32_TRAIN_CFG)._replace(
         layers=TRAIN_CHECK_LAYERS)
     shape = {} if bf16 else F32_TRAIN
-    limit = TRAIN_GRAD_LIMIT if bf16 else F32_GRAD_LIMIT
-    grads = {}
-    for label, impl in (("kernel", "flash"),
-                        ("plain", plain_train_attention)):
-        params, batch = train_data(check_cfg, device, seed=1, dtype=dtype,
-                                   **shape)
-        reset_launch_counts()
-        grads[label] = loss_and_grads(params, batch,
-                                      check_cfg._replace(attn_impl=impl),
-                                      tp, sp)
-        if label == "kernel":
-            counts = launch_counts()
-            log(f"  {TRAIN_CHECK_LAYERS}-layer {str(dtype)[6:]} gradient, "
-                f"kernel path launches {counts}")
-        del params
-    torch.cuda.synchronize()
+    limits = ({"kp_max": TRAIN_GRAD_LIMIT, "ratio": TRAIN_WITNESS_RATIO}
+              if bf16 else {"kp_max": F32_GRAD_LIMIT})
+    paths = [("kernel", "flash"), ("plain", plain_train_attention)]
+    if bf16:
+        paths.append(("witness", None))
+    seeds = (1, *extra_seeds(1, TRAIN_GRAD_EXTRA_SEEDS)) if bf16 else (1,)
+    worst = dict.fromkeys(("kp_max", "kp_mean", "kw_max", "kw_mean",
+                           "pw_max", "pw_mean", "ratio"), 0.0)
+    failed = []
+    for seed in seeds:
+        grads = {}
+        for label, impl in paths:
+            params, batch = train_data(check_cfg, device, seed=seed,
+                                       dtype=dtype, **shape)
+            reset_launch_counts()
+            if label == "witness":
+                grads[label] = witness_loss_and_grads(params, batch,
+                                                      check_cfg, tp, sp)
+            else:
+                grads[label] = loss_and_grads(
+                    params, batch, check_cfg._replace(attn_impl=impl), tp,
+                    sp)
+            if label == "kernel":
+                counts = launch_counts()
+            del params
+        torch.cuda.synchronize()
+        log(f"  {TRAIN_CHECK_LAYERS}-layer {name} gradient, seed {seed}: "
+            f"kernel path launches {counts}; loss "
+            + ", ".join(f"{label} {loss.item():.8f}"
+                        for label, (loss, _) in grads.items()))
+        witness = (grads["witness"][1] if bf16
+                   else [None] * len(grads["kernel"][1]))
+        for leaf, kg, pg, wg in zip(transformer_names(), grads["kernel"][1],
+                                    grads["plain"][1], witness):
+            r = grad_readings(kg, pg, wg)
+            bad = [key for key, lim in limits.items()
+                   if not (r[key] <= lim and r["finite"])]
+            for key in worst:
+                worst[key] = max(worst[key], r.get(key, 0.0))
+            if bad:
+                failed.append((seed, leaf, bad))
+            log(f"    {name} gradient seed {seed} {leaf}: " + ", ".join(
+                f"{key} {x:.3e}" for key, x in r.items() if key != "finite")
+                + ("" if r["finite"] else " NOT FINITE")
+                + (f" FAIL {bad}" if bad else ""))
+        del grads
     if not bf16:
-        want = {name: TRAIN_CHECK_LAYERS if name in (
+        want = {kname: TRAIN_CHECK_LAYERS if kname in (
             "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0
-            for name in counts}
+            for kname in counts}
         if counts != want:
             raise RuntimeError(f"the f32 gradient's launches {counts}, "
                                f"expected {want}")
-    (k_loss, k_grads), (p_loss, p_grads) = grads["kernel"], grads["plain"]
-    worst = 0.0
-    readings = []
-    for leaf, kg, pg in zip(transformer_names(), k_grads, p_grads):
-        scale = max(pg.float().abs().max().item(), 1e-30)
-        err = (kg.float() - pg.float()).abs().max().item() / scale
-        finite = bool(torch.isfinite(kg.float()).all())
-        worst = max(worst, err if finite else math.inf)
-        readings.append(f"{leaf} {err:.3e}")
-    ok = worst <= limit
-    log(f"  {TRAIN_CHECK_LAYERS}-layer {str(dtype)[6:]} gradient, kernel vs "
-        f"plain path, max|diff|/max|plain| per leaf: {', '.join(readings)} "
-        f"(limit {limit:g}) {'ok' if ok else 'FAIL'}; loss "
-        f"{k_loss.item():.6f} vs {p_loss.item():.6f}")
-    if not ok:
-        raise RuntimeError(f"the {str(dtype)[6:]} training gradient on the "
-                           f"kernel path disagrees with the plain path")
-    return worst if bf16 else (worst, counts)
+    log(f"  {TRAIN_CHECK_LAYERS}-layer {name} gradient, kernel vs plain "
+        f"path over {len(seeds)} seed(s), worst: " + ", ".join(
+            f"{key} {x:.3e}" for key, x in worst.items() if x)
+        + f" (limits {limits}) {'FAIL' if failed else 'ok'}")
+    if failed:
+        raise RuntimeError(f"the {name} training gradient on the kernel "
+                           f"path disagrees with the plain path: {failed}")
+    return worst if bf16 else (worst["kp_max"], counts)
 
 
 def transformer_names():
@@ -2223,10 +2584,11 @@ def fault_readings():
                 stderr=subprocess.STDOUT, text=True)
             for name, (tree, parts) in trees.items()
         }
-        codes = {}
+        codes, failed = {}, {}
         for name, proc in procs.items():
             out, _ = proc.communicate(timeout=1500)
             codes[name] = proc.returncode
+            failed[name] = re.findall(r"check (\w+) failed", out)
             log(f"tree {name}, checks {trees[name][1]} (exit "
                 f"{proc.returncode}):")
             for line in out.splitlines():
@@ -2238,8 +2600,10 @@ def fault_readings():
         shutil.rmtree(work, ignore_errors=True)
     ok = codes["sound"] == 0 and all(
         code != 0 for name, code in codes.items()
-        if name != "sound" and name not in read_only)
-    log(json.dumps({"fault_readings": codes, "ok": ok}))
+        if name != "sound" and name not in read_only) and (
+        "grad" in failed["fwd_diag_tile"])
+    log(json.dumps({"fault_readings": codes, "failed_checks": failed,
+                    "ok": ok}))
     return 0 if ok else 1
 
 
@@ -2314,6 +2678,11 @@ def main(argv):
     decode_profile = decode_profile_phase(*bf16_run, decode_path)
     del bf16_run
 
+    log("phase short-prompt decode (the bench's batch-16 legs: prompt "
+        f"{port_bench.DECODE_MODEL['prompt']}, max_len "
+        f"{port_bench.DECODE_MODEL['max_len']}, bf16, run_decode(batches=1))")
+    short_decode = short_decode_phase(device)
+
     log("phase kernels, flash backward")
     bwd_kernels = flash_bwd_kernel_phase(device)
     kernels.extend(bwd_kernels)
@@ -2331,6 +2700,7 @@ def main(argv):
                     "schedules": schedules, "bench": bench_record,
                     "decode_path": decode_path,
                     "decode_profile": decode_profile,
+                    "short_decode": short_decode,
                     "train_path": train, "train_profile": train_profile,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)

@@ -24,7 +24,9 @@ Usage:
 Timing follows run_decode: one warm-up decode, then the minimum over
 ``--batches`` bursts of 2 decodes, each burst ended by a device
 synchronize.  The rate counts generated tokens over the whole decode
-wall time, prefill included.
+wall time, prefill included.  On the card the warm-up decode also
+captures the generate step's CUDA graphs, which the timed decodes
+replay (``make_global_decode``).
 """
 
 import argparse

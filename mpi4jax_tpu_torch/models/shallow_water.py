@@ -64,7 +64,12 @@ from mpi4jax_tpu_torch.parallel.halo import (
     halo_exchange_2d,
     halo_exchange_2d_batch,
 )
-from mpi4jax_tpu_torch.utils.runtime import drain, resolve_device
+from mpi4jax_tpu_torch.utils.runtime import (
+    drain,
+    graph_capture,
+    resolve_device,
+    run_on_side_stream,
+)
 
 __all__ = [
     "SWConfig",
@@ -712,7 +717,7 @@ def make_multistep(cfg, comm, num_steps, *, donate=False):
             return chunk(state)
         _check_device(cfg, state.h.device)
         if graph is None:
-            out = _run_on_side_stream(chunk, state)
+            out = run_on_side_stream(lambda: chunk(state), state.h.device)
             graph, static = _capture(chunk, state, multi, num_steps)
             return out
         if any(a is not b for a, b in zip(state, static)):
@@ -729,20 +734,6 @@ def make_multistep(cfg, comm, num_steps, *, donate=False):
     return multi
 
 
-def _run_on_side_stream(fn, state):
-    """``fn(state)`` on a fresh stream ordered after the current one,
-    its outputs handed back to the current stream."""
-    current = torch.cuda.current_stream(state.h.device)
-    side = torch.cuda.Stream(state.h.device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        out = fn(state)
-    current.wait_stream(side)
-    for t in out:
-        t.record_stream(current)
-    return out
-
-
 def _capture(chunk, state, multi, num_steps):
     """Capture ``chunk`` on static copies of ``state``; returns
     ``(graph, static)`` and sets ``multi.captured``."""
@@ -751,7 +742,7 @@ def _capture(chunk, state, multi, num_steps):
     wrappers = (sw_main, sw_visc)
     before = [w.captures for w in wrappers]
     try:
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             out = chunk(static)
             for a, b in zip(static, out):
                 a.copy_(b)

@@ -13,21 +13,23 @@ layer math, and
   its gradient run the hand-written CUDA flash-attention kernels.
 * inference: :func:`make_global_decode` — a batched causal prefill over
   the prompt that fills the cache, then one cached step per generated
-  token; a long prompt's prefill runs the flash forward kernel
-  (``prefill_impl="flash"``) — and its full-recompute oracle
-  :func:`reference_greedy_decode`.
+  token, greedy or drawn with JAX's threefry bits
+  (``sampler="categorical"``); a long prompt's prefill runs the flash
+  forward kernel (``prefill_impl="flash"``), and on the card the
+  generate steps replay CUDA graphs — and its full-recompute oracles
+  :func:`reference_greedy_decode` and :func:`reference_sample_decode`.
 
 This port runs one rank: the comms are a one-rank ``MeshComm``'s
 sub-communicators, so the Megatron f/g collectives and the gradient
 sync are identities (they stay in the code, where a tensor-parallel run
 needs them), and ring/ulysses attention take their one-rank shortcut.
 Larger comms raise naming :data:`~mpi4jax_tpu_torch.parallel.comm.MULTI_RANK_ITEM`.
-Not ported yet: the partial-remat policies (:data:`REMAT_ITEM`) and
-``sampler="categorical"`` (:data:`SAMPLER_ITEM`).
+Not ported yet: the partial-remat policies (:data:`REMAT_ITEM`).
 
-Where the JAX package returns new arrays, the decoder here writes the
-KV cache in place (one cache per decode call, each position written
-once), and the training step updates the parameters in place.
+Where the JAX package returns new arrays, the decoder here writes its
+static KV cache in place (zeroed at the start of every call, each
+position written once), and the training step updates the parameters
+in place.
 """
 
 import math
@@ -47,7 +49,12 @@ from mpi4jax_tpu_torch.parallel.longseq import (
     ring_attention,
     ulysses_attention,
 )
-from mpi4jax_tpu_torch.utils.runtime import resolve_device
+from mpi4jax_tpu_torch.utils import prng
+from mpi4jax_tpu_torch.utils.runtime import (
+    graph_capture,
+    resolve_device,
+    run_on_side_stream,
+)
 
 __all__ = [
     "TransformerConfig",
@@ -58,6 +65,7 @@ __all__ = [
     "make_global_decode",
     "reference_loss",
     "reference_greedy_decode",
+    "reference_sample_decode",
     "CHECKPOINT_NAMES",
     "TP_SHARDED",
     "config_from_jax",
@@ -65,10 +73,6 @@ __all__ = [
     "params_to_numpy",
 ]
 
-SAMPLER_ITEM = (
-    "ROADMAP.md Queue 1 item 12 (categorical sampling in the decoder: "
-    "the JAX package's threefry key stream)"
-)
 REMAT_ITEM = (
     "ROADMAP.md Queue 1 item 13 (the partial-remat policies 'dots', "
     "'names' and tuple save-lists)"
@@ -527,11 +531,28 @@ def _check_sampler(sampler, temperature, top_k, vocab):
         )
 
 
-def _choose_token(logits):
-    """The greedy next token from ``[B, V]`` logits — the single copy
-    shared by the decoder and the oracle: the first index of the
-    maximum, as ``jnp.argmax`` (and ``torch.argmax``) pick it."""
-    return torch.argmax(logits, dim=-1)
+def _choose_token(logits, pos, key, row_ids, sampler, temperature, top_k):
+    """The next token from ``[B, V]`` logits — the single copy shared by
+    the decoder and the oracles, as in the JAX package.
+
+    ``"greedy"``: the first index of the maximum (``jnp.argmax`` and
+    ``torch.argmax`` agree).  ``"categorical"``: f32 logits over
+    ``temperature`` (a float, or a 0-d f32 tensor on the logits' device:
+    the card divides by a device divisor exactly, by a host scalar through
+    its reciprocal), the ``top_k`` highest kept per row (ties at the
+    threshold stay eligible), then a draw per row under
+    ``fold_in(fold_in(key, pos), row_id)`` with JAX's threefry bits
+    (:mod:`~mpi4jax_tpu_torch.utils.prng`).  ``pos`` is an int or a 0-d
+    integer tensor, ``key`` an int64 ``(2,)`` tensor, ``row_ids`` the
+    rows' global ids."""
+    if sampler == "greedy":
+        return torch.argmax(logits, dim=-1)
+    logits = logits.float() / temperature
+    if top_k is not None:
+        thresh = torch.topk(logits, int(top_k), dim=-1).values[..., -1:]
+        logits = torch.where(logits >= thresh, logits, -math.inf)
+    row_keys = prng.fold_in(prng.fold_in(key, pos), row_ids)
+    return prng.categorical(row_keys, logits)
 
 
 def _new_cache(cfg, b, max_len, hk_l, like):
@@ -549,11 +570,14 @@ def _decode_step_sharded(params, cache, last_tok, pos, cfg, comm_tp, hq_l,
     position's logits — the caller picks the next token.
 
     ``cache``: (layers, 2, B, S_view, Hkv_local, dh), a view of the
-    decoder's cache; ``last_tok``: (B,) int; ``pos``: Python int.
-    Returns ``(cache, logits)``.
+    decoder's cache; ``last_tok``: (B,) int; ``pos``: a 0-d int64 tensor
+    on the cache's device.  The position is read by the kernels, never by
+    the host, so a CUDA graph can capture the step.  Returns
+    ``(cache, logits)``.
     """
     dh = cfg.head_dim
     b = last_tok.shape[0]
+    at = pos.view(1)
     x = params.embed[last_tok][:, None, :]  # (B, 1, d)
     token = None
     for i in range(cfg.layers):
@@ -561,10 +585,11 @@ def _decode_step_sharded(params, cache, last_tok, pos, cfg, comm_tp, hq_l,
         h = _rmsnorm(x, bp.ln1, cfg.eps)
         h, token = _f_collective(h, comm_tp, token)
         q = (h @ bp.wq).reshape(b, 1, hq_l, dh)
-        cache[i, 0, :, pos] = (h @ bp.wk).reshape(b, hk_l, dh)
-        cache[i, 1, :, pos] = (h @ bp.wv).reshape(b, hk_l, dh)
+        cache[i, 0].index_copy_(1, at, (h @ bp.wk).reshape(b, 1, hk_l, dh))
+        cache[i, 1].index_copy_(1, at, (h @ bp.wv).reshape(b, 1, hk_l, dh))
         # attend over positions <= pos (masked full-view attention;
-        # q_offset=pos makes the causal mask pass exactly those)
+        # q_offset=pos makes the causal mask pass exactly those; the
+        # dense path takes a tensor offset, the flash one would not)
         attn = local_attention(
             q, cache[i, 0], cache[i, 1], causal=True, q_offset=pos,
             impl="xla",
@@ -596,10 +621,11 @@ def _attention_fn(impl):
 
 
 def _prefill_sharded(params, prompt, cfg, comm_tp, hq_l, hk_l, max_len,
-                     impl="xla", logits_pos=None):
+                     impl="xla", logits_pos=None, cache=None):
     """Batched prefill on the local tp shard: one causal forward pass
     over the whole prompt, writing every prompt position's K/V into a
-    new ``max_len`` cache, whose later positions stay zero.
+    new ``max_len`` cache, whose later positions stay zero, or into
+    ``cache`` (zero past the prompt) when one is given.
 
     Identical math to running :func:`_decode_step_sharded` position by
     position.  Returns ``(cache, logits)`` with the last prompt
@@ -610,7 +636,8 @@ def _prefill_sharded(params, prompt, cfg, comm_tp, hq_l, hk_l, max_len,
     dh = cfg.head_dim
     b, p_len = prompt.shape
     x = params.embed[prompt]  # (B, P, d)
-    cache = _new_cache(cfg, b, max_len, hk_l, params.embed)
+    if cache is None:
+        cache = _new_cache(cfg, b, max_len, hk_l, params.embed)
     token = None
     for i in range(cfg.layers):
         bp = _layer(params.blocks, i)
@@ -633,79 +660,184 @@ def _prefill_sharded(params, prompt, cfg, comm_tp, hq_l, hk_l, max_len,
     return cache, _rmsnorm(last, params.ln_f, cfg.eps) @ params.head
 
 
-def _greedy_decode(params, prompt, cfg, max_len, *, comm_tp, batched,
-                   kv_bucket, prefill_impl):
-    """The decoder behind :func:`make_global_decode` (arguments already
-    validated).  ``prompt``: [B, P] int on the parameters' device."""
-    tp = comm_tp.size
-    hq_l, hk_l = cfg.heads // tp, cfg.kv_heads // tp
-    b, p_len = prompt.shape
-    if p_len > max_len:
-        raise ValueError(
-            f"prompt length {p_len} exceeds max_len={max_len} "
-            f"(the decoder's static sequence budget)"
-        )
-    out = torch.zeros((b, max_len), dtype=prompt.dtype, device=prompt.device)
-    out[:, :p_len] = prompt
-
-    if batched and p_len > 1:
-        cache, pre_logits = _prefill_sharded(
-            params, prompt, cfg, comm_tp, hq_l, hk_l, max_len,
-            impl=prefill_impl,
-        )
-        if p_len < max_len:
-            # the token at position p_len is chosen from position
-            # p_len - 1's logits
-            out[:, p_len] = _choose_token(pre_logits)
-        start = p_len  # positions start..max_len-2 remain
-    else:
-        cache = _new_cache(cfg, b, max_len, hk_l, params.embed)
-        start = 0
-
-    def step(view, pos):
-        _, logits = _decode_step_sharded(
-            params, view, out[:, pos], pos, cfg, comm_tp, hq_l, hk_l
-        )
-        # inside the prompt, keep the given token; past it, append the
-        # chosen one
-        if pos + 1 >= p_len:
-            out[:, pos + 1] = _choose_token(logits)
-
+def _segments(start, max_len, kv_bucket):
+    """The generate loop's segments ``(view_len, first, stop)``: positions
+    ``first..stop-1`` read a cache view of ``view_len`` positions.  Without
+    ``kv_bucket`` one segment on the whole cache; with it, bucketed KV
+    growth: segment s runs positions [prev, min(end_s, max_len-1)) on a
+    view of length end_s, so each step reads ceil((pos+1)/N)·N positions,
+    not max_len.  Empty segments are left out."""
     if kv_bucket is None:
-        for pos in range(start, max_len - 1):
-            step(cache, pos)
+        ends = [max_len]
     else:
-        # bucketed KV growth: segment s runs positions
-        # [prev, min(end_s, max_len-1)) on a cache view of length end_s,
-        # so each step reads ceil((pos+1)/N)·N positions, not max_len.
-        # Positions past those written are zero, as the JAX package's
-        # zero-padded view holds them.
         ends = list(range((start // kv_bucket + 1) * kv_bucket, max_len,
                           kv_bucket))
         ends.append(max_len)
-        prev = start
-        for end in ends:
-            view = cache[:, :, :, :end]
-            hi = min(end, max_len - 1)
-            for pos in range(prev, hi):
-                step(view, pos)
+    segments = []
+    prev = start
+    for end in ends:
+        hi = min(end, max_len - 1)
+        if hi > prev:
+            segments.append((end, prev, hi))
             prev = hi
-    return out
+    return segments
+
+
+class _DecodeLoop:
+    """The decoder's state for one batch, prompt length and dtype: static
+    buffers and the generate step that reads and writes only them.
+
+    ``out`` (the tokens), ``cache`` (the KV cache), ``pos`` (the step's
+    position, a 0-d int64 tensor), ``key`` and ``row_ids`` (the sampler's
+    key and the rows' ids) live as long as the loop, so a CUDA graph of
+    :meth:`step` replays on them: the JAX package's jitted ``scan`` body,
+    with the position read and advanced on the device.
+    """
+
+    def __init__(self, params, prompt, cfg, max_len, *, comm_tp, batched,
+                 kv_bucket, prefill_impl, sampler, temperature, top_k):
+        tp = comm_tp.size
+        self.hq_l, self.hk_l = cfg.heads // tp, cfg.kv_heads // tp
+        b, self.p_len = prompt.shape
+        if self.p_len > max_len:
+            raise ValueError(
+                f"prompt length {self.p_len} exceeds max_len={max_len} "
+                f"(the decoder's static sequence budget)"
+            )
+        self.cfg, self.max_len, self.comm_tp = cfg, max_len, comm_tp
+        self.prefill_impl, self.sampler, self.top_k = (prefill_impl,
+                                                       sampler, top_k)
+        device = params.embed.device
+        self.out = torch.zeros((b, max_len), dtype=prompt.dtype,
+                               device=device)
+        self.cache = _new_cache(cfg, b, max_len, self.hk_l, params.embed)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.key = torch.zeros(2, dtype=torch.int64, device=device)
+        self.row_ids = torch.arange(b, device=device)
+        self.temperature = torch.full((), temperature, dtype=torch.float32,
+                                      device=device)
+        self.batched = batched and self.p_len > 1
+        start = self.p_len if self.batched else 0
+        self.segments = _segments(start, max_len, kv_bucket)
+        self.n_steps = sum(stop - first for _, first, stop in self.segments)
+
+    def choose(self, logits, pos):
+        return _choose_token(
+            logits, pos, self.key, self.row_ids, self.sampler,
+            self.temperature, self.top_k,
+        ).to(self.out.dtype)
+
+    def prepare(self, params, prompt, key):
+        """Eager part: the buffers reset (the cache to zero, as the JAX
+        decoder starts from a fresh one, so no earlier call's positions
+        reach this one: masking alone would not, since 0 × NaN is NaN),
+        the prompt in ``out``, and with the batched prefill its K/V and the
+        first generated token."""
+        self.out.zero_()
+        self.out[:, :self.p_len] = prompt
+        self.cache.zero_()
+        if key is not None:
+            self.key.copy_(key)
+        if self.batched:
+            _, logits = _prefill_sharded(
+                params, prompt, self.cfg, self.comm_tp, self.hq_l,
+                self.hk_l, self.max_len, impl=self.prefill_impl,
+                cache=self.cache,
+            )
+            if self.p_len < self.max_len:
+                # the token at position p_len is chosen from position
+                # p_len - 1's logits
+                self.out[:, self.p_len] = self.choose(logits, self.p_len - 1)
+
+    def step(self, params, view_len):
+        """One generate step at ``pos`` on the cache's first ``view_len``
+        positions; advances ``pos``.  No host synchronisation: this is
+        what a graph captures."""
+        at = self.pos.view(1)
+        _, logits = _decode_step_sharded(
+            params, self.cache[:, :, :, :view_len],
+            self.out.index_select(1, at)[:, 0], self.pos, self.cfg,
+            self.comm_tp, self.hq_l, self.hk_l,
+        )
+        # inside the prompt, keep the given token; past it, append the
+        # chosen one
+        nxt = at + 1
+        cur = self.out.index_select(1, nxt)[:, 0]
+        write = torch.where(nxt < self.p_len, cur, self.choose(logits,
+                                                                self.pos))
+        self.out.index_copy_(1, nxt, write[:, None])
+        self.pos.add_(1)
+
+    def run(self, params, prompt, key, replay):
+        """The decode: :meth:`prepare`, then each segment as ``pos`` set to
+        its first position and one ``replay(view_len)`` per position.
+        Returns ``out`` (the static buffer)."""
+        self.prepare(params, prompt, key)
+        for view_len, first, stop in self.segments:
+            self.pos.fill_(first)
+            for _ in range(stop - first):
+                replay(view_len)
+        return self.out
+
+
+def _greedy_decode(params, prompt, cfg, max_len, *, comm_tp, batched,
+                   kv_bucket, prefill_impl, sampler="greedy", key=None,
+                   temperature=1.0, top_k=None):
+    """The decoder behind :func:`make_global_decode`, eager, on fresh
+    buffers (arguments already validated): every step a direct call.
+    ``prompt``: [B, P] int on the parameters' device; ``key``: an int64
+    ``(2,)`` tensor there, for ``sampler="categorical"``.  The card's
+    graph replays are held to it."""
+    loop = _DecodeLoop(
+        params, prompt, cfg, max_len, comm_tp=comm_tp, batched=batched,
+        kv_bucket=kv_bucket, prefill_impl=prefill_impl, sampler=sampler,
+        temperature=temperature, top_k=top_k,
+    )
+    return loop.run(params, prompt, key,
+                    lambda view_len: loop.step(params, view_len))
+
+
+def _capture_steps(loop, params):
+    """One CUDA graph of ``loop.step`` per view length of the loop's
+    segments, in segment order, all in one memory pool: each graph's
+    temporaries die inside it and every live output is a static buffer
+    allocated outside the captures, so the graphs can share the pool."""
+    pool = torch.cuda.graph_pool_handle()
+    graphs = {}
+    for view_len, _, _ in loop.segments:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with graph_capture(graph, pool):
+                loop.step(params, view_len)
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of the decode step on a {view_len}-"
+                f"position cache view failed: {exc}"
+            ) from exc
+        graphs[view_len] = graph
+    return graphs
 
 
 def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
                        kv_bucket=None, prefill_impl="xla", sampler="greedy",
                        temperature=1.0, top_k=None, device="cuda"):
-    """Greedy autoregressive decoder.
+    """Autoregressive decoder, greedy or sampled.
 
     ``decode(params, prompt)``: ``prompt`` is ``[B, P]`` int (a tensor or
     array).  ``prefill="batched"`` (default) processes the whole prompt
     in one causal forward pass that fills the KV cache;
     ``prefill="stepwise"`` runs the prompt position by position through
-    the cached step (same math).  Then generates ``max_len - P`` greedy
-    tokens.  Returns ``[B, max_len]`` on ``device``, in the prompt's
-    dtype — the prompt followed by the continuation.  Matches
+    the cached step (same math).  Then generates ``max_len - P`` tokens.
+    Returns ``[B, max_len]`` on ``device``, in the prompt's dtype — the
+    prompt followed by the continuation.  Greedy matches
     :func:`reference_greedy_decode`.
+
+    ``sampler="categorical"`` draws each continuation token from the
+    (temperature-scaled, optionally top-k-truncated) softmax; the decoder
+    then takes a key, ``decode(params, prompt, key)`` (a
+    ``jax.random.PRNGKey``'s ``uint32[2]`` as an array or tensor, or a
+    typed key), and matches :func:`reference_sample_decode` and the JAX
+    package's decoder token for token: the draws use JAX's threefry bits.
 
     ``prefill_impl`` picks the batched prefill's attention: ``"xla"``
     (dense scores) or ``"flash"`` (the flash kernel; on the card, the
@@ -715,9 +847,22 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
     of the full ``max_len`` budget; token-exact against the un-bucketed
     loop.
 
+    The JAX decoder is one jitted executable; here the prefill runs
+    eagerly and the generate loop on static buffers (:class:`_DecodeLoop`)
+    that live across calls, as ``jit`` keeps its executable, keyed by the
+    batch, the prompt length, the dtypes and every parameter leaf's
+    ``data_ptr()``; a new key drops the old state.  On the CPU each step
+    is a direct call.  On the card the first call for a key runs eagerly
+    on a side stream, then captures one CUDA graph of the step per cache
+    view length; every later call replays them, one replay a position,
+    after setting the position at each segment's start.  A capture that
+    fails raises; nothing on the card falls back to the eager loop.
+    Every call returns a new tensor, so a later call never overwrites an
+    earlier result.  ``decode.captures`` counts the graphs captured and
+    ``decode.replays`` the steps replayed (on the CPU: the direct calls).
+
     There is no mesh argument: the comms carry the layout, one rank in
-    this slice.  ``sampler="categorical"`` is validated as the JAX
-    package validates it, then raises ``NotImplementedError``.
+    this port.
     """
     for name, comm in (("comm_dp", comm_dp), ("comm_tp", comm_tp)):
         if comm.size != 1:
@@ -742,35 +887,69 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
             f"kv_bucket must be an integer in (0, max_len={max_len}], "
             f"got {kv_bucket!r}"
         )
-    if sampler != "greedy":
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet: {SAMPLER_ITEM}"
-        )
     device = resolve_device(device)
     bucket = None if kv_bucket is None else int(kv_bucket)
+    state = {"sig": None, "loop": None, "graphs": None}
+
+    def loop_for(params, prompt):
+        sig = (tuple(prompt.shape), prompt.dtype, params.embed.dtype,
+               tuple(t.data_ptr() for t in _leaves(params)))
+        if state["sig"] != sig:
+            state.update(sig=None, loop=None, graphs=None)  # free them first
+            state["loop"] = _DecodeLoop(
+                params, prompt, cfg, max_len, comm_tp=comm_tp,
+                batched=prefill == "batched", kv_bucket=bucket,
+                prefill_impl=prefill_impl, sampler=sampler,
+                temperature=temperature, top_k=top_k,
+            )
+            state["sig"] = sig
+        return state["loop"]
 
     @torch.no_grad()
-    def decode(params, prompt):
+    def run(params, prompt, key):
         if params.embed.device.type != device.type:
             raise ValueError(
                 f"params are on {params.embed.device}, the decoder was "
                 f"made for {device}"
             )
         prompt = torch.as_tensor(prompt, device=params.embed.device)
-        return _greedy_decode(
-            params, prompt, cfg, max_len, comm_tp=comm_tp,
-            batched=prefill == "batched", kv_bucket=bucket,
-            prefill_impl=prefill_impl,
-        )
+        if key is not None:
+            key = prng.raw_key(key, params.embed.device)
+        loop = loop_for(params, prompt)
+        if device.type == "cuda" and state["graphs"] is None:
+            out = run_on_side_stream(lambda: loop.run(
+                params, prompt, key, lambda n: loop.step(params, n)).clone(),
+                params.embed.device)
+            state["graphs"] = _capture_steps(loop, params)
+            decode.captures += len(state["graphs"])
+            return out
+        if device.type == "cuda":
+            graphs = state["graphs"]
 
+            def replay(view_len):
+                graphs[view_len].replay()
+        else:
+            def replay(view_len):
+                loop.step(params, view_len)
+        out = loop.run(params, prompt, key, replay).clone()
+        decode.replays += loop.n_steps
+        return out
+
+    if sampler == "greedy":
+        def decode(params, prompt):
+            return run(params, prompt, None)
+    else:
+        def decode(params, prompt, key):
+            return run(params, prompt, key)
+
+    decode.captures = 0
+    decode.replays = 0
     return decode
 
 
-@torch.no_grad()
-def reference_greedy_decode(params, prompt, cfg, max_len):
-    """Unsharded oracle: full-sequence recompute per position, dense
-    attention (``impl="xla"``).  ``prompt``: ``[B, P]`` int tensor on the
-    parameters' device."""
+def _oracle_decode(params, prompt, cfg, max_len, choose):
+    """Full-sequence recompute per position, dense attention
+    (``impl="xla"``); ``choose(logits, pos)`` picks each next token."""
     b, p_len = prompt.shape
     if p_len > max_len:
         raise ValueError(
@@ -785,8 +964,41 @@ def reference_greedy_decode(params, prompt, cfg, max_len):
         x = _rmsnorm(x, params.ln_f, cfg.eps)
         logits = x[:, pos] @ params.head  # (B, V)
         if pos + 1 >= p_len:
-            out[:, pos + 1] = _choose_token(logits)
+            out[:, pos + 1] = choose(logits, pos)
     return out
+
+
+@torch.no_grad()
+def reference_greedy_decode(params, prompt, cfg, max_len):
+    """Unsharded oracle: full-sequence recompute per position, dense
+    attention (``impl="xla"``).  ``prompt``: ``[B, P]`` int tensor on the
+    parameters' device."""
+    return _oracle_decode(
+        params, prompt, cfg, max_len,
+        lambda logits, pos: _choose_token(logits, pos, None, None, "greedy",
+                                          1.0, None),
+    )
+
+
+@torch.no_grad()
+def reference_sample_decode(params, prompt, cfg, max_len, key, *,
+                            temperature=1.0, top_k=None):
+    """Unsharded sampling oracle: full-sequence recompute per position,
+    next tokens drawn through the same :func:`_choose_token` (a per-row
+    ``fold_in`` of the position and the row id) as the decoder, so
+    ``make_global_decode(..., sampler="categorical")`` matches it token
+    for token given the same key.  ``key`` as for the decoder."""
+    _check_sampler("categorical", temperature, top_k, cfg.vocab)
+    device = params.embed.device
+    key = prng.raw_key(key, device)
+    row_ids = torch.arange(prompt.shape[0], device=device)
+    temp = torch.full((), temperature, dtype=torch.float32, device=device)
+    return _oracle_decode(
+        params, prompt, cfg, max_len,
+        lambda logits, pos: _choose_token(
+            logits, pos, key, row_ids, "categorical", temp, top_k,
+        ).to(prompt.dtype),
+    )
 
 
 # ------------------- weights carried across ------------------------

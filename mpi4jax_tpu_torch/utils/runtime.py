@@ -1,18 +1,24 @@
-"""Runtime helpers shared by the solver and the example driver.
+"""Runtime helpers shared by the solver, the decoder and the example
+drivers.
 
 Counterpart of ``mpi4jax_tpu/utils/runtime.py``.  ``drain`` becomes a
 device synchronize: PyTorch returns before the card has finished, so a
 host clock is only meaningful after one.  ``resolve_device`` is the one
 place that decides where an entry point runs: on the card unless the
 caller asked for the CPU, and never on the CPU by default.
+``run_on_side_stream`` and ``graph_capture`` are how the port's
+entry points warm up and capture their CUDA graphs.
 """
 
+import contextlib
+import gc
 import math
 
 import numpy as np
 import torch
 
-__all__ = ["drain", "best_mesh_shape", "resolve_device"]
+__all__ = ["drain", "best_mesh_shape", "resolve_device",
+           "run_on_side_stream", "graph_capture"]
 
 
 def drain(x):
@@ -49,3 +55,39 @@ def resolve_device(device):
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}; use 'cuda' or 'cpu'")
     return device
+
+
+def run_on_side_stream(fn, device):
+    """``fn()`` on a fresh stream of ``device`` ordered after the current
+    one, its output (a tensor or a tuple of them) handed back to the
+    current stream: the eager first call before a capture."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    for t in out if isinstance(out, tuple) else (out,):
+        t.record_stream(current)
+    return out
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collector held off until the capture ends.
+
+    PyTorch no longer collects before a capture, so an automatic
+    collection could run in the middle of one and free a CUDA graph that a
+    dead reference cycle still held (a solver or decoder the caller let
+    go: their functions refer to themselves).  Freeing a graph returns its
+    memory pool to the device, which a capturing stream refuses, and the
+    refused call invalidates the capture in progress."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -6,7 +6,10 @@ the CPU, at a tiny size:
   none is credible;
 * the record: its keys, and exactly one JSON line on stdout, from a
   ``--device cpu`` run at a tiny ``SWConfig`` with short batches (every
-  ghost width, and ``--quick``);
+  ghost width, and ``--quick``), the decode legs on a tiny model (their
+  three tokens/s keys; the bandwidth bound's two keys need the card's
+  copy rate and are absent on the CPU; ``--quick`` names the legs
+  skipped);
 * ``make_multistep(donate=False)`` leaves the states that earlier calls
   returned intact, and ``donate=True`` chains;
 * without ``--device cpu`` and without CUDA the bench raises.
@@ -52,12 +55,22 @@ def tiny_bench(monkeypatch):
     monkeypatch.setattr(bench, "CREDIBLE_S", 0.012)
     monkeypatch.setattr(bench, "STEPS_PER_CALL", 2)
     monkeypatch.setattr(bench, "MIN_CALLS", 1)
+    monkeypatch.setattr(bench, "DECODE_MODEL", dict(
+        layers=2, d_model=32, heads=4, kv_heads=2, d_ff=64, vocab=64,
+        prompt=4, max_len=24))
+    monkeypatch.setattr(bench, "DECODE_BATCHES", 1)
 
 
 RECORD_KEYS = {
     "metric", "value", "unit", "vs_baseline",
     "median_cell_updates_per_sec_per_chip", "ghost", "steps_per_call",
     "calls_per_batch", "draws", "credible_draws", "device",
+}
+
+
+DECODE_KEYS = {
+    "decode_tokens_per_sec_bf16", "decode_tokens_per_sec_batch16",
+    "decode_tokens_per_sec_batch16_kv_bucket16",
 }
 
 
@@ -71,7 +84,10 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     keys = RECORD_KEYS | {f"autotune_ghost{g}_ms" for g in ghosts}
     if quick:
         keys.add("quick")
-    # no copy rate on the CPU (it has no HBM), and no TPU-derived key
+    else:
+        keys |= DECODE_KEYS
+    # no copy rate on the CPU (it has no HBM), so no bandwidth bound, and
+    # no TPU-derived key
     assert set(rec) == keys
     assert rec["metric"] == "shallow_water_cell_updates_per_sec_per_chip"
     assert rec["unit"] == "cell-updates/s/chip"
@@ -82,8 +98,13 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     assert rec["draws"] >= (3 if quick else 10)
     for leg, _ in bench.SKIPPED:
         assert f"[bench] skipped {leg}" in err
-    for item in (1, 5, 9):
+    for item in (1, 5, 9, 13):
         assert f"ROADMAP Queue 1 item {item}" in err
+    assert "item 14" not in err
+    for leg in ("decode", "decode_kv_bucket"):
+        assert (f"[bench] skipped {leg}: quick mode" in err) == quick
+    if not quick:
+        assert all(rec[key] > 0 for key in DECODE_KEYS)
 
 
 def test_nominal_hbm():

@@ -1,6 +1,11 @@
 """The measures by which ``chip_smoke.py`` holds the flash backward
 kernels to their plain versions, and the float64 witness that decided the
-bf16 one.
+bf16 one; and the training path's 2-layer gradient check: its float64
+witness (``WitnessAttention``, ``witness_loss_and_grads``) equals
+autograd of the loss written out in float64, and its measure
+(``grad_readings``: the kernel path's mean difference from the witness
+over the plain path's) passes two paths with rounding noise of one size
+and fails an error like the planted forward fault's.
 
 bf16 (``BWD_LIMITS[bfloat16]``): the largest difference in bf16 steps of
 the largest plain value (``top_steps``) and the mean difference over it.
@@ -161,3 +166,129 @@ def test_extra_seeds_are_no_case_seed():
                     :_SMOKE.BWD_EXTRA_SEEDS])
     names = {c[0] for c in _SMOKE.bwd_check_cases()}
     assert set(_SMOKE.WITNESS_CASES) <= names
+
+
+# ---- the training path's 2-layer gradient check (chip_smoke phase 9) ----
+
+
+def test_witness_attention_is_causal_float64_attention():
+    # forward and gradient of WitnessAttention equal autograd of a dense
+    # float64 causal attention with grouped-query heads
+    rng = np.random.default_rng(7)
+    q, g = (torch.tensor(rng.standard_normal((2, 12, 4, 8)))
+            for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((2, 12, 2, 8)))
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = _SMOKE.WitnessAttention.apply(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    dense = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ql, kl, vl = dense
+    s = torch.einsum("bqhd,bkhd->bhqk", ql, kl.repeat_interleave(2, dim=2))
+    s = s / math.sqrt(8)
+    s = s.masked_fill(~torch.ones(12, 12, dtype=torch.bool).tril(),
+                      -math.inf)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                        vl.repeat_interleave(2, dim=2))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-12)
+    for a, b in zip(got, torch.autograd.grad(want, dense, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
+def _float64_loss(leaves, tokens, targets, cfg):
+    """The training loss written out in float64: the layer math of the
+    port's transformer with dense causal attention."""
+    embed, ln1, wq, wk, wv, wo, ln2, w1, w2, ln_f, head = leaves
+    b, s = tokens.shape
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.eps) * w
+
+    x = embed[tokens]
+    group = cfg.heads // cfg.kv_heads
+    seen = torch.ones(s, s, dtype=torch.bool).tril()
+    for i in range(cfg.layers):
+        h = norm(x, ln1[i])
+        q = (h @ wq[i]).reshape(b, s, cfg.heads, cfg.head_dim)
+        k = (h @ wk[i]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        v = (h @ wv[i]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q,
+                          k.repeat_interleave(group, dim=2))
+        sc = (sc / math.sqrt(cfg.head_dim)).masked_fill(~seen, -math.inf)
+        a = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1),
+                         v.repeat_interleave(group, dim=2))
+        x = x + a.reshape(b, s, -1) @ wo[i]
+        m = torch.nn.functional.gelu(norm(x, ln2[i]) @ w1[i],
+                                     approximate="tanh")
+        x = x + m @ w2[i]
+    logits = norm(x, ln_f) @ head
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - picked).mean()
+
+
+def test_witness_gradient_is_the_float64_gradient():
+    # the witness (float64 layers recomputed in the backward, chunked
+    # cross-entropy) equals autograd of the loss written out in float64
+    # from the same bf16 parameters and tokens
+    from mpi4jax_tpu_torch.models import transformer as tfm
+    from mpi4jax_tpu_torch.parallel.comm import MeshComm
+
+    cfg = tfm.TransformerConfig(vocab=48, d_model=16, layers=2, heads=4,
+                                kv_heads=2, head_dim=4, d_ff=32)
+    gen = torch.Generator().manual_seed(3)
+    params = tfm.init_params(cfg, generator=gen, dtype=torch.bfloat16,
+                             device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    loss, grads = _SMOKE.witness_loss_and_grads(
+        params, (tokens, targets), cfg, world.sub("tp"), world.sub("sp"),
+        chunk=8)
+    leaves = [t.detach().double().requires_grad_(True)
+              for t in tfm._leaves(params)]
+    want_loss = _float64_loss(leaves, tokens, targets, cfg)
+    want = torch.autograd.grad(want_loss, leaves)
+    assert loss.dtype == torch.float64
+    torch.testing.assert_close(loss, want_loss.detach(), rtol=1e-13,
+                               atol=0)
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.float64
+        torch.testing.assert_close(got, w, rtol=1e-10, atol=1e-13)
+
+
+def test_grad_readings():
+    rng = np.random.default_rng(11)
+    witness = torch.tensor(rng.standard_normal(4096))
+    plain = (witness * (1 + 1e-3 * torch.tensor(
+        rng.standard_normal(4096)))).to(torch.bfloat16)
+    r = _SMOKE.grad_readings(plain, plain, witness)
+    assert r["kp_max"] == r["kp_mean"] == 0.0 and r["finite"]
+    assert r["kw_mean"] == r["pw_mean"] > 0
+    moved = plain.double()
+    moved[5] += 0.25 * plain.double().abs().max()
+    r = _SMOKE.grad_readings(moved, plain)
+    assert set(r) == {"kp_max", "kp_mean", "finite"}
+    assert r["kp_max"] == pytest.approx(0.25)
+    assert r["kp_mean"] == pytest.approx(0.25 / 4096)
+    moved[7] = math.nan
+    assert not _SMOKE.grad_readings(moved, plain)["finite"]
+
+
+def test_witness_ratio_sees_a_systematic_error():
+    # two paths with independent rounding noise of one size are as far
+    # from the witness (ratio ~1, the sound readings 0.985-1.015); an
+    # error on half the elements twice the noise's size, as the planted
+    # forward fault's (readings 1.54-2.35), fails the limit
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    witness = torch.tensor(rng.standard_normal(n))
+    plain, kernel, extra = (witness * 1e-3 * torch.tensor(
+        rng.standard_normal(n)) for _ in range(3))
+    plain, kernel = witness + plain, witness + kernel
+    sound = _SMOKE.grad_readings(kernel, plain, witness)
+    assert abs(sound["ratio"] - 1) < 0.02
+    assert sound["ratio"] <= _SMOKE.TRAIN_WITNESS_RATIO
+    extra[n // 2:] = 0
+    faulty = _SMOKE.grad_readings(kernel + 2 * extra, plain, witness)
+    assert faulty["ratio"] > 1.5 > _SMOKE.TRAIN_WITNESS_RATIO
+    assert faulty["kp_max"] < _SMOKE.TRAIN_GRAD_LIMIT

@@ -13,13 +13,27 @@ to 3e-2 absolute plus 3e-2 relative in bf16: logits of up to ~3 carry
 bf16 steps of 1.6e-2, and two layers of bf16 rounding at other places
 than XLA's fusions (rms norm, GELU's tanh) move them by a few steps.  On CPU tensors the
 flash prefill runs the CUDA kernel's plain version.
+
+The decoder keeps static buffers across calls (on the card, the buffers
+its CUDA graphs replay on; on the CPU the same code with each step a
+direct call): other prompts, other parameter tensors and a NaN left in
+the cache each give a fresh decoder's tokens, and an earlier result
+survives a later call.  The generate step, greedy or categorical, reaches
+no op that reads a device value on the host (the ops a capture refuses),
+and the segments give one graph per cache view length and one replay per
+position.  Categorical sampling is held to JAX in
+``tests/test_torch_sampling.py``.
 """
+
+import contextlib
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import mpi4jax_tpu as mj
 from mpi4jax_tpu.models import transformer as jtfm
@@ -27,6 +41,7 @@ from mpi4jax_tpu.models import transformer as jtfm
 from mpi4jax_tpu_torch.examples import transformer_decode
 from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
+from mpi4jax_tpu_torch.utils.runtime import graph_capture
 
 torch.set_num_threads(1)
 
@@ -202,10 +217,122 @@ def test_decode_prompt_longer_than_budget_errors():
         decode(params, torch.tensor(_jax_prompt(8, 9)))
 
 
-def test_categorical_sampler_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tfm.make_global_decode(*_comms(), CFG, MAX, device="cpu",
-                               sampler="categorical", temperature=0.8)
+class _HostReads(TorchDispatchMode):
+    """Records the ops that read a tensor's value on the host."""
+
+    SYNCS = {"aten::_local_scalar_dense", "aten::nonzero",
+             "aten::is_nonzero"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name in self.SYNCS:
+            self.seen.append(func._schema.name)
+        return func(*args, **(kwargs or {}))
+
+
+def _loop(params, prompt, max_len=MAX, **kw):
+    opts = dict(comm_tp=_comms()[1], batched=True, kv_bucket=None,
+                prefill_impl="xla", sampler="greedy", temperature=1.0,
+                top_k=None)
+    opts.update(kw)
+    return tfm._DecodeLoop(params, torch.tensor(prompt), CFG, max_len,
+                           **opts)
+
+
+def test_decode_step_makes_no_host_read():
+    # the step a CUDA graph captures reads its position on the device:
+    # the same code on the CPU reaches no op that reads a value back
+    params = _port_params(_jax_params(1))
+    prompt = _jax_prompt(2, P)
+    loop = _loop(params, prompt)
+    loop.prepare(params, torch.tensor(prompt), None)
+    pos = torch.tensor(P, dtype=torch.int64)
+    with _HostReads() as reads:
+        tfm._decode_step_sharded(params, loop.cache, loop.out[:, P], pos,
+                                 CFG, _comms()[1], CFG.heads, CFG.kv_heads)
+    assert reads.seen == []
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "categorical"])
+def test_generate_step_makes_no_host_read(sampler):
+    # the whole captured step: token read, cache write, choice (top-k and
+    # the threefry draw for "categorical"), token write, position advance
+    params = _port_params(_jax_params(1))
+    prompt = _jax_prompt(2, P)
+    kw = dict(sampler=sampler)
+    if sampler == "categorical":
+        kw.update(temperature=0.7, top_k=5)
+    loop = _loop(params, prompt, **kw)
+    loop.prepare(params, torch.tensor(prompt), torch.tensor([0, 3]))
+    loop.pos.fill_(P)
+    with _HostReads() as reads:
+        loop.step(params, MAX)
+    assert reads.seen == []
+    assert int(loop.pos) == P + 1
+
+
+@pytest.mark.parametrize("start, max_len, bucket, n_views, n_steps", [
+    (8192, 8448, 16, 16, 255),  # the long-prompt serving point
+    (16, 512, None, 1, 495),    # the bench's decode legs
+    (16, 512, 16, 31, 495),
+    (0, MAX, 4, 4, MAX - 1),    # stepwise prefill
+    (P, P + 1, None, 0, 0),     # nothing left to generate
+])
+def test_segments(start, max_len, bucket, n_views, n_steps):
+    # one graph per view length, one replay per position
+    segs = tfm._segments(start, max_len, bucket)
+    assert len({view for view, _, _ in segs}) == len(segs) == n_views
+    assert sum(stop - first for _, first, stop in segs) == n_steps
+    pos = start
+    for view, first, stop in segs:
+        assert first == pos and stop <= min(view, max_len - 1)
+        pos = stop
+
+
+def _fresh(params, prompt, **kw):
+    decode = tfm.make_global_decode(*_comms(), CFG, MAX, device="cpu", **kw)
+    return decode(params, torch.tensor(prompt))
+
+
+@pytest.mark.parametrize("kv_bucket", [None, 4])
+def test_decode_state_across_calls(kv_bucket):
+    # the static buffers live across calls: other prompts, then other
+    # parameter tensors, each give a fresh decoder's tokens, and an
+    # earlier result survives a later call
+    decode = tfm.make_global_decode(*_comms(), CFG, MAX, device="cpu",
+                                    kv_bucket=kv_bucket)
+    params_a = _port_params(_jax_params(1))
+    params_b = _port_params(_jax_params(5))
+    prompt_a, prompt_b = _jax_prompt(2, P), _jax_prompt(6, P)
+    first = decode(params_a, torch.tensor(prompt_a))
+    kept = first.clone()
+    second = decode(params_a, torch.tensor(prompt_b))
+    third = decode(params_b, torch.tensor(prompt_b))
+    assert torch.equal(first, kept)
+    for got, (params, prompt) in zip(
+            (first, second, third),
+            ((params_a, prompt_a), (params_a, prompt_b),
+             (params_b, prompt_b))):
+        assert torch.equal(got, _fresh(params, prompt, kv_bucket=kv_bucket))
+    assert not torch.equal(second, third)
+    assert decode.captures == 0
+    assert decode.replays == 3 * (MAX - 1 - P)
+
+
+def test_decode_cache_is_zeroed_each_call():
+    # a NaN left in the cache by anything earlier never reaches a later
+    # call: masking alone would not stop it (0 x NaN is NaN)
+    params = _port_params(_jax_params(1))
+    prompt = torch.tensor(_jax_prompt(2, P))
+    loop = _loop(params, prompt.numpy())
+    step = lambda view: loop.step(params, view)  # noqa: E731
+    want = loop.run(params, prompt, None, step).clone()
+    loop.cache.fill_(float("nan"))
+    loop.out.fill_(-1)
+    assert torch.equal(loop.run(params, prompt, None, step), want)
 
 
 def test_multi_rank_comms_name_their_roadmap_item():
@@ -281,3 +408,26 @@ def test_example_record_on_cpu():
     want = ((n_params - 64 * 32) * 4 + kv_per_pos * (5 + 12) / 2
             + kv_per_pos)
     assert rec["hbm_bytes_per_step"] == int(want)
+
+
+def test_graph_capture_holds_off_the_collector(monkeypatch):
+    # a collection in the middle of a capture could free a dead graph,
+    # whose memory release the capturing stream refuses: the collector is
+    # off for the capture and back on after it, an exception included
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None):
+        seen.append((graph, pool, gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with graph_capture("graph", "pool"):
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(ValueError):
+        with graph_capture("graph"):
+            raise ValueError
+    assert gc.isenabled()
+    assert seen == [("graph", "pool", False), ("graph", None, False)]
