@@ -38,6 +38,22 @@ Phases, each of which raises on failure (nothing is caught):
    and its device time and idle share in one traced replay; bfloat16 at
    ghost 1 and 4 finite after a replay, and ghost 2 in bfloat16 refused
    on the card with the error that names ghost 1 and 4.
+4b'. multi-rank (shallow water): a 2x2 grid of ranks on the one card,
+   four threads of this process over gloo (``local_world``), CUDA
+   tensors staged through host memory.  Every ported op (allreduce with
+   all ten operators, scan, allgather, sendrecv on a ring and on
+   ``shift_perm``, send/recv with ANY_TAG and with ANY_SOURCE, barrier,
+   split, sub) on CUDA tensors against the same op on the CPU; then,
+   on each rank's own 904x1804 block (ghost ring included) with its own
+   wall (south on the first row of ranks, north on the second) and at
+   the inputs the decomposed step gives it, sw_main for both first-step
+   values and sw_visc held bit for bit to their plain versions; then the
+   full 3600x1800 domain in 1800x900 blocks at ghost 2 for 10 steps through
+   ``make_solver`` (gloo chunks run eagerly), every launch count set to
+   0 just before and read just after: sw_main and sw_visc 4 times a
+   step; the gathered h within 2e-4 of the one-rank kernel run from the
+   same initial state (the mean's sum order differs, so not bit for
+   bit), mass within rtol 1e-5; ms a step printed as a reading.
 4c. bench: ``mpi4jax_tpu_torch.bench.run_bench(quick=True)`` in this
    process; its JSON record is printed on a line of its own.
 5. kernels (flash forward): both forward kernels against their plain
@@ -150,6 +166,18 @@ copy: another form of sw_main), holds its sw_main to the plain version
 bit for bit and times it in turns with the tree's own at the bench
 shape.
 
+    python3 chip_smoke.py --nccl-world 4
+
+on a host with four cards: four processes, one per card, join an NCCL
+world (torchrun's environment on a free local port) and run the 2x2
+op cases and the solver check of phase 4b': every op case on CUDA
+tensors over NCCL (send/recv over the world's gloo twin groups) against
+the same cases run beforehand in a CPU local world, then the solver
+with ``make_multistep`` as a CUDA graph that holds the NCCL exchanges
+(each rank first runs the one-rank reference on its card), then the
+64 MB allreduce's bus bandwidth, ``allreduce_busbw_gbps`` with
+``allreduce_devices``.  It raises with fewer than four cards.
+
     python3 chip_smoke.py --witness-readings
 
 reads the bf16 backward kernels and their plain versions against a
@@ -178,12 +206,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mpi4jax_tpu_torch import bench as port_bench
+from mpi4jax_tpu_torch import ops as p_ops
 from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
 from mpi4jax_tpu_torch.kernels import _build, sw_step
 from mpi4jax_tpu_torch.kernels import flash as kflash
 from mpi4jax_tpu_torch.kernels import flash_bwd as kbwd
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import transformer as tfm
+from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
 from mpi4jax_tpu_torch.utils import prng
@@ -218,6 +248,19 @@ KERNEL_TOL = {"state": 1e-6, "tendency": 1e-4}
 PATH_TOL = 2e-4
 MASS_RTOL = 1e-5
 TIMED_LAUNCHES = 25
+
+# the multi-rank phases: a 2x2 grid of ranks on the full domain (1800x900
+# blocks at ghost 2), MULTIRANK_STEPS steps through make_solver in chunks
+# of MULTIRANK_CHUNK (the bootstrap step, the warm-up chunk, two timed
+# chunks); the ops' float sums against the CPU within
+# MULTIRANK_FLOAT_TOL of the largest value (the CPU tests' tolerance)
+MULTIRANK_GRID = (2, 2)
+MULTIRANK_STEPS = 10
+MULTIRANK_CHUNK = 3
+MULTIRANK_OPS = ("sum", "prod", "min", "max", "land", "lor", "lxor",
+                 "band", "bor", "bxor")
+MULTIRANK_FLOAT_TOL = 4e-6
+NCCL_RANK_TIMEOUT_S = 240.0  # an --nccl-world rank's whole run
 
 # flash kernel against its plain version at the same key tile.  The two
 # differ only where the summation order moves a score across a rounding
@@ -525,13 +568,18 @@ def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
+def card_lines():
+    """Every card's name and power limit as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line():
+    return card_lines()[0]
 
 
 def rel_close(expected, actual, tol):
@@ -608,8 +656,8 @@ def clone(state):
 
 
 def sw_bench_inputs(cfg, comm, device):
-    """sw_main's inputs at the bench shape as the step gives them: a
-    non-trivial state (the initial state plus a few plain steps, v != 0)
+    """sw_main's inputs at this rank's block (the bench shape on one
+    rank) as the step gives them: a non-trivial state (the initial state plus a few plain steps, v != 0)
     with h, u, v exchanged and h's wall ghost rows clamped.  Returns
     ``(state, inputs, geometry, iy)``."""
     ny_l, nx_l = cfg.local_interior(comm)
@@ -1047,6 +1095,444 @@ def schedules_phase(cfg, comm, device, n_steps=25):
     else:
         raise RuntimeError("bfloat16 at ghost 2 on the card was not refused")
     return result
+
+
+# -- multi-rank: a grid of ranks on one card, and an NCCL world ---------
+
+
+def _op_inputs(dtype, seed, rank):
+    """Rank ``rank``'s input of a multi-rank op case, on the CPU."""
+    gen = torch.Generator().manual_seed(1000 * seed + rank)
+    if dtype == "bool":
+        return torch.randint(0, 2, (4, 257), generator=gen).bool()
+    if dtype == "int32":
+        return torch.randint(-3, 4, (4, 257), generator=gen,
+                             dtype=torch.int32)
+    return torch.randn((4, 257), generator=gen)
+
+
+def multirank_op_cases(comm):
+    """``(name, dtype, fn)``: every ported op at this comm's ranks, each
+    ``fn(x)`` returning its result on ``x``'s device."""
+    n, r = comm.size, comm.rank()
+    ring = [(q, (q + 1) % n) for q in range(n)]
+    cases = []
+    for name in MULTIRANK_OPS:
+        dtypes = (("bool",) if name in ("land", "lor", "lxor") else
+                  ("int32",) if name in ("band", "bor", "bxor") else
+                  ("int32", "float32"))
+        for dtype in dtypes:
+            cases.append((f"allreduce {name}", dtype,
+                          lambda x, name=name: p_ops.allreduce(
+                              x, name, comm=comm)[0]))
+
+    def send_recv(x):
+        p_ops.send(x, (r + 1) % n, tag=7 + r, comm=comm)
+        st = p_ops.Status()
+        y, _ = p_ops.recv(x, (r - 1) % n, p_ops.ANY_TAG, comm=comm,
+                          status=st)
+        if st.Get_tag() != 7 + (r - 1) % n:
+            raise RuntimeError(f"recv's status tag {st.Get_tag()}")
+        return y
+
+    def any_source(x):
+        p_ops.send(x, (r + 1) % n, tag=11, comm=comm)
+        st = p_ops.Status()
+        y, _ = p_ops.recv(x, p_ops.ANY_SOURCE, 11, comm=comm, status=st)
+        if st.Get_source() != (r - 1) % n:
+            raise RuntimeError(f"recv's status source {st.Get_source()}")
+        return y
+
+    def barrier(x):
+        p_ops.barrier(comm=comm)
+        return x.clone()
+
+    shift_x = comm.shift_perm("x", 1, periodic=True)
+    shift_y = comm.shift_perm("y", -1, periodic=False)
+    cases += [
+        ("scan sum", "float32",
+         lambda x: p_ops.scan(x, "sum", comm=comm)[0]),
+        ("scan max", "int32", lambda x: p_ops.scan(x, "max", comm=comm)[0]),
+        ("allgather", "float32", lambda x: p_ops.allgather(x, comm=comm)[0]),
+        ("allgather", "bool", lambda x: p_ops.allgather(x, comm=comm)[0]),
+        ("sendrecv ring", "float32", lambda x: p_ops.sendrecv(
+            x, x, source=ring, dest=ring, comm=comm)[0]),
+        ("sendrecv shift_perm x periodic", "float32",
+         lambda x: p_ops.sendrecv(x, -x, source=shift_x, dest=shift_x,
+                                  comm=comm)[0]),
+        ("sendrecv shift_perm y walls", "float32",
+         lambda x: p_ops.sendrecv(x, -x, source=shift_y, dest=shift_y,
+                                  comm=comm)[0]),
+        ("send/recv ANY_TAG", "float32", send_recv),
+        ("send/recv ANY_SOURCE", "int32", any_source),
+        ("barrier", "int32", barrier),
+        ("split allreduce", "float32", lambda x: p_ops.allreduce(
+            x, "sum", comm=comm.split(lambda q: q % 2))[0]),
+        ("sub x allreduce", "int32", lambda x: p_ops.allreduce(
+            x, "prod", comm=comm.sub("x"))[0]),
+    ]
+    return cases
+
+
+def run_op_cases(comm, device):
+    """Every case of :func:`multirank_op_cases` on this rank's inputs on
+    ``device``: ``[(name, dtype, result on the CPU)]``."""
+    results = []
+    for seed, (name, dtype, fn) in enumerate(multirank_op_cases(comm)):
+        got = fn(_op_inputs(dtype, seed, comm.rank()).to(device))
+        if got.device.type != torch.device(device).type:
+            raise RuntimeError(f"{name} {dtype}: result on {got.device}")
+        results.append((name, dtype, got.cpu()))
+    return results
+
+
+def hold_op_cases(got, want):
+    """Readings ``(case, max |difference|, limit, ok)`` of one rank's
+    results against the CPU's: exact, but float sums and products within
+    MULTIRANK_FLOAT_TOL of the largest value."""
+    readings = []
+    for (name, dtype, g), (_, _, w) in zip(got, want, strict=True):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise RuntimeError(f"{name} {dtype}: {g.dtype} {tuple(g.shape)}"
+                               f", not {w.dtype} {tuple(w.shape)}")
+        err = (g.double() - w.double()).abs().max().item()
+        tol = (MULTIRANK_FLOAT_TOL * max(w.abs().max().item(), 1e-30)
+               if dtype == "float32" and any(
+                   word in name for word in ("sum", "prod", "split"))
+               else 0.0)
+        readings.append((f"{name} {dtype}", err, tol, err <= tol))
+    return readings
+
+
+def multirank_ops_check(comm, device):
+    """Each case on CUDA tensors (gloo stages them through host memory)
+    against the same case on the CPU copies."""
+    return hold_op_cases(run_op_cases(comm, device), run_op_cases(comm, "cpu"))
+
+
+def report_op_cases(readings):
+    """Log rank 0's readings and every failure; raise on a failure."""
+    failed = []
+    for rank, per_rank in enumerate(readings):
+        for name, err, tol, ok in per_rank:
+            if rank == 0 or not ok:
+                log(f"  rank {rank}: {name} on the card vs the CPU: max |"
+                    f"difference| {err:.3e} (limit {tol:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"rank {rank} {name}")
+    if failed:
+        raise RuntimeError(f"multi-rank ops differ on the card: {failed}")
+    log(f"  {len(readings[0])} op cases on {len(readings)} ranks, every "
+        f"rank: ok")
+
+
+def block_kernel_checks(comm, cfg, device):
+    """sw_main (both first_step values) and sw_visc on this rank's block
+    of the decomposed domain, at the inputs the step gives them
+    (:func:`sw_bench_inputs` on ``comm``: the block's shape, its own
+    walls and row of ranks), each held to its plain version bit for
+    bit.  Returns the block's layout and the readings ``(case, output,
+    max_abs_err, exact)``."""
+    _, inputs, geometry, iy = sw_bench_inputs(cfg, comm, device)
+    readings = []
+
+    def hold(case, names, want, got):
+        torch.cuda.synchronize()
+        for name, w, g in zip(names, want, got, strict=True):
+            readings.append((case, name, (w - g).abs().max().item(),
+                             torch.equal(w, g)))
+
+    for first_step in (True, False):
+        kw = dict(iy=iy, first_step=first_step, **geometry)
+        got = sw_step.sw_main(*inputs, **kw)
+        hold(f"sw_main first_step={first_step}", sw.SWState._fields,
+             sw_step.sw_main_reference(*inputs, **kw), got)
+    u, v = got[1].clone(), got[2].clone()
+    for f in (u, v):
+        halo_exchange_2d(f, comm, periodic=(False, True), width=cfg.ghost)
+    hold("sw_visc", "uv", sw_step.sw_visc_reference(u, v, **geometry),
+         sw_step.sw_visc(u, v, **geometry))
+    return {"iy": iy, "block": tuple(inputs[0].shape),
+            "is_south": geometry["is_south"],
+            "is_north": geometry["is_north"], "readings": readings}
+
+
+def report_block_checks(blocks, cfg):
+    """Every rank's block checks: the wall layout of a grid of two rows
+    of ranks (south wall alone on row 0, north wall alone on row 1) and
+    bit equality; raises on a failure."""
+    py, px = MULTIRANK_GRID
+    shape = (cfg.ny // py + 2 * cfg.ghost, cfg.nx // px + 2 * cfg.ghost)
+    failed = []
+    for rank, b in enumerate(blocks):
+        layout = (b["block"], b["is_south"], b["is_north"])
+        if layout != (shape, b["iy"] == 0, b["iy"] == py - 1) or (
+                b["is_south"] and b["is_north"]):
+            raise RuntimeError(f"rank {rank}'s block {layout} at iy "
+                               f"{b['iy']} is not the 2x2 grid's")
+        for case in dict.fromkeys(c for c, *_ in b["readings"]):
+            outs = [(name, err, exact)
+                    for c, name, err, exact in b["readings"] if c == case]
+            bad = [name for name, _, exact in outs if not exact]
+            log(f"  rank {rank} (iy {b['iy']}, {b['block']}, south wall "
+                f"{b['is_south']}, north wall {b['is_north']}): {case}: "
+                f"{len(outs)} outputs, max_abs_err "
+                f"{max(err for _, err, _ in outs):.3e} (bit-exact required) "
+                f"{'FAIL ' + ','.join(bad) if bad else 'ok'}")
+            failed += [f"rank {rank} {case} {name}" for name in bad]
+    if failed:
+        raise RuntimeError(f"a kernel differs from its plain version on "
+                           f"a block of the 2x2 grid: {failed}")
+
+
+def multirank_solver(comm, cfg, device, num_multisteps, t1):
+    """``make_solver`` on this rank's block, run to ``t1``: the gathered
+    h, the step count and ms a step."""
+    solve = sw.make_solver(cfg, comm, num_multisteps=num_multisteps,
+                           device=device)
+    state, wall, steps = solve(t1)
+    h = sw.gather_global(state.h, comm, ghost=cfg.ghost)
+    return {"h": h, "steps": steps, "wall_s": wall,
+            "replays": solve.multistep.replays,
+            "captured": dict(solve.multistep.captured)}
+
+
+def multirank_reference(cfg, device, num_multisteps, t1):
+    """The one-rank kernel run of the same steps from the same initial
+    state (one rank, its chunks CUDA graphs)."""
+    ref = multirank_solver(MeshComm(), cfg, device, num_multisteps, t1)
+    torch.cuda.synchronize()
+    return ref
+
+
+def hold_decomposed(label, h, ref, cfg):
+    """The gathered h against the one-rank run (PATH_TOL, the JAX
+    package's decomposition tolerance) and its mass (MASS_RTOL)."""
+    err = (h.double() - ref["h"].double()).abs().max().item()
+    mean_h = h.double().mean().item()
+    ok = err <= PATH_TOL and math.isclose(mean_h, cfg.depth,
+                                          rel_tol=MASS_RTOL)
+    log(f"  {label}: gathered h {tuple(h.shape)} vs the one-rank kernel "
+        f"run: max |difference| {err:.3e} (limit {PATH_TOL:g}); mean h "
+        f"{mean_h:.7f} vs depth {cfg.depth} (rtol {MASS_RTOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(h).all():
+        raise RuntimeError(f"{label}: the decomposed solver disagrees with "
+                           f"one rank or loses mass")
+    return err, mean_h
+
+
+def multirank_phase(cfg, device, kernels, card):
+    """A 2x2 grid of ranks on the one card: four threads of this process
+    over gloo (a local world), CUDA tensors staged through host memory.
+    First every ported op against the same op on the CPU; then each
+    rank's sw_main and sw_visc on its block, bit for bit against the
+    plain versions; then the solver on the full domain, 1800x900 blocks
+    at ghost 2, for
+    MULTIRANK_STEPS steps through ``make_solver`` (gloo chunks run
+    eagerly), with the launch counts set to 0 just before and read just
+    after: sw_main and sw_visc 4 times a step; the gathered h against
+    the one-rank kernel run, and its mass."""
+    py, px = MULTIRANK_GRID
+    n = py * px
+    axes = (("y", "x"), MULTIRANK_GRID)
+
+    def ops(comm):
+        if comm.transport().backend != "gloo":
+            raise RuntimeError("a local world runs over gloo")
+        return multirank_ops_check(comm, device)
+
+    readings = distributed.local_world(n, ops, axes=axes, deadline=300.0)
+    report_op_cases(readings)
+    report_block_checks(distributed.local_world(
+        n, lambda comm: block_kernel_checks(comm, cfg, device), axes=axes,
+        deadline=300.0), cfg)
+
+    k, t1 = MULTIRANK_CHUNK, (MULTIRANK_STEPS - 0.5) * cfg.dt
+    ref = multirank_reference(cfg, device, k, t1)
+    reset_launch_counts()
+    runs = distributed.local_world(
+        n, lambda comm: multirank_solver(comm, cfg, device, k, t1),
+        axes=axes, deadline=600.0)
+    launches = launch_counts()
+    steps = 1 + k + runs[0]["steps"]  # bootstrap, warm-up chunk, timed
+    if steps != MULTIRANK_STEPS or ref["steps"] != runs[0]["steps"]:
+        raise RuntimeError(f"{steps} steps run, {MULTIRANK_STEPS} asked")
+    for kern in kernels:
+        got = launches[kern["name"]]
+        log(f"  {kern['name']}: {got} launches in {steps} steps of {n} "
+            f"ranks (4 a step: {n * steps}) "
+            f"{'ok' if got == n * steps else 'FAIL'}")
+        if got != n * steps or any(r["replays"] for r in runs):
+            raise RuntimeError(f"{kern['name']} launched {got} times in "
+                               f"{steps} steps of {n} ranks")
+        kern["launches_multirank"] = got
+    for rank, r in enumerate(runs[1:], 1):
+        if not torch.equal(r["h"], runs[0]["h"]):
+            raise RuntimeError(f"rank {rank} gathered another h")
+    err, mean_h = hold_decomposed(f"{py}x{px} local world", runs[0]["h"],
+                                  ref, cfg)
+    step_ms = max(r["wall_s"] for r in runs) / runs[0]["steps"] * 1e3
+    ref_ms = ref["wall_s"] / ref["steps"] * 1e3
+    log(f"  {py}x{px} ranks on one card over gloo: {step_ms:.4f} ms a step "
+        f"(the slowest rank's {runs[0]['steps']} timed steps; a reading, "
+        f"host staging included), one rank {ref_ms:.4f} ms, on {card}")
+    return {"grid": MULTIRANK_GRID, "backend": "gloo", "steps": steps,
+            "launches": {kern["name"]: kern["launches_multirank"]
+                         for kern in kernels},
+            "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
+            "one_rank_step_ms": ref_ms,
+            "op_cases": len(readings[0])}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(n, worker_args, cards, timeout_s):
+    """Run ``chip_smoke.py <worker_args>`` as ``n`` processes, rank ``r``
+    on card ``cards[r]`` (torchrun's environment, a free local port),
+    each writing its output to a file of a temporary directory; returns
+    each rank's exit code (None if it was ended) and output.  A rank
+    that fails, or the world outlasting ``timeout_s``, ends the
+    others."""
+    port = _free_port()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_world_"))
+    procs, files = [], []
+    try:
+        for rank in range(n):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(cards[rank]), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), NCCL_DEBUG="WARN")
+            files.append(open(work / f"rank{rank}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 *worker_args], env=env, stdout=files[-1],
+                stderr=subprocess.STDOUT, text=True))
+        end = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > end or any(
+                    p.poll() not in (None, 0) for p in procs):
+                log(f"  ending ranks "
+                    f"{[r for r, p in enumerate(procs) if p.poll() is None]}"
+                    f" ({'timeout' if time.monotonic() > end else 'a rank failed'})")
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+        outs = [(work / f"rank{r}.log").read_text() for r in range(len(files))]
+        shutil.rmtree(work, ignore_errors=True)
+    return [p.returncode for p in procs], outs
+
+
+def nccl_world(n):
+    """The 2x2 solver check over NCCL, one process per card: make_multistep
+    as a CUDA graph that holds the NCCL exchanges, then the 64 MB
+    allreduce's bus bandwidth.  Needs ``n`` = 4 cards."""
+    have = torch.cuda.device_count()
+    if n != MULTIRANK_GRID[0] * MULTIRANK_GRID[1] or have < n:
+        raise RuntimeError(f"--nccl-world {n} needs a 2x2 grid on 4 cards; "
+                           f"this host has {have}")
+    for line in card_lines():
+        log(f"card: {line}")
+    log("phase build (sw_step)")
+    build_phase(("sw_step",))
+    log(f"phase NCCL world: {n} processes, one per card")
+    codes, outs = spawn_world(n, ["--nccl-rank"], list(range(n)),
+                              NCCL_RANK_TIMEOUT_S + 60.0)
+    records = []
+    for rank, (code, out) in enumerate(zip(codes, outs)):
+        for line in out.splitlines():
+            log(f"  [rank {rank}] {line}")
+            if line.startswith("{"):
+                records.append(json.loads(line))
+    if any(codes) or len(records) != n:
+        raise RuntimeError(f"the NCCL world failed: exit codes {codes}")
+    log(json.dumps({"nccl_world": records}))
+    return 0
+
+
+def nccl_rank():
+    """One rank of ``--nccl-world``: before NCCL starts, the one-rank
+    reference on its card (its graphs capture with no NCCL thread
+    about) and the op cases in a CPU local world of the grid's shape;
+    then the same op cases on the card over NCCL, held to the CPU's,
+    the world's solver and the bus bandwidth."""
+    import faulthandler
+
+    # a rank that hangs prints where every thread is, then ends
+    faulthandler.dump_traceback_later(NCCL_RANK_TIMEOUT_S, exit=True)
+    rank = int(os.environ["RANK"])
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(device)
+    cfg = sw.SWConfig().bench_size()
+    k, t1 = MULTIRANK_CHUNK, (MULTIRANK_STEPS - 0.5) * cfg.dt
+    ref = multirank_reference(cfg, device, k, t1)
+    log(f"rank {rank}: one-rank reference run on {device}")
+    axes = (("y", "x"), MULTIRANK_GRID)
+    want = distributed.local_world(
+        MULTIRANK_GRID[0] * MULTIRANK_GRID[1],
+        lambda c: run_op_cases(c, "cpu"), axes=axes)[rank]
+    distributed.initialize("cuda")
+    comm = distributed.world_comm(axes)
+    if comm.transport().backend != "nccl":
+        raise RuntimeError("the world is not NCCL")
+    log(f"rank {rank}: in the NCCL world")
+    op_readings = hold_op_cases(run_op_cases(comm, device), want)
+    torch.cuda.synchronize()
+    for name, err, tol, ok in op_readings:
+        log(f"rank {rank}: {name} over NCCL vs a CPU local world: max |"
+            f"difference| {err:.3e} (limit {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not all(ok for *_, ok in op_readings):
+        raise RuntimeError(f"rank {rank}: op cases over NCCL differ from "
+                           f"the CPU's")
+    reset_launch_counts()
+    run = multirank_solver(comm, cfg, device, k, t1)
+    torch.cuda.synchronize()
+    log(f"rank {rank}: solver run")
+    counts = {name: (w.launches, run["replays"], run["captured"].get(name))
+              for name, w in (("sw_main", sw_step.sw_main),
+                              ("sw_visc", sw_step.sw_visc))}
+    steps = 1 + k + run["steps"]
+    for name, (eager, replays, captured) in counts.items():
+        if captured != k or eager + replays * captured != steps:
+            raise RuntimeError(f"rank {rank}: {name} {eager} eager + "
+                               f"{replays} x {captured} for {steps} steps")
+    err, mean_h = hold_decomposed(f"rank {rank}, NCCL 2x2", run["h"], ref,
+                                  cfg)
+    step_ms = run["wall_s"] / run["steps"] * 1e3
+    busbw = port_bench.allreduce_bandwidth(comm, device)
+    log(f"rank {rank}: allreduce timed")
+    rec = {"rank": rank, "steps": steps, "launches": counts,
+           "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
+           "cell_updates_per_s_per_card": cfg.ny * cfg.nx / comm.size
+           / (step_ms * 1e-3),
+           "one_rank_step_ms": ref["wall_s"] / ref["steps"] * 1e3,
+           "op_cases": len(op_readings),
+           "allreduce_busbw_gbps": busbw,
+           "allreduce_devices": comm.size,
+           "allreduce_mb": port_bench.ALLREDUCE_MB}
+    print(json.dumps(rec), flush=True)
+    torch.cuda.synchronize()
+    # every rank here before any leaves (the mailbox's gloo twin of the
+    # world: an NCCL barrier orders the stream, not the host)
+    comm.transport().mail_pg.barrier().wait()
+    sys.stderr.flush()
+    # no teardown: the chunk's CUDA graph, which holds NCCL work, is
+    # still alive (destroy_process_group under it hung), and gloo's
+    # teardown at interpreter exit aborted once in twenty CPU rehearsals
+    # of four processes; the process's exit releases both
+    os._exit(0)
 
 
 def ptxas_report(log_path):
@@ -2626,6 +3112,10 @@ def main(argv):
         return run_checks(device, argv[1].split(","))
     if argv[:1] == ["--sw-forms"] and len(argv) > 1:
         return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])
+    if len(argv) == 2 and argv[0] == "--nccl-world":
+        return nccl_world(int(argv[1]))
+    if argv == ["--nccl-rank"]:
+        return nccl_rank()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2658,6 +3148,14 @@ def main(argv):
     log(f"phase schedules, shallow water (ghost 1, 2, 4 at {cfg.ny}x"
         f"{cfg.nx}, 25-step graphs; bfloat16 at ghost 1 and 4)")
     schedules = schedules_phase(cfg, comm, device)
+
+    py, px = MULTIRANK_GRID
+    log(f"phase multi-rank, shallow water ({py}x{px} ranks as threads of "
+        f"this process on one card, backend gloo, CUDA tensors staged "
+        f"through host memory; {cfg.ny}x{cfg.nx} in {cfg.ny // py}x"
+        f"{cfg.nx // px} blocks, ghost {cfg.ghost}, {MULTIRANK_STEPS} "
+        f"steps)")
+    multirank = multirank_phase(cfg, device, kernels, card)
 
     log("phase bench (python -m mpi4jax_tpu_torch.bench --quick, in "
         "process)")
@@ -2697,7 +3195,8 @@ def main(argv):
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
-                    "schedules": schedules, "bench": bench_record,
+                    "schedules": schedules, "multirank": multirank,
+                    "bench": bench_record,
                     "decode_path": decode_path,
                     "decode_profile": decode_profile,
                     "short_decode": short_decode,

@@ -10,8 +10,10 @@ It never imports JAX or the JAX package.
 
 Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``, where the plain PyTorch versions of the kernels
-run instead.  This slice runs one rank; see ROADMAP.md for what is
-still to be ported.
+run instead.  A grid of ranks runs over ``torch.distributed``
+(``parallel/distributed.py``: NCCL across the cards of a host under
+torchrun, gloo on the CPU or in a local world of thread ranks); see
+ROADMAP.md for what is still to be ported.
 """
 
 from mpi4jax_tpu_torch.ops import *  # noqa: F401,F403

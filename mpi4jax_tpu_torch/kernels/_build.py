@@ -9,7 +9,8 @@ needed.
 
 Builds go to ``mpi4jax_tpu_torch/_build/<key>/`` where the key hashes
 the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  A file lock serialises concurrent builds.
+unchanged one is reused.  A file lock serialises concurrent builds across processes, a thread
+lock across the threads of one.
 A failed build raises with nvcc's output.
 """
 
@@ -20,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ["NVCC_FLAGS", "load_library", "library_dir", "build_seconds"]
@@ -46,6 +48,8 @@ NVCC_FLAGS = (
 
 _loaded = {}
 _build_seconds = {}
+_locks = {}
+_locks_lock = threading.Lock()
 
 
 def _nvcc():
@@ -86,7 +90,16 @@ def library_dir(name):
 
 def load_library(name):
     """Build (if needed) and load ``csrc/<name>.cu``; returns the
-    ``ctypes.CDLL``."""
+    ``ctypes.CDLL``.  Threads of one process that ask for one library at
+    once (the ranks of a local world) wait for one build and share it;
+    different libraries build side by side."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        return _load(name)
+
+
+def _load(name):
     if name in _loaded:
         return _loaded[name]
     source = CSRC / f"{name}.cu"

@@ -36,6 +36,7 @@ records the launch instead of making it, and counts in
 
 import ctypes
 import functools
+import threading
 from types import SimpleNamespace
 
 import torch
@@ -63,7 +64,8 @@ _F = ctypes.c_float
 
 @functools.cache
 def _library():
-    """The built kernel library with its launchers' C signatures."""
+    """The built kernel library with its launchers' C signatures (built
+    and loaded once per process: ``_build.load_library`` holds a lock)."""
     lib = _build.load_library("sw_step")
     lib.sw_main_launch.argtypes = [_P] * 12 + [_I] * 7 + [_F] * 8 + [_I, _P]
     lib.sw_main_launch.restype = _I
@@ -324,13 +326,19 @@ def sw_visc(u, v, *, cfg, ny_l, nx_l, is_south, is_north):
     return u_out, v_out
 
 
+_count_lock = threading.Lock()
+
+
 def _count(wrapper):
     """One launch of ``wrapper``'s kernel, or one recorded into the CUDA
-    graph being captured on the current stream."""
-    if torch.cuda.is_current_stream_capturing():
-        wrapper.captures += 1
-    else:
-        wrapper.launches += 1
+    graph being captured on the current stream (under a lock: the ranks
+    of a local world launch from their own threads)."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _count_lock:
+        if capturing:
+            wrapper.captures += 1
+        else:
+            wrapper.launches += 1
 
 
 def reset_launch_counts():

@@ -6,8 +6,9 @@ Adams-Bashforth-2 stepping with coefficients (1.6, -0.6), periodic x,
 solid walls in y, lateral viscosity), the same configuration object and
 the same driver functions.
 
-The port runs the JAX package's three schedules on one rank, chosen by
-``cfg.ghost``:
+The port runs the JAX package's three schedules, on one rank or on each
+rank's block of a ``("y", "x")`` grid of ranks (``parallel/distributed.py``;
+each rank computes its own walls), chosen by ``cfg.ghost``:
 
 * ``ghost=1`` (the default, as in the JAX package): the reference's
   narrow schedule, about 12 one-cell halo exchanges per step, in plain
@@ -38,7 +39,8 @@ carries full-shaped tendencies at every ghost width (the Pallas layout;
 
 ``make_multistep`` stands for the JAX package's one XLA executable
 (``jit`` around a ``fori_loop``): on the card it captures a chunk of
-steps in a CUDA graph and replays it; on the CPU it is a Python loop.
+steps in a CUDA graph and replays it (one rank, or NCCL; a gloo world
+runs the chunk eagerly); on the CPU it is a Python loop.
 """
 
 import math
@@ -60,6 +62,7 @@ from mpi4jax_tpu_torch.ops import reductions
 from mpi4jax_tpu_torch.ops._core import as_token
 from mpi4jax_tpu_torch.ops.allreduce import allreduce
 from mpi4jax_tpu_torch.ops.collectives import allgather, scan
+from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import (
     halo_exchange_2d,
     halo_exchange_2d_batch,
@@ -679,7 +682,13 @@ def make_multistep(cfg, comm, num_steps, *, donate=False):
     """``multi(state) -> SWState`` advancing ``num_steps`` AB2 steps: the
     JAX package's ``make_multistep``, one executable for the chunk.
 
-    On the CPU it is a loop of eager steps.  On the card:
+    On the CPU it is a loop of eager steps.  On the card the comm's
+    backend decides: a one-rank comm or an NCCL world captures the chunk
+    in a CUDA graph, the NCCL exchanges inside it; a gloo world (a local
+    world of ranks on one card) runs the chunk eagerly, because gloo
+    stages through host memory, which a graph cannot hold, and because
+    its ranks are threads that must not issue work while one captures.
+    On the card with a graph:
 
     1. the first call runs the chunk eagerly on a side stream (the
        kernels' build, the allocator's first blocks) and returns that
@@ -713,12 +722,12 @@ def make_multistep(cfg, comm, num_steps, *, donate=False):
 
     def multi(state):
         nonlocal graph, static
-        if state.h.device.type != "cuda":
+        if state.h.device.type != "cuda" or not _captures(comm):
             return chunk(state)
         _check_device(cfg, state.h.device)
         if graph is None:
             out = run_on_side_stream(lambda: chunk(state), state.h.device)
-            graph, static = _capture(chunk, state, multi, num_steps)
+            graph, static = _capture(chunk, comm, state, multi, num_steps)
             return out
         if any(a is not b for a, b in zip(state, static)):
             for a, b in zip(static, state):
@@ -734,7 +743,13 @@ def make_multistep(cfg, comm, num_steps, *, donate=False):
     return multi
 
 
-def _capture(chunk, state, multi, num_steps):
+def _captures(comm):
+    """Whether a chunk on the card is captured: one rank, or NCCL."""
+    transport = comm.transport()
+    return transport is None or transport.backend == "nccl"
+
+
+def _capture(chunk, comm, state, multi, num_steps):
     """Capture ``chunk`` on static copies of ``state``; returns
     ``(graph, static)`` and sets ``multi.captured``."""
     static = SWState(*(t.clone() for t in state))
@@ -742,7 +757,9 @@ def _capture(chunk, state, multi, num_steps):
     wrappers = (sw_main, sw_visc)
     before = [w.captures for w in wrappers]
     try:
-        with graph_capture(graph):
+        # NCCL's watchdog thread queries the device during a capture
+        with graph_capture(graph, capture_error_mode=(
+                None if comm.transport() is None else "thread_local")):
             out = chunk(static)
             for a, b in zip(static, out):
                 a.copy_(b)
@@ -825,26 +842,36 @@ def config_from_jax(cfg_fields):
     return SWConfig(**cfg_fields)
 
 
-def state_from_jax(arrays, cfg, *, device="cuda"):
-    """Port state in ``cfg.dtype`` on ``device`` from six numpy arrays
-    ``(h, u, v, dh, du, dv)`` of a one-rank JAX state at ``cfg.ghost``:
-    full-shaped tendencies (the narrow, single-exchange and Pallas
-    layouts) or interior-shaped ones (the wide-halo layout).  A bfloat16
-    JAX array (an ``ml_dtypes`` numpy dtype, which torch cannot take) is
-    widened to float32 in numpy first, which is exact."""
+def state_from_jax(arrays, cfg, comm=None, *, device="cuda"):
+    """This rank's port state in ``cfg.dtype`` on ``device`` from six
+    numpy arrays ``(h, u, v, dh, du, dv)`` of a JAX state at
+    ``cfg.ghost``: the global arrays of a ``shard_map`` over the
+    ``("y", "x")`` grid of ``comm`` (one rank by default), i.e. every
+    rank's block side by side.  Each block's tendencies are full-shaped
+    (the narrow, single-exchange and Pallas layouts) or interior-shaped
+    (the wide-halo layout).  A bfloat16 JAX array (an ``ml_dtypes`` numpy
+    dtype, which torch cannot take) is widened to float32 in numpy
+    first, which is exact."""
     device = resolve_device(device)
-    h, u, v, dh, du, dv = (np.asarray(a) for a in arrays)
+    comm = MeshComm() if comm is None else comm
+    py, px = comm.axis_sizes
+    iy, ix = _device_coords(comm)
+    ny_l, nx_l = cfg.local_interior(comm)
     G = cfg.ghost
-    full = (cfg.ny + 2 * G, cfg.nx + 2 * G)
-    for name, a in zip("huv", (h, u, v)):
-        if a.shape != full:
-            raise ValueError(f"{name} has shape {a.shape}, expected {full}")
-    for name, a in zip(("dh", "du", "dv"), (dh, du, dv)):
-        if a.shape not in (full, (cfg.ny, cfg.nx)):
-            raise ValueError(
-                f"{name} has shape {a.shape}, expected {full} or "
-                f"{(cfg.ny, cfg.nx)}"
-            )
+    full = (ny_l + 2 * G, nx_l + 2 * G)
+
+    def block(name, a, shapes):
+        for by, bx in shapes:
+            if a.shape == (py * by, px * bx):
+                return a[iy * by:(iy + 1) * by, ix * bx:(ix + 1) * bx]
+        want = " or ".join(str((py * by, px * bx)) for by, bx in shapes)
+        raise ValueError(f"{name} has shape {a.shape}, expected {want}")
+
+    h, u, v, dh, du, dv = (
+        block(name, np.asarray(a),
+              [full] if name in ("h", "u", "v") else [full, (ny_l, nx_l)])
+        for name, a in zip(("h", "u", "v", "dh", "du", "dv"), arrays)
+    )
 
     def tensor(a):
         if a.dtype not in (np.float16, np.float32, np.float64):

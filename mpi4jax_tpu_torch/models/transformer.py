@@ -19,11 +19,12 @@ layer math, and
   generate steps replay CUDA graphs — and its full-recompute oracles
   :func:`reference_greedy_decode` and :func:`reference_sample_decode`.
 
-This port runs one rank: the comms are a one-rank ``MeshComm``'s
+The model runs on one rank: the comms are a one-rank ``MeshComm``'s
 sub-communicators, so the Megatron f/g collectives and the gradient
 sync are identities (they stay in the code, where a tensor-parallel run
 needs them), and ring/ulysses attention take their one-rank shortcut.
-Larger comms raise naming :data:`~mpi4jax_tpu_torch.parallel.comm.MULTI_RANK_ITEM`.
+Larger data-, tensor- or sequence-parallel comms raise naming
+:data:`MESH_ITEM`.
 Not ported yet: the partial-remat policies (:data:`REMAT_ITEM`).
 
 Where the JAX package returns new arrays, the decoder here writes its
@@ -43,7 +44,6 @@ from torch.utils.checkpoint import checkpoint
 from mpi4jax_tpu_torch.ops import reductions
 from mpi4jax_tpu_torch.ops._core import create_token
 from mpi4jax_tpu_torch.ops.allreduce import allreduce
-from mpi4jax_tpu_torch.parallel.comm import MULTI_RANK_ITEM
 from mpi4jax_tpu_torch.parallel.longseq import (
     local_attention,
     ring_attention,
@@ -72,6 +72,11 @@ __all__ = [
     "params_from_jax",
     "params_to_numpy",
 ]
+
+MESH_ITEM = (
+    "ROADMAP.md Queue 1 item 15 (the transformer's tensor- and "
+    "sequence-parallel meshes and param_specs)"
+)
 
 REMAT_ITEM = (
     "ROADMAP.md Queue 1 item 13 (the partial-remat policies 'dots', "
@@ -445,7 +450,7 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
         if comm.size != 1:
             raise NotImplementedError(
                 f"{name} has {comm.size} ranks; the training step runs on "
-                f"one rank in this port: {MULTI_RANK_ITEM}"
+                f"one rank in this port: {MESH_ITEM}"
             )
     device = resolve_device(device)
     ce_chunk = cfg.ce_chunk
@@ -868,7 +873,7 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
         if comm.size != 1:
             raise NotImplementedError(
                 f"{name} has {comm.size} ranks; the decoder runs on one "
-                f"rank in this port: {MULTI_RANK_ITEM}"
+                f"rank in this port: {MESH_ITEM}"
             )
     _check_tp_divisibility(cfg, comm_tp.size)
     if prefill not in ("batched", "stepwise"):

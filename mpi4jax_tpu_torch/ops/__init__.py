@@ -9,8 +9,14 @@ from mpi4jax_tpu_torch.ops._core import (
     create_token,
 )
 from mpi4jax_tpu_torch.ops.allreduce import allreduce
-from mpi4jax_tpu_torch.ops.collectives import allgather, scan
-from mpi4jax_tpu_torch.ops.p2p import Status, sendrecv
+from mpi4jax_tpu_torch.ops.collectives import allgather, barrier, scan
+from mpi4jax_tpu_torch.ops.p2p import (
+    Status,
+    recv,
+    send,
+    sendrecv,
+    sendrecv_multi,
+)
 from mpi4jax_tpu_torch.ops.reductions import (
     BAND,
     BOR,
@@ -33,9 +39,13 @@ __all__ = [
     "create_token",
     "allreduce",
     "allgather",
+    "barrier",
     "scan",
     "Status",
+    "recv",
+    "send",
     "sendrecv",
+    "sendrecv_multi",
     "Op",
     "SUM",
     "PROD",

@@ -20,10 +20,21 @@ __all__ = [
     "publishes_token",
     "ANY_SOURCE",
     "ANY_TAG",
+    "pop_match",
 ]
 
 ANY_SOURCE = -1
 ANY_TAG = -1
+
+
+def pop_match(messages, source, tag):
+    """Remove and return the earliest ``(source, tag, tensor)`` of
+    ``messages`` from ``source`` (or ANY_SOURCE) with ``tag`` (or
+    ANY_TAG); None if there is none."""
+    for i, (src, t, _) in enumerate(messages):
+        if source in (ANY_SOURCE, src) and tag in (ANY_TAG, t):
+            return messages.pop(i)
+    return None
 
 
 class Token:

@@ -5,9 +5,15 @@ convention: for ``op=SUM`` the gradient is the identity (the cotangent
 of a replicated result is already replicated), and non-SUM ops are not
 differentiable.  Here that rule is a ``torch.autograd.Function``.
 
-This slice of the port runs one rank (``SelfComm`` or a one-rank
-``MeshComm``), where reducing over the ranks is the identity for every
-operator.
+Across ranks, SUM, PROD, MIN and MAX on float32/float64/int32/int64 are
+the backend's own reductions (gloo also takes BAND, BOR and BXOR on
+integers); every other operator and dtype (LAND, LOR, LXOR, user ops,
+bool, NCCL's missing bitwise ops) gathers the rows and folds them in
+rank order with ``rank_ordered_fold``, as the JAX package folds a user
+operator.  A native float SUM or PROD adds in the backend's order, not
+in rank order, so it may differ from the fold in the last bits; integer,
+bool, MIN and MAX results are exact.  On one rank the reduction is a
+fold of the single row.
 """
 
 import torch
@@ -19,17 +25,21 @@ from mpi4jax_tpu_torch.utils.validation import check_comm, check_op
 __all__ = ["allreduce"]
 
 
-def _reduce_one_rank(x, op):
-    """The reduction over a one-rank communicator: a left fold of the
-    single row (the identity, through the user operator's cast rules)."""
-    return reductions.rank_ordered_fold(x[None], op).clone()
+def _reduce(x, op, comm):
+    if comm.size == 1:
+        return reductions.rank_ordered_fold(x[None], op).clone()
+    transport = comm.transport()
+    native = transport.native_op(op, x.dtype)
+    if native is not None:
+        return transport.allreduce(x, native)
+    return reductions.rank_ordered_fold(transport.allgather(x), op)
 
 
 class _AllreduceFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, op):
+    def forward(ctx, x, op, comm):
         ctx.op = op
-        return _reduce_one_rank(x, op)
+        return _reduce(x, op, comm)
 
     @staticmethod
     def backward(ctx, grad):
@@ -37,7 +47,7 @@ class _AllreduceFn(torch.autograd.Function):
             raise NotImplementedError(
                 "the gradient of allreduce is only defined for op=SUM"
             )
-        return grad, None
+        return grad, None, None
 
 
 @publishes_token
@@ -49,5 +59,4 @@ def allreduce(x, op=reductions.SUM, *, comm=None, token=None):
     op = check_op(op)
     comm = check_comm(comm)
     token = as_token(token)
-    del comm  # every communicator of this slice has one rank
-    return _AllreduceFn.apply(torch.as_tensor(x), op), token
+    return _AllreduceFn.apply(torch.as_tensor(x), op, comm), token

@@ -1,17 +1,32 @@
-"""Point-to-point ops: sendrecv (+ Status).
+"""Point-to-point ops: sendrecv, sendrecv_multi, send and recv (+ Status).
 
-Counterpart of ``sendrecv`` in ``mpi4jax_tpu/ops/p2p.py``, with the same
-way of naming a pattern: ``dest`` / ``source`` are a callable
-``rank -> partner`` (``None`` to sit out, the MPI_PROC_NULL analog), an
-explicit list of ``(source_rank, dest_rank)`` pairs, or a plain int on a
-size-1 communicator.  The two views must describe one permutation.
+Counterpart of ``mpi4jax_tpu/ops/p2p.py``.
 
-On the one-rank communicators of this slice a pattern is either the
-self-pair ``[(0, 0)]`` — a periodic shift along a size-1 axis, which
-delivers a copy of the send buffer — or empty — a non-periodic shift,
-which leaves the recv buffer as it is (MPI_PROC_NULL).  Gradients flow
-through both cases by autograd: the self-pair's transpose is itself.
+``sendrecv`` and ``sendrecv_multi`` take a pattern, as on the JAX mesh
+backend: ``dest`` / ``source`` are a callable ``rank -> partner``
+(``None`` to sit out, the MPI_PROC_NULL analog) or an explicit list of
+``(source_rank, dest_rank)`` pairs (``comm.shift_perm`` makes them), and
+the two views must describe one permutation.  Each rank posts its one
+send and its one receive of the pattern as a single batch.  A rank with
+no inbound message gets its recv buffer back unchanged.  The gradient
+of a sendrecv is the sendrecv of the cotangent along the reversed
+pattern (the JAX transpose rule), and a rank with no inbound message
+passes its cotangent to its recv buffer.
+
+``send`` and ``recv`` follow the JAX package's multi-process backend
+(MPMD, one rank per process): an int partner is this rank's own
+partner, and a pattern is resolved against ``comm.rank()`` (a rank with
+no partner in it drops out).  Messages carry an envelope (tag, dtype,
+shape) ahead of the payload; ``recv`` takes the earliest matching
+message from its source, keeping the others for later receives, so
+tags, ``ANY_TAG`` and ``ANY_SOURCE`` match as MPI matches them, first
+in first out.  Messages travel over gloo through host memory in every
+world, an NCCL world included (``parallel/distributed.py``: NCCL has
+neither tags nor a receive from any source), and a send returns once
+its payload is copied, as ``MPI_Send`` may.
 """
+
+import threading
 
 import numpy as np
 import torch
@@ -20,20 +35,23 @@ from mpi4jax_tpu_torch.ops._core import (
     ANY_SOURCE,
     ANY_TAG,
     as_token,
+    pop_match,
     publishes_token,
 )
 from mpi4jax_tpu_torch.utils.validation import (
     check_comm,
+    check_rank_range,
     check_same_layout,
     check_static_int,
 )
 
-__all__ = ["sendrecv", "Status", "ANY_SOURCE", "ANY_TAG"]
+__all__ = ["sendrecv", "sendrecv_multi", "send", "recv", "Status",
+           "ANY_SOURCE", "ANY_TAG"]
 
 
 class Status:
-    """Output status for sendrecv (MPI.Status analog), with the mpi4py
-    accessor methods for call-compatibility."""
+    """Output status for sendrecv and recv (MPI.Status analog), with the
+    mpi4py accessor methods for call-compatibility."""
 
     def __init__(self):
         self.source = None
@@ -47,6 +65,11 @@ class Status:
 
     def Get_error(self):
         return 0
+
+
+def _is_rank_int(spec):
+    return isinstance(spec, (int, np.integer)) and not isinstance(
+        spec, (bool, np.bool_))
 
 
 def _resolve_pairs(spec, size, role):
@@ -76,11 +99,19 @@ def _resolve_pairs(spec, size, role):
     ):
         return [(int(s), int(d)) for s, d in spec]
     value = check_static_int(spec, role)
-    if value != 0:
-        raise ValueError(
-            f"{role}={value} out of range for communicator of size {size}"
-        )
-    return [(0, 0)]
+    if size == 1:
+        if value != 0:
+            raise ValueError(
+                f"{role}={value} out of range for communicator of size 1"
+            )
+        return [(0, 0)]
+    raise ValueError(
+        f"{role}={value!r}: sendrecv takes a pattern, not one rank: pass a "
+        f"callable rank->partner (e.g. lambda r: (r + 1) % size), an "
+        f"explicit list of (source, dest) pairs, or comm.shift_perm(axis, "
+        f"disp). Per-rank integer addressing, as in MPI, is what send and "
+        f"recv take."
+    )
 
 
 def _validate_perm(pairs, size, what):
@@ -92,6 +123,84 @@ def _validate_perm(pairs, size, what):
         if not (0 <= s < size and 0 <= d < size):
             raise ValueError(f"{what} pattern rank out of range: {pairs}")
     return pairs
+
+
+def partners(pairs, rank):
+    """``(source, dest)`` of ``rank`` in a permutation's pairs, each None
+    where the rank has no partner."""
+    src = [s for s, d in pairs if d == rank]
+    dst = [d for s, d in pairs if s == rank]
+    return (src[0] if src else None), (dst[0] if dst else None)
+
+
+def _pattern_partners(source, dest, comm, what):
+    size = comm.size
+    dpairs = _validate_perm(
+        _resolve_pairs(dest, size, "dest"), size, f"{what} dest"
+    )
+    if not (_is_rank_int(source) and int(source) == ANY_SOURCE):
+        spairs = _resolve_pairs(source, size, "source")
+        if frozenset(spairs) != frozenset(dpairs):
+            raise ValueError(
+                f"{what} source and dest views disagree: "
+                f"dest implies {sorted(dpairs)}, source implies "
+                f"{sorted(spairs)}. They must describe one global "
+                "permutation."
+            )
+    return partners(dpairs, comm.rank())
+
+
+def move(comm, sendbufs, recvbufs, src, dst):
+    """This rank's side of one pattern: ``sendbufs`` go to ``dst``, and
+    from ``src`` come tensors shaped like ``recvbufs`` (one batch).
+    Returns the received tensors, or None without a source.  A self pair
+    (``src == dst == rank``, a periodic shift along a size-1 axis) is a
+    copy."""
+    if src is None and dst is None:
+        return None
+    me = comm.rank()
+    if src == me and dst == me:
+        return [b.clone() for b in sendbufs]
+    transport = comm.transport()
+    got = transport.exchange(
+        [(dst, b) for b in sendbufs] if dst is not None else [],
+        [(src, b) for b in recvbufs] if src is not None else [],
+    )
+    return got if src is not None else None
+
+
+class _SendrecvFn(torch.autograd.Function):
+    """The exchange with its transpose: the cotangents travel back along
+    the reversed pattern."""
+
+    @staticmethod
+    def forward(ctx, comm, src, dst, n, *bufs):
+        ctx.comm, ctx.src, ctx.dst, ctx.n = comm, src, dst, n
+        ctx.send_layout = [(b.shape, b.dtype) for b in bufs[:n]]
+        got = move(comm, bufs[:n], bufs[n:], src, dst)
+        if got is None:
+            return tuple(b.clone() for b in bufs[n:])
+        return tuple(got)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        templates = [torch.empty(s, dtype=d, device=grads[0].device)
+                     for s, d in ctx.send_layout]
+        back = move(ctx.comm, grads, templates, ctx.dst, ctx.src)
+        if back is None:
+            back = [torch.zeros_like(t) for t in templates]
+        to_recv = (list(grads) if ctx.src is None
+                   else [torch.zeros_like(g) for g in grads])
+        return (None, None, None, None, *back, *to_recv)
+
+
+def _sendrecv_parts(sendbufs, recvbufs, comm, src, dst):
+    if torch.is_grad_enabled() and any(
+            b.requires_grad for b in (*sendbufs, *recvbufs)):
+        return list(_SendrecvFn.apply(comm, src, dst, len(sendbufs),
+                                      *sendbufs, *recvbufs))
+    got = move(comm, sendbufs, recvbufs, src, dst)
+    return list(recvbufs) if got is None else got
 
 
 @publishes_token
@@ -124,28 +233,153 @@ def sendrecv(
             status.source, status.tag = 0, sendtag
         return sendbuf.clone(), token
     check_same_layout(sendbuf, recvbuf, "sendrecv on a grid communicator")
-    size = comm.size
-    dpairs = _validate_perm(
-        _resolve_pairs(dest, size, "dest"), size, "sendrecv dest"
-    )
-    source_is_any = (
-        isinstance(source, (int, np.integer)) and int(source) == ANY_SOURCE
-    )
-    if not source_is_any:
-        spairs = _resolve_pairs(source, size, "source")
-        if frozenset(spairs) != frozenset(dpairs):
-            raise ValueError(
-                "sendrecv source and dest views disagree: "
-                f"dest implies {sorted(dpairs)}, source implies "
-                f"{sorted(spairs)}. They must describe one global "
-                "permutation."
-            )
-    rank = comm.rank()
-    inbound = [s for s, d in dpairs if d == rank]
+    src, dst = _pattern_partners(source, dest, comm, "sendrecv")
     if status is not None:
-        status.source = inbound[0] if inbound else ANY_SOURCE
+        status.source = ANY_SOURCE if src is None else src
         status.tag = sendtag
-    if not inbound:
-        return recvbuf, token
-    # one rank: the only inbound message is this rank's own send
-    return sendbuf.clone(), token
+    (y,) = _sendrecv_parts([sendbuf], [recvbuf], comm, src, dst)
+    return y, token
+
+
+@publishes_token
+def sendrecv_multi(
+    sendbufs,
+    recvbufs,
+    source,
+    dest,
+    sendtag=0,
+    recvtag=ANY_TAG,
+    *,
+    comm=None,
+    token=None,
+    status=None,
+    coalesce=None,
+):
+    """Exchange several same-pattern messages at once: the same results
+    as one :func:`sendrecv` per ``(sendbufs[i], recvbufs[i])`` pair, all
+    parts posted in one batch.  ``coalesce`` is the JAX package's
+    wire-framing knob of its multi-process tier, accepted for
+    call-compatibility.  Returns ``(outs, token)``; ranks without an
+    inbound partner keep their recv buffers."""
+    del coalesce
+    comm = check_comm(comm)
+    token = as_token(token)
+    check_static_int(sendtag, "sendtag")
+    check_static_int(recvtag, "recvtag")
+    sendbufs = [torch.as_tensor(b) for b in sendbufs]
+    recvbufs = [torch.as_tensor(b) for b in recvbufs]
+    if len(sendbufs) != len(recvbufs):
+        raise ValueError(
+            f"sendrecv_multi pairs each send with a receive, got "
+            f"{len(sendbufs)} sends and {len(recvbufs)} receives"
+        )
+    if comm.backend == "self":
+        if status is not None:
+            status.source, status.tag = 0, sendtag
+        return [b.clone() for b in sendbufs], token
+    for sb, rb in zip(sendbufs, recvbufs):
+        check_same_layout(sb, rb, "sendrecv_multi on a grid communicator")
+    src, dst = _pattern_partners(source, dest, comm, "sendrecv_multi")
+    if status is not None:
+        status.source = ANY_SOURCE if src is None else src
+        status.tag = sendtag
+    return _sendrecv_parts(sendbufs, recvbufs, comm, src, dst), token
+
+
+# -- send / recv ----------------------------------------------------------
+
+
+def _own_partner(spec, comm, role):
+    """This rank's partner: an int as given (range-checked); a callable
+    or pair list resolved against ``comm.rank()``, None where the rank
+    has no partner in it."""
+    if _is_rank_int(spec):
+        return check_rank_range(spec, role, comm.size)
+    pairs = _resolve_pairs(spec, comm.size, role)
+    me = comm.rank()
+    mine = ([d for s, d in pairs if s == me] if role == "dest"
+            else [s for s, d in pairs if d == me])
+    if not mine:
+        return None
+    if len(mine) > 1:
+        raise ValueError(
+            f"{role} pattern gives rank {me} {len(mine)} partners "
+            f"({mine}); a p2p op takes exactly one — split the pattern "
+            "into separate calls"
+        )
+    return mine[0]
+
+
+class _OneRankMail(threading.local):
+    """Messages a one-rank communicator sent itself, per comm, per
+    thread."""
+
+    def __init__(self):
+        self.boxes = {}
+
+
+_one_rank_mail = _OneRankMail()
+
+
+@publishes_token
+def send(x, dest, tag=0, *, comm=None, token=None):
+    """Send ``x`` to ``dest`` with ``tag``; returns a token.  The
+    payload is copied, so ``x`` may change once this returns."""
+    comm = check_comm(comm)
+    token = as_token(token)
+    tag = check_static_int(tag, "tag")
+    x = torch.as_tensor(x)
+    peer = _own_partner(dest, comm, "dest")
+    if peer is None:
+        return token
+    transport = comm.transport()
+    me = comm.rank()
+    if transport is None or peer == me:
+        box = (_one_rank_mail.boxes.setdefault(comm, [])
+               if transport is None else transport.stash)
+        box.append((me, tag, x.detach().clone()))
+    else:
+        transport.post(peer, x, tag)
+    return token
+
+
+@publishes_token
+def recv(x, source=ANY_SOURCE, tag=ANY_TAG, *, comm=None, token=None,
+         status=None):
+    """Receive a message shaped like the template ``x`` from ``source``
+    (or ``ANY_SOURCE``) with ``tag`` (or ``ANY_TAG``); returns
+    ``(received, token)``.  A rank with no partner in a pattern gets
+    ``x`` back (MPI_PROC_NULL)."""
+    comm = check_comm(comm)
+    token = as_token(token)
+    tag = check_static_int(tag, "tag")
+    x = torch.as_tensor(x)
+    if _is_rank_int(source) and int(source) == ANY_SOURCE:
+        source = ANY_SOURCE
+    else:
+        source = _own_partner(source, comm, "source")
+    if source is None:
+        if status is not None:
+            status.source, status.tag = ANY_SOURCE, ANY_TAG
+        return x, token
+    transport = comm.transport()
+    if transport is None:
+        found = pop_match(_one_rank_mail.boxes.setdefault(comm, []), source,
+                          tag)
+    else:
+        found = transport.take(source, tag, x.device)
+    if found is None:
+        raise RuntimeError(
+            f"recv of rank {comm.rank()} from itself with tag "
+            f"{'ANY' if tag == ANY_TAG else tag} found no matching send"
+        )
+    src, t, y = found
+    y = y.to(x.device)
+    if tuple(y.shape) != tuple(x.shape) or y.dtype != x.dtype:
+        raise ValueError(
+            f"recv template shape/dtype {tuple(x.shape)}/{x.dtype} does "
+            f"not match the message {tuple(y.shape)}/{y.dtype}"
+        )
+    if status is not None:
+        status.source, status.tag = src, t
+    return y, token

@@ -7,19 +7,30 @@ hashable description of a group of ranks:
   identities.
 * :class:`MeshComm` — a Cartesian grid of ranks with named axes, e.g.
   ``("y", "x")``, with the topology helpers the halo exchange needs
-  (``sub``, ``rank_grid``, ``shift_perm``).  This slice of the port runs
-  one rank: grids larger than 1 need ``torch.distributed`` process
-  groups, which are ROADMAP.md Queue 1 item 1 ("Multi-rank comms over
-  torch.distributed"), and asking for one raises.
+  (``sub``, ``split``, ``rank_grid``, ``shift_perm``).
 
-PyTorch runs one process per device, so ``rank()`` is a Python int,
-not a traced value as on the JAX mesh backend.
+PyTorch runs one rank per process (or, in a local world, per thread), so
+``rank()`` is a Python int, not a traced value as on the JAX mesh
+backend.  A grid of more than one rank lives in a world of ranks
+(``parallel/distributed.py``): ``world_comm`` over ``torch.distributed``
+after ``initialize()`` (one process per card, NCCL; or gloo on the CPU),
+or ``local_world`` (ranks as threads of one process, gloo).  The world
+is held by the comm but kept out of equality and hashing, as the JAX
+comm keeps its ``mesh`` out.  A one-rank grid needs no world: every
+single-device caller passes ``MeshComm()``.
+
+A comm with a world carries ``instances``: the world ranks of every copy
+of its grid, one tuple per copy in grid-rank order.  The world comm has
+one copy; ``sub("x")`` of a ("y", "x") grid has one copy per row.  Every
+rank derives the same instances, split groups and context for a comm, so
+each group's process group is the same object description on all of
+its members (``World.transport``).
 """
 
 import itertools
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from math import prod
 
 import numpy as np
@@ -34,10 +45,6 @@ __all__ = [
 ]
 
 _context_counter = itertools.count(1)
-
-MULTI_RANK_ITEM = (
-    "ROADMAP.md Queue 1 item 1 (multi-rank comms over torch.distributed)"
-)
 
 
 class Comm:
@@ -56,6 +63,11 @@ class Comm:
     def clone(self):
         """New communicator over the same group with a fresh context id."""
         raise NotImplementedError
+
+    def transport(self):
+        """The process group behind a communicator of several ranks
+        (``parallel/distributed.py:Transport``); None for one rank."""
+        return None
 
 
 @dataclass(frozen=True)
@@ -76,6 +88,18 @@ class SelfComm(Comm):
     def clone(self):
         return SelfComm(context=next(_context_counter))
 
+    def split(self, color, key=None):
+        """MPI_Comm_split on a size-1 world: the only member keeps a
+        size-1 communicator (None color -> MPI_COMM_NULL -> None)."""
+        colors = [color(0)] if callable(color) else (
+            [color] if isinstance(color, int) or color is None else list(color)
+        )
+        if len(colors) != 1:
+            raise ValueError(f"color must cover all 1 ranks, got {len(colors)}")
+        if colors[0] is None:
+            return None
+        return self.clone()
+
 
 @dataclass(frozen=True)
 class MeshComm(Comm):
@@ -84,12 +108,17 @@ class MeshComm(Comm):
     Ranks are the row-major ravel of the axis coordinates (the first
     axis varies slowest), as on the JAX package's ``MeshComm``.  The
     default is the one-rank ``("y", "x")`` grid that a single-device
-    solver runs on.
+    solver runs on.  ``groups`` is the result of :meth:`split`: a
+    partition of the grid's ranks into equal-size subgroups, in which
+    this rank's comm rank is its position within its own group.
     """
 
     axes: tuple = ("y", "x")
     axis_sizes: tuple = (1, 1)
     context: int = 0
+    groups: tuple = None
+    world: object = field(default=None, compare=False, repr=False)
+    instances: tuple = field(default=None, compare=False, repr=False)
 
     backend = "mesh"
 
@@ -102,22 +131,142 @@ class MeshComm(Comm):
         )
         if len(self.axes) != len(self.axis_sizes):
             raise ValueError("axes and axis_sizes must have equal length")
-        if prod(self.axis_sizes) != 1:
-            raise NotImplementedError(
-                f"a {'x'.join(map(str, self.axis_sizes))} grid of ranks "
-                f"needs torch.distributed process groups, not yet ported: "
-                f"{MULTI_RANK_ITEM}"
+        if self.world is None:
+            if self.global_size != 1:
+                raise ValueError(
+                    f"a {'x'.join(map(str, self.axis_sizes))} grid of ranks "
+                    "needs a world of ranks: build its comm with "
+                    "distributed.world_comm (one process per device, after "
+                    "distributed.initialize) or inside "
+                    "distributed.local_world (ranks as threads)"
+                )
+            return
+        if self.instances is None:
+            if self.global_size != self.world.size:
+                raise ValueError(
+                    f"a {'x'.join(map(str, self.axis_sizes))} grid does not "
+                    f"cover the world's {self.world.size} ranks"
+                )
+            object.__setattr__(
+                self, "instances", (tuple(range(self.world.size)),)
             )
+        # build (or find) this comm's process group now: every rank
+        # derives the comm at the same point of its program, so every
+        # member creates the group in the same order
+        self.transport()
 
     @property
     def size(self):
+        if self.groups is not None:
+            return len(self.groups[0])
         return prod(self.axis_sizes)
 
+    @property
+    def global_size(self):
+        """Ranks across the member axes (== size unless split)."""
+        return prod(self.axis_sizes)
+
+    def _partition(self):
+        """Every group of this comm, as tuples of world ranks in comm-rank
+        order: each copy of the grid, split by ``groups``."""
+        groups = self.groups or (tuple(range(self.global_size)),)
+        return tuple(
+            tuple(inst[i] for i in g) for inst in self.instances for g in groups
+        )
+
+    def transport(self):
+        if self.world is None:
+            return None
+        cached = self.__dict__.get("_transport")
+        if cached is None:
+            cached = self.world.transport(self._partition(), self.context)
+            object.__setattr__(self, "_transport", cached)
+        return cached
+
     def rank(self):
-        return 0
+        t = self.transport()
+        return 0 if t is None else t.rank
+
+    def group_id(self):
+        """Index of this rank's subgroup among its grid's split groups
+        (0 when the comm is not split)."""
+        if self.groups is None or self.world is None:
+            return 0
+        me = self.world.rank
+        for inst in self.instances:
+            for j, g in enumerate(self.groups):
+                if any(inst[i] == me for i in g):
+                    return j
+        raise AssertionError("rank not in its comm's partition")
 
     def clone(self):
-        return replace(self, context=next(_context_counter))
+        """Same group, fresh context (MPI_Comm_dup): collective on a
+        world, whose ranks number their clones alike."""
+        if self.world is None:
+            return replace(self, context=next(_context_counter))
+        return replace(self, context=self.world.next_context())
+
+    def split(self, color, key=None):
+        """Partition the communicator (MPI_Comm_split analog), as the JAX
+        package's ``MeshComm.split``.
+
+        ``color`` and ``key`` are functions of the communicator rank (or
+        length-``size`` sequences), the same on every rank.  Members with
+        equal color form a subgroup, ordered by (key, rank); subgroups
+        must be equal-sized.  A color of None drops the rank from every
+        subgroup (MPI_UNDEFINED); such ranks are packed into equal-size
+        groups of their own.  Splitting a split communicator partitions
+        within each existing subgroup.
+        """
+        n = self.size
+        colors = [color(r) for r in range(n)] if callable(color) else list(color)
+        if len(colors) != n:
+            raise ValueError(
+                f"color must cover all {n} ranks, got {len(colors)}"
+            )
+        keys = (
+            [key(r) for r in range(n)]
+            if callable(key)
+            else (list(key) if key is not None else [0] * n)
+        )
+        if len(keys) != n:
+            raise ValueError(f"key must cover all {n} ranks, got {len(keys)}")
+        by_color = {}
+        dropped = []
+        for r, c in enumerate(colors):
+            if c is None:
+                dropped.append(r)
+            else:
+                by_color.setdefault(c, []).append(r)
+        local_groups = [
+            tuple(sorted(members, key=lambda r: (keys[r], r)))
+            for _, members in sorted(by_color.items())
+        ]
+        sizes = {len(g) for g in local_groups}
+        if len(sizes) > 1:
+            raise ValueError(
+                f"split requires equal-size subgroups, got sizes "
+                f"{sorted(len(g) for g in local_groups)}"
+            )
+        if dropped:
+            gsize = len(local_groups[0]) if local_groups else len(dropped)
+            if len(dropped) % gsize:
+                raise ValueError(
+                    f"{len(dropped)} ranks have color None but subgroups "
+                    f"have size {gsize}; dropped ranks must also pack into "
+                    "equal-size groups"
+                )
+            for i in range(0, len(dropped), gsize):
+                local_groups.append(tuple(dropped[i : i + gsize]))
+        parents = (
+            self.groups
+            if self.groups is not None
+            else (tuple(range(self.global_size)),)
+        )
+        groups = tuple(
+            tuple(p[i] for i in lg) for p in parents for lg in local_groups
+        )
+        return replace(self, groups=groups)
 
     def sub(self, *axes):
         """Sub-communicator over a subset of axes (MPI_Cart_sub analog).
@@ -126,18 +275,43 @@ class MeshComm(Comm):
         communicator.  Keeps the context id, so a sub-communicator of a
         clone stays in the clone's message namespace.
         """
+        if self.groups is not None:
+            raise ValueError(
+                "cannot take an axis sub-communicator of a split "
+                "communicator; split from the parent comm instead"
+            )
         for a in axes:
             if a not in self.axes:
                 raise ValueError(f"axis {a!r} not in {self.axes}")
+        cache = self.__dict__.setdefault("_subs", {})
+        if axes in cache:
+            return cache[axes]
         sizes = tuple(self.axis_sizes[self.axes.index(a)] for a in axes)
-        return MeshComm(axes=tuple(axes), axis_sizes=sizes,
-                        context=self.context)
+        instances = None
+        if self.world is not None:
+            # each copy of the grid, its chosen axes moved last in the
+            # order given: every row of the result is one copy of the sub
+            keep = [self.axes.index(a) for a in axes]
+            rest = [i for i in range(len(self.axes)) if i not in keep]
+            instances = tuple(
+                tuple(int(r) for r in row)
+                for inst in self.instances
+                for row in np.asarray(inst)
+                .reshape(self.axis_sizes)
+                .transpose(rest + keep)
+                .reshape(-1, prod(sizes))
+            )
+        sub = MeshComm(axes=tuple(axes), axis_sizes=sizes,
+                       context=self.context, world=self.world,
+                       instances=instances)
+        cache[axes] = sub
+        return sub
 
     # -- topology helpers -------------------------------------------------
 
     def rank_grid(self):
         """ndarray of shape ``axis_sizes`` holding each coordinate's rank."""
-        return np.arange(self.size).reshape(self.axis_sizes)
+        return np.arange(self.global_size).reshape(self.axis_sizes)
 
     def coords_of(self, rank):
         """Inverse of the rank ravel: rank -> axis coordinates."""
@@ -152,6 +326,11 @@ class MeshComm(Comm):
         receive nothing: sendrecv then returns their recv buffer
         unchanged (MPI_PROC_NULL semantics).
         """
+        if self.groups is not None:
+            raise ValueError(
+                "a split communicator has no Cartesian topology; pass an "
+                "explicit rank->partner callable or (source, dest) pairs"
+            )
         ax = self.axes.index(axis)
         n = self.axis_sizes[ax]
         grid = self.rank_grid()
@@ -180,7 +359,8 @@ _WORLD_SELF = SelfComm()
 
 def get_default_comm():
     """The ambient communicator used when ops get ``comm=None``: the
-    single-process world unless one was set."""
+    single-process world unless one was set (per thread, so that each
+    rank of a local world has its own)."""
     if _default.comm is not None:
         return _default.comm
     return _WORLD_SELF

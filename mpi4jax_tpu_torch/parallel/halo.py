@@ -1,12 +1,14 @@
 """Halo (ghost-cell) exchange for 2-D domain decomposition.
 
 Counterpart of ``mpi4jax_tpu/parallel/halo.py``: each direction is one
-``sendrecv`` over the axis sub-communicator, the x exchange moves full
-columns (ghost rows included) and then the y exchange moves full rows
-(the just-filled x ghosts included), so corners are correct after two
-rounds.  On one rank a periodic x exchange is a self-sendrecv of column
-slabs and a non-periodic y exchange on a size-1 axis has no pairs, so
-it leaves the ghost rows as they are.
+shift over the axis sub-communicator, the x exchange moves full columns
+(ghost rows included) and then the y exchange moves full rows (the
+just-filled x ghosts included), so corners are correct after two
+rounds.  Each direction posts this rank's one send and one receive as a
+single batch (``ops/p2p.py:move``).  A rank with no inbound message in a
+direction (a non-periodic edge) keeps its ghosts.  On one rank a
+periodic x exchange is a copy of column slabs, and a non-periodic y
+exchange on a size-1 axis leaves the ghost rows as they are.
 
 Unlike the JAX function, which returns a new array, the exchange writes
 the ghost ring of the given tensor in place and returns that tensor:
@@ -17,7 +19,7 @@ would cost more memory traffic than the step's kernels.
 import torch
 
 from mpi4jax_tpu_torch.ops._core import as_token, publishes_token
-from mpi4jax_tpu_torch.ops.p2p import sendrecv
+from mpi4jax_tpu_torch.ops.p2p import move, partners
 
 __all__ = ["halo_exchange_2d", "halo_exchange_2d_batch"]
 
@@ -25,17 +27,15 @@ __all__ = ["halo_exchange_2d", "halo_exchange_2d_batch"]
 def _axis_shift(slab, template, comm, axis, disp, periodic, token):
     """One directional exchange along ``axis`` (disp = ±1).
 
-    Returns ``(halo, token)``; ``halo is None`` when the shift has no
-    pairs (non-periodic on a size-1 axis), so the ghosts keep their
-    values and the caller skips the write.
+    Returns ``(halo, token)``; ``halo is None`` when this rank receives
+    nothing in the shift, so its ghosts keep their values and the caller
+    skips the write.
     """
     sub = comm.sub(axis)
-    pairs = sub.shift_perm(axis, disp, periodic=periodic)
-    if not pairs:
-        return None, token
-    return sendrecv(
-        slab, template, source=pairs, dest=pairs, comm=sub, token=token
-    )
+    src, dst = partners(sub.shift_perm(axis, disp, periodic=periodic),
+                        sub.rank())
+    got = move(sub, [slab], [template], src, dst)
+    return (None if got is None else got[0]), token
 
 
 @publishes_token

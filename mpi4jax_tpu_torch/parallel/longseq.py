@@ -6,9 +6,8 @@ Counterpart of ``mpi4jax_tpu/parallel/longseq.py``:
 dense (the oracle) or through the flash kernels, and the signatures of
 :func:`ring_attention` and :func:`ulysses_attention` with their
 one-rank shortcut to it.  Their multi-rank schedules (KV blocks rotating
-around the ring, the all-to-all reshards, the zigzag layout) need
-multi-rank comms and raise naming
-:data:`~mpi4jax_tpu_torch.parallel.comm.MULTI_RANK_ITEM`.
+around the ring, the all-to-all reshards, the zigzag layout) are not
+ported yet and raise naming :data:`LONGSEQ_ITEM`.
 """
 
 import math
@@ -18,9 +17,13 @@ import torch
 from mpi4jax_tpu_torch.kernels.flash import _NEG  # finite mask value
 from mpi4jax_tpu_torch.kernels.flash import flash_supported
 from mpi4jax_tpu_torch.ops._core import as_token, publishes_token
-from mpi4jax_tpu_torch.parallel.comm import MULTI_RANK_ITEM
 
-__all__ = ["local_attention", "ring_attention", "ulysses_attention"]
+__all__ = ["local_attention", "ring_attention", "ulysses_attention",
+           "LONGSEQ_ITEM"]
+
+LONGSEQ_ITEM = (
+    "ROADMAP.md Queue 1 item 4 (ring and Ulysses attention across ranks)"
+)
 
 
 def _check_gqa(hq, hk, where):
@@ -112,13 +115,12 @@ def local_attention(q, k, v, *, causal=False, scale=None, q_offset=0,
 
 def _check_one_rank(comm, where):
     """A one-rank communicator takes the shortcut to
-    :func:`local_attention`; a larger one raises: its schedule needs
-    multi-rank comms."""
+    :func:`local_attention`; a larger one raises: its schedule is not
+    ported yet."""
     if comm.backend == "self" or comm.size == 1:
         return
     raise NotImplementedError(
-        f"{where} over {comm.size} ranks needs multi-rank comms, not yet "
-        f"ported: {MULTI_RANK_ITEM}"
+        f"{where} over {comm.size} ranks is not ported yet: {LONGSEQ_ITEM}"
     )
 
 

@@ -73,9 +73,11 @@ def run_on_side_stream(fn, device):
 
 
 @contextlib.contextmanager
-def graph_capture(graph, pool=None):
+def graph_capture(graph, pool=None, capture_error_mode=None):
     """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
-    collector held off until the capture ends.
+    collector held off until the capture ends.  ``capture_error_mode``,
+    where given, is ``torch.cuda.graph``'s: ``"thread_local"`` lets other
+    threads (NCCL's watchdog) query the device while this one captures.
 
     PyTorch no longer collects before a capture, so an automatic
     collection could run in the middle of one and free a CUDA graph that a
@@ -86,7 +88,9 @@ def graph_capture(graph, pool=None):
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        mode = ({} if capture_error_mode is None
+                else {"capture_error_mode": capture_error_mode})
+        with torch.cuda.graph(graph, pool=pool, **mode):
             yield
     finally:
         if enabled:

@@ -13,6 +13,7 @@ import torch
 
 __all__ = [
     "check_static_int",
+    "check_rank_range",
     "check_comm",
     "check_op",
     "check_same_layout",
@@ -34,6 +35,17 @@ def check_static_int(value, name, allow_none=False):
     if isinstance(value, (int, np.integer)):
         return int(value)
     raise TypeError(f"{name} must be an integer, got {type(value).__name__}")
+
+
+def check_rank_range(value, name, size):
+    """Validate a partner rank: an int (bools rejected, as in
+    :func:`check_static_int`) in ``[0, size)``."""
+    value = check_static_int(value, name)
+    if not 0 <= value < size:
+        raise ValueError(
+            f"{name}={value} out of range for communicator of size {size}"
+        )
+    return value
 
 
 def check_comm(comm):

@@ -9,7 +9,8 @@ the CPU, at a tiny size:
   ghost width, and ``--quick``), the decode legs on a tiny model (their
   three tokens/s keys; the bandwidth bound's two keys need the card's
   copy rate and are absent on the CPU; ``--quick`` names the legs
-  skipped);
+  skipped), and the allreduce legs at a tiny payload (one rank's call
+  site floor, the 8-rank local world's bus bandwidth);
 * ``make_multistep(donate=False)`` leaves the states that earlier calls
   returned intact, and ``donate=True`` chains;
 * without ``--device cpu`` and without CUDA the bench raises.
@@ -59,6 +60,8 @@ def tiny_bench(monkeypatch):
         layers=2, d_model=32, heads=4, kv_heads=2, d_ff=64, vocab=64,
         prompt=4, max_len=24))
     monkeypatch.setattr(bench, "DECODE_BATCHES", 1)
+    monkeypatch.setattr(bench, "ALLREDUCE_MB", 0.01)
+    monkeypatch.setattr(bench, "VMESH_MB", 0.01)
 
 
 RECORD_KEYS = {
@@ -66,6 +69,10 @@ RECORD_KEYS = {
     "median_cell_updates_per_sec_per_chip", "ghost", "steps_per_call",
     "calls_per_batch", "draws", "credible_draws", "device",
 }
+
+
+ALLREDUCE_KEYS = {"allreduce_callsite_floor_gbps", "allreduce_devices",
+                  "allreduce_busbw_cpu8_hostmem_gbps"}
 
 
 DECODE_KEYS = {
@@ -85,7 +92,7 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     if quick:
         keys.add("quick")
     else:
-        keys |= DECODE_KEYS
+        keys |= DECODE_KEYS | ALLREDUCE_KEYS
     # no copy rate on the CPU (it has no HBM), so no bandwidth bound, and
     # no TPU-derived key
     assert set(rec) == keys
@@ -98,13 +105,18 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     assert rec["draws"] >= (3 if quick else 10)
     for leg, _ in bench.SKIPPED:
         assert f"[bench] skipped {leg}" in err
-    for item in (1, 5, 9, 13):
+    for item in (5, 9, 13):
         assert f"ROADMAP Queue 1 item {item}" in err
-    assert "item 14" not in err
-    for leg in ("decode", "decode_kv_bucket"):
+    # the training legs' meshes wait for item 15; the multi-rank comms
+    # (item 1) and the decode loop (item 14) are ported
+    assert "item 15" in err
+    assert "item 14" not in err and "item 1 " not in err
+    for leg in ("decode", "decode_kv_bucket", "allreduce_sweep",
+                "vmesh_busbw"):
         assert (f"[bench] skipped {leg}: quick mode" in err) == quick
     if not quick:
-        assert all(rec[key] > 0 for key in DECODE_KEYS)
+        assert all(rec[key] > 0 for key in DECODE_KEYS | ALLREDUCE_KEYS)
+        assert rec["allreduce_devices"] == 1
 
 
 def test_nominal_hbm():

@@ -230,12 +230,14 @@ def test_multi_rank_comms_name_their_roadmap_item():
         backend = "mesh"
 
     dp, tp, sp = _comms()
+    # the training step's meshes are ROADMAP item 15, ring and Ulysses
+    # attention across ranks item 4
     for comms in ((TwoRanks(), tp, sp), (dp, tp, TwoRanks())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
             tfm.make_global_train_step(*comms, _cfg(), device="cpu")
     q = torch.zeros((1, 4, 2, 8))
     for attention in (ring_attention, ulysses_attention):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             attention(q, q, q, TwoRanks(), causal=True)
 
 

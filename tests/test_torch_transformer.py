@@ -336,13 +336,15 @@ def test_decode_cache_is_zeroed_each_call():
 
 
 def test_multi_rank_comms_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    # a grid of ranks needs a world of them; the decoder's tensor- and
+    # data-parallel meshes are ROADMAP item 15
+    with pytest.raises(ValueError, match="needs a world of ranks"):
         MeshComm(axes=("dp", "tp"), axis_sizes=(1, 2))
 
     class TwoRanks:
         size = 2
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         tfm.make_global_decode(_comms()[0], TwoRanks(), CFG, MAX,
                                device="cpu")
 
