@@ -43,8 +43,12 @@ Phases, each of which raises on failure (nothing is caught):
    tensors staged through host memory.  Every ported op (allreduce with
    all ten operators, scan, allgather, sendrecv on a ring and on
    ``shift_perm``, send/recv with ANY_TAG and with ANY_SOURCE, barrier,
-   split, sub) on CUDA tensors against the same op on the CPU; then,
-   on each rank's own 904x1804 block (ghost ring included) with its own
+   split, sub; alltoall, alltoall_multi, reduce_scatter, bcast, gather,
+   reduce and scatter in float32, int32 and bool on the world comm, the
+   rooted ones at roots 0 and 3, and on ``sub("x")``; the backward of
+   eight ops and one forward-mode case) on CUDA tensors against the
+   same op on the CPU (``--check ops`` runs these alone); then, on
+   each rank's own 904x1804 block (ghost ring included) with its own
    wall (south on the first row of ranks, north on the second) and at
    the inputs the decomposed step gives it, sw_main for both first-step
    values and sw_visc held bit for bit to their plain versions; then the
@@ -171,12 +175,18 @@ shape.
 on a host with four cards: four processes, one per card, join an NCCL
 world (torchrun's environment on a free local port) and run the 2x2
 op cases and the solver check of phase 4b': every op case on CUDA
-tensors over NCCL (send/recv over the world's gloo twin groups) against
-the same cases run beforehand in a CPU local world, then the solver
-with ``make_multistep`` as a CUDA graph that holds the NCCL exchanges
-(each rank first runs the one-rank reference on its card), then the
-64 MB allreduce's bus bandwidth, ``allreduce_busbw_gbps`` with
-``allreduce_devices``.  It raises with fewer than four cards.
+tensors over NCCL (send/recv over the world's gloo twin groups; the
+backward cases on autograd's device thread) against the same cases run
+beforehand in a CPU local world, then BASELINE.json configs 3 and 4 at
+their size (1024x1024 float32: bcast, scatter and gather from rank 0;
+alltoall over the world, its rows and its columns), held to a CPU local
+world bit for bit, each op's device ms by CUDA events and bus GB/s,
+then the solver with ``make_multistep`` as a CUDA graph that holds the
+NCCL exchanges (each rank first runs the one-rank reference on its
+card), then the 64 MB allreduce's bus bandwidth,
+``allreduce_busbw_gbps`` with ``allreduce_devices``; each rank ends its
+world with ``distributed.finalize()``.  It raises with fewer than four
+cards.
 
     python3 chip_smoke.py --witness-readings
 
@@ -202,6 +212,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -261,6 +272,11 @@ MULTIRANK_OPS = ("sum", "prod", "min", "max", "land", "lor", "lxor",
                  "band", "bor", "bxor")
 MULTIRANK_FLOAT_TOL = 4e-6
 NCCL_RANK_TIMEOUT_S = 240.0  # an --nccl-world rank's whole run
+FINALIZE_TIMEOUT_S = 60.0  # distributed.finalize on an --nccl-world rank
+# BASELINE.json configs 3 and 4 over --nccl-world: 1024x1024 float32 per
+# rank, each op's device time the median of BASELINE_REPEATS calls
+BASELINE_SIDE = 1024
+BASELINE_REPEATS = 10
 
 # flash kernel against its plain version at the same key tile.  The two
 # differ only where the summation order moves a score across a rounding
@@ -1111,11 +1127,31 @@ def _op_inputs(dtype, seed, rank):
     return torch.randn((4, 257), generator=gen)
 
 
+def _grad_case(op):
+    """``x -> d/dx sum(op(x) * w)``, ``w`` small integers (the same on
+    every device), through the op's backward collectives."""
+    def fn(x):
+        v = x.clone().requires_grad_()
+        y = op(v)
+        w = (torch.arange(y.numel(), device=y.device) % 7 - 3.0).reshape(
+            y.shape)
+        (y * w).sum().backward()
+        return v.grad
+    return fn
+
+
 def multirank_op_cases(comm):
     """``(name, dtype, fn)``: every ported op at this comm's ranks, each
-    ``fn(x)`` returning its result on ``x``'s device."""
+    ``fn(x)`` returning its result on ``x``'s device.  ``x`` is
+    ``_op_inputs``' (4, 257), whose leading dimension is the world's
+    size (rows 0..1 for the grid's row comm ``sub("x")``).  The rooted
+    ops run at roots 0 and 3 of the world and 1 of the row; their
+    results take each rank's own shape.  The ``grad`` cases run the
+    backward collectives, the ``jvp`` case forward mode (the caller
+    holds the dual level: one per process, around a local world)."""
     n, r = comm.size, comm.rank()
     ring = [(q, (q + 1) % n) for q in range(n)]
+    row = comm.sub("x")
     cases = []
     for name in MULTIRANK_OPS:
         dtypes = (("bool",) if name in ("land", "lor", "lxor") else
@@ -1171,6 +1207,63 @@ def multirank_op_cases(comm):
         ("sub x allreduce", "int32", lambda x: p_ops.allreduce(
             x, "prod", comm=comm.sub("x"))[0]),
     ]
+    # the other collectives, on the world and on the row comm
+    reduce_op = {"float32": "sum", "int32": "max", "bool": "lor"}
+    for dtype in ("float32", "int32", "bool"):
+        op = reduce_op[dtype]
+        for label, c, roots in (("", comm, (0, 3)), (" sub x", row, (1,))):
+            k = c.size
+            cases += [
+                (f"alltoall{label}", dtype,
+                 lambda x, c=c, k=k: p_ops.alltoall(x[:k], comm=c)[0]),
+                (f"alltoall_multi{label}", dtype,
+                 lambda x, c=c, k=k: torch.stack(p_ops.alltoall_multi(
+                     [x[:k], x[:k].flip(0)], comm=c)[0])),
+                (f"reduce_scatter {op}{label}", dtype,
+                 lambda x, c=c, k=k, op=op: p_ops.reduce_scatter(
+                     x[:k], op, comm=c)[0]),
+            ]
+            for root in roots:
+                cases += [
+                    (f"bcast root {root}{label}", dtype,
+                     lambda x, c=c, root=root: p_ops.bcast(x, root,
+                                                           comm=c)[0]),
+                    (f"gather root {root}{label}", dtype,
+                     lambda x, c=c, root=root: p_ops.gather(x, root,
+                                                            comm=c)[0]),
+                    (f"reduce {op} root {root}{label}", dtype,
+                     lambda x, c=c, root=root, op=op: p_ops.reduce(
+                         x, op, root, comm=c)[0]),
+                    # the root's rows; a template elsewhere
+                    (f"scatter root {root}{label}", dtype,
+                     lambda x, c=c, k=k, root=root: p_ops.scatter(
+                         x[:k] if c.rank() == root else x[0], root,
+                         comm=c)[0]),
+                ]
+    # backward collectives, and forward mode
+    cases += [(f"grad {name}", "float32", _grad_case(op)) for name, op in (
+        ("allgather", lambda v: p_ops.allgather(v, comm=comm)[0]),
+        ("scan sum", lambda v: p_ops.scan(v, "sum", comm=comm)[0]),
+        ("alltoall", lambda v: p_ops.alltoall(v, comm=comm)[0]),
+        ("reduce_scatter sum",
+         lambda v: p_ops.reduce_scatter(v, comm=comm)[0]),
+        ("bcast root 3", lambda v: p_ops.bcast(v, 3, comm=comm)[0]),
+        ("scatter root 3", lambda v: p_ops.scatter(v, 3, comm=comm)[0]),
+        ("sendrecv ring", lambda v: p_ops.sendrecv(
+            v, v, source=ring, dest=ring, comm=comm)[0]),
+        ("allreduce sum sub x", lambda v: p_ops.allreduce(
+            v, "sum", comm=row)[0]),
+    )]
+
+    def jvp(x):
+        dual = fwAD.make_dual(x, torch.cos(x))
+        y = p_ops.sendrecv(p_ops.allreduce(dual, "sum", comm=comm)[0],
+                           dual, source=ring, dest=ring, comm=comm)[0]
+        y = p_ops.reduce_scatter(y, comm=comm)[0]
+        return torch.stack(fwAD.unpack_dual(y)[:2])
+
+    cases.append(("jvp allreduce sum, sendrecv, reduce_scatter sum",
+                  "float32", jvp))
     return cases
 
 
@@ -1186,19 +1279,26 @@ def run_op_cases(comm, device):
     return results
 
 
-def hold_op_cases(got, want):
-    """Readings ``(case, max |difference|, limit, ok)`` of one rank's
-    results against the CPU's: exact, but float sums and products within
-    MULTIRANK_FLOAT_TOL of the largest value."""
+# float32 cases that add in the backend's order: held within
+# MULTIRANK_FLOAT_TOL of the largest value, every other case exactly
+SUMMING = ("sum", "prod", "split", "grad", "jvp")
+
+
+def hold_op_cases(got, want, rank):
+    """Readings ``(case, max |difference|, limit, ok)`` of rank
+    ``rank``'s results against the CPU's (rooted ops give each rank its
+    own shape): exact, but float sums and products within
+    MULTIRANK_FLOAT_TOL of the largest value.  A shape or dtype that
+    differs raises, naming the rank and the case."""
     readings = []
     for (name, dtype, g), (_, _, w) in zip(got, want, strict=True):
         if g.dtype != w.dtype or g.shape != w.shape:
-            raise RuntimeError(f"{name} {dtype}: {g.dtype} {tuple(g.shape)}"
-                               f", not {w.dtype} {tuple(w.shape)}")
+            raise RuntimeError(f"rank {rank}: {name} {dtype}: {g.dtype} "
+                               f"{tuple(g.shape)}, not {w.dtype} "
+                               f"{tuple(w.shape)}")
         err = (g.double() - w.double()).abs().max().item()
         tol = (MULTIRANK_FLOAT_TOL * max(w.abs().max().item(), 1e-30)
-               if dtype == "float32" and any(
-                   word in name for word in ("sum", "prod", "split"))
+               if dtype == "float32" and any(word in name for word in SUMMING)
                else 0.0)
         readings.append((f"{name} {dtype}", err, tol, err <= tol))
     return readings
@@ -1207,7 +1307,8 @@ def hold_op_cases(got, want):
 def multirank_ops_check(comm, device):
     """Each case on CUDA tensors (gloo stages them through host memory)
     against the same case on the CPU copies."""
-    return hold_op_cases(run_op_cases(comm, device), run_op_cases(comm, "cpu"))
+    return hold_op_cases(run_op_cases(comm, device),
+                         run_op_cases(comm, "cpu"), comm.rank())
 
 
 def report_op_cases(readings):
@@ -1225,6 +1326,93 @@ def report_op_cases(readings):
         raise RuntimeError(f"multi-rank ops differ on the card: {failed}")
     log(f"  {len(readings[0])} op cases on {len(readings)} ranks, every "
         f"rank: ok")
+
+
+def multirank_ops_phase(device):
+    """The op cases on a 2x2 grid of thread ranks on the one card (a
+    local world over gloo), each on CUDA tensors against the CPU;
+    returns the number of cases."""
+    py, px = MULTIRANK_GRID
+
+    def ops(comm):
+        if comm.transport().backend != "gloo":
+            raise RuntimeError("a local world runs over gloo")
+        return multirank_ops_check(comm, device)
+
+    with fwAD.dual_level():
+        readings = distributed.local_world(
+            py * px, ops, axes=(("y", "x"), MULTIRANK_GRID), deadline=300.0)
+    report_op_cases(readings)
+    return len(readings[0])
+
+
+def baseline_collectives(comm, device, timed):
+    """BASELINE.json configs 3 and 4 at their size on this rank of the
+    2x2 grid.  Config 3: rank 0's 1024x1024 float32 array broadcast,
+    scattered by row blocks from rank 0 (a template elsewhere) and the
+    blocks gathered back to rank 0.  Config 4: each rank's own 1024x1024
+    float32 array exchanged by alltoall over the world comm (4 blocks of
+    256 rows), its row comm and its column comm (2 blocks of 512 rows).
+    Returns ``{op: result on the CPU}`` (rooted results in each rank's
+    own shape) and, with ``timed``, ``{op: (device ms, bus GB/s)}``:
+    CUDA events around each call, the median of BASELINE_REPEATS after
+    one warm-up call; bus bytes as nccl-tests counts them (bcast the
+    array; scatter, gather and alltoall (k - 1) / k of it)."""
+    n, r, side = comm.size, comm.rank(), BASELINE_SIDE
+    gen = torch.Generator().manual_seed(2024 + r)
+    a = torch.randn((side, side), generator=gen).to(device)
+    row, col = comm.sub("x"), comm.sub("y")
+    full = p_ops.bcast(a, 0, comm=comm)[0]
+    blocks = full.reshape(n, side // n, side)
+    mine = p_ops.scatter(blocks if r == 0 else blocks[0], 0, comm=comm)[0]
+    ops = {
+        "config 3 bcast": (lambda: p_ops.bcast(a, 0, comm=comm)[0], 1),
+        "config 3 scatter": (lambda: p_ops.scatter(
+            blocks if r == 0 else blocks[0], 0, comm=comm)[0], n),
+        "config 3 gather": (lambda: p_ops.gather(mine, 0, comm=comm)[0], n),
+    }
+    for label, c in (("world", comm), ("sub x", row), ("sub y", col)):
+        ops[f"config 4 alltoall {label}"] = (
+            lambda c=c: p_ops.alltoall(a.reshape(c.size, -1, side),
+                                       comm=c)[0], c.size)
+    results = {name: fn().cpu() for name, (fn, _) in ops.items()}
+    if r == 0 and not torch.equal(results["config 3 gather"].reshape(
+            side, side), a.cpu()):
+        raise RuntimeError("config 3: the gathered blocks are not rank 0's "
+                           "array")
+    if not timed:
+        return results, None
+    nbytes = side * side * 4
+    times = {}
+    for name, (fn, k) in ops.items():
+        ms = []
+        for _ in range(BASELINE_REPEATS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        t = statistics.median(ms)
+        moved = nbytes if k == 1 else nbytes * (k - 1) / k
+        times[name] = (t, moved / (t * 1e-3) / 1e9)
+    return results, times
+
+
+def hold_baseline(got, want, rank):
+    """The configs' results against the CPU world's, exactly (every op
+    only moves data)."""
+    readings = []
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"rank {rank}: {name}: {g.dtype} "
+                               f"{tuple(g.shape)}, not {w.dtype} "
+                               f"{tuple(w.shape)}")
+        err = (g - w).abs().max().item()
+        readings.append((name, err, err == 0.0))
+    return readings
 
 
 def block_kernel_checks(comm, cfg, device):
@@ -1337,14 +1525,7 @@ def multirank_phase(cfg, device, kernels, card):
     py, px = MULTIRANK_GRID
     n = py * px
     axes = (("y", "x"), MULTIRANK_GRID)
-
-    def ops(comm):
-        if comm.transport().backend != "gloo":
-            raise RuntimeError("a local world runs over gloo")
-        return multirank_ops_check(comm, device)
-
-    readings = distributed.local_world(n, ops, axes=axes, deadline=300.0)
-    report_op_cases(readings)
+    op_cases = multirank_ops_phase(device)
     report_block_checks(distributed.local_world(
         n, lambda comm: block_kernel_checks(comm, cfg, device), axes=axes,
         deadline=300.0), cfg)
@@ -1383,7 +1564,7 @@ def multirank_phase(cfg, device, kernels, card):
                          for kern in kernels},
             "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
             "one_rank_step_ms": ref_ms,
-            "op_cases": len(readings[0])}
+            "op_cases": op_cases}
 
 
 def _free_port():
@@ -1480,15 +1661,19 @@ def nccl_rank():
     ref = multirank_reference(cfg, device, k, t1)
     log(f"rank {rank}: one-rank reference run on {device}")
     axes = (("y", "x"), MULTIRANK_GRID)
-    want = distributed.local_world(
-        MULTIRANK_GRID[0] * MULTIRANK_GRID[1],
-        lambda c: run_op_cases(c, "cpu"), axes=axes)[rank]
+    n = MULTIRANK_GRID[0] * MULTIRANK_GRID[1]
+    with fwAD.dual_level():
+        want = distributed.local_world(
+            n, lambda c: run_op_cases(c, "cpu"), axes=axes)[rank]
+    base_want, _ = distributed.local_world(
+        n, lambda c: baseline_collectives(c, "cpu", False), axes=axes)[rank]
     distributed.initialize("cuda")
     comm = distributed.world_comm(axes)
     if comm.transport().backend != "nccl":
         raise RuntimeError("the world is not NCCL")
     log(f"rank {rank}: in the NCCL world")
-    op_readings = hold_op_cases(run_op_cases(comm, device), want)
+    with fwAD.dual_level():
+        op_readings = hold_op_cases(run_op_cases(comm, device), want, rank)
     torch.cuda.synchronize()
     for name, err, tol, ok in op_readings:
         log(f"rank {rank}: {name} over NCCL vs a CPU local world: max |"
@@ -1496,6 +1681,17 @@ def nccl_rank():
     if not all(ok for *_, ok in op_readings):
         raise RuntimeError(f"rank {rank}: op cases over NCCL differ from "
                            f"the CPU's")
+    base_got, base_ms = baseline_collectives(comm, device, True)
+    base_readings = hold_baseline(base_got, base_want, rank)
+    for name, err, ok in base_readings:
+        ms, gbps = base_ms[name]
+        log(f"rank {rank}: {name} ({BASELINE_SIDE}x{BASELINE_SIDE} float32) "
+            f"over NCCL vs a CPU local world: max |difference| {err:.3e} "
+            f"(exact required) {'ok' if ok else 'FAIL'}; {ms:.4f} ms of "
+            f"device time, {gbps:.2f} GB/s bus")
+    if not all(ok for *_, ok in base_readings):
+        raise RuntimeError(f"rank {rank}: BASELINE configs 3-4 over NCCL "
+                           f"differ from the CPU's")
     reset_launch_counts()
     run = multirank_solver(comm, cfg, device, k, t1)
     torch.cuda.synchronize()
@@ -1519,20 +1715,22 @@ def nccl_rank():
            / (step_ms * 1e-3),
            "one_rank_step_ms": ref["wall_s"] / ref["steps"] * 1e3,
            "op_cases": len(op_readings),
+           "baseline_ms_busbw": base_ms,
            "allreduce_busbw_gbps": busbw,
            "allreduce_devices": comm.size,
            "allreduce_mb": port_bench.ALLREDUCE_MB}
     print(json.dumps(rec), flush=True)
-    torch.cuda.synchronize()
-    # every rank here before any leaves (the mailbox's gloo twin of the
-    # world: an NCCL barrier orders the stream, not the host)
-    comm.transport().mail_pg.barrier().wait()
-    sys.stderr.flush()
-    # no teardown: the chunk's CUDA graph, which holds NCCL work, is
-    # still alive (destroy_process_group under it hung), and gloo's
-    # teardown at interpreter exit aborted once in twenty CPU rehearsals
-    # of four processes; the process's exit releases both
-    os._exit(0)
+    # the world ends through distributed.finalize (the solver's graph,
+    # which holds NCCL work, reset before the groups go); a rank that
+    # hangs in it prints where every thread is and ends
+    faulthandler.dump_traceback_later(FINALIZE_TIMEOUT_S, exit=True)
+    t0 = time.perf_counter()
+    distributed.finalize()
+    faulthandler.cancel_dump_traceback_later()
+    log(f"rank {rank}: finalize ended the world in "
+        f"{time.perf_counter() - t0:.3f} s")
+    sys.stdout.flush()
+    return 0
 
 
 def ptxas_report(log_path):
@@ -2898,12 +3096,16 @@ def sw_check(device):
 def run_checks(device, parts):
     """The kernel checks named in ``parts`` (``fwd``: phase 5's cases,
     ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient,
-    ``sw``: phase 2's sw_main checks), without timings, after building
-    the kernels they need.  Every check runs and prints its readings even
-    when an earlier one failed; returns 1 when any failed."""
-    build_phase((("sw_step",) if "sw" in parts else ())
-                + (FLASH_SOURCES if set(parts) - {"sw"} else ()))
+    ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
+    kernel), without timings, after building the kernels they need.
+    Every check runs and prints its readings even when an earlier one
+    failed; returns 1 when any failed."""
+    sources = ((("sw_step",) if "sw" in parts else ())
+               + (FLASH_SOURCES if set(parts) - {"sw", "ops"} else ()))
+    if sources:
+        build_phase(sources)
     checks = {
+        "ops": lambda: multirank_ops_phase(device),
         "sw": lambda: sw_check(device),
         "fwd": lambda: flash_kernel_phase(device, timed=False),
         "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
@@ -3108,7 +3310,7 @@ def main(argv):
     if argv == ["--witness-readings"]:
         return witness_readings(device)
     if len(argv) == 2 and argv[0] == "--check" and set(
-            argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw"}:
+            argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops"}:
         return run_checks(device, argv[1].split(","))
     if argv[:1] == ["--sw-forms"] and len(argv) > 1:
         return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])

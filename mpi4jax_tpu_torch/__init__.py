@@ -16,9 +16,34 @@ torchrun, gloo on the CPU or in a local world of thread ranks); see
 ROADMAP.md for what is still to be ported.
 """
 
+import torch as _torch
+
 from mpi4jax_tpu_torch.ops import *  # noqa: F401,F403
 from mpi4jax_tpu_torch.ops import __all__ as _ops_all
 from mpi4jax_tpu_torch.parallel import *  # noqa: F401,F403
 from mpi4jax_tpu_torch.parallel import __all__ as _parallel_all
 
-__all__ = [*_ops_all, *_parallel_all]
+__all__ = [*_ops_all, *_parallel_all, "has_cuda_support", "has_tpu_support"]
+
+
+def __getattr__(name):
+    # lazy: the version may come from git, which the import should not wait on
+    if name == "__version__":
+        from mpi4jax_tpu_torch._version import get_version
+
+        version = get_version()
+        globals()["__version__"] = version
+        return version
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def has_cuda_support():
+    """True if a CUDA card is live (the reference mpi4jax's capability
+    probe: the ops take CUDA tensors, over NCCL across cards)."""
+    return _torch.cuda.is_available() and _torch.cuda.device_count() > 0
+
+
+def has_tpu_support():
+    """Always False: the port runs on PyTorch, which drives no TPU.  Kept
+    for call-compatibility with the JAX package's probe."""
+    return False

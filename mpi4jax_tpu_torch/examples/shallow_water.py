@@ -104,7 +104,9 @@ def main(argv=None):
 
     if "RANK" in os.environ:
         device = distributed.initialize(device)
-        return run(distributed.world_comm((("y", "x"), mesh)))
+        rate = run(distributed.world_comm((("y", "x"), mesh)))
+        distributed.finalize()
+        return rate
     if mesh == (1, 1):
         return run(MeshComm())
     return distributed.local_world(

@@ -17,6 +17,7 @@ __all__ = [
     "Token",
     "create_token",
     "as_token",
+    "token_array",
     "publishes_token",
     "ANY_SOURCE",
     "ANY_TAG",
@@ -63,6 +64,14 @@ def as_token(token):
     if isinstance(token, Token):
         return token
     raise TypeError(f"cannot interpret {type(token)} as a communication token")
+
+
+def token_array(token):
+    """The token's stamp array, for code that threads array tokens.  The
+    port's tokens hold no data, so this is the JAX package's fresh
+    stamp: a 0-d float32 zero."""
+    as_token(token)
+    return torch.zeros((), dtype=torch.float32)
 
 
 def publishes_token(fn):

@@ -11,7 +11,11 @@ send and its one receive of the pattern as a single batch.  A rank with
 no inbound message gets its recv buffer back unchanged.  The gradient
 of a sendrecv is the sendrecv of the cotangent along the reversed
 pattern (the JAX transpose rule), and a rank with no inbound message
-passes its cotangent to its recv buffer.
+passes its cotangent to its recv buffer.  Its tangent travels the same
+pattern after the primal (``torch.autograd.forward_ad``,
+``torch.func.jvp``), and ``torch.func.vmap`` exchanges the whole
+batched buffers at once.  As with every collective, each rank must
+take its backward through the same exchanges in the same order.
 
 ``send`` and ``recv`` follow the JAX package's multi-process backend
 (MPMD, one rank per process): an int partner is this rank's own
@@ -170,17 +174,22 @@ def move(comm, sendbufs, recvbufs, src, dst):
 
 
 class _SendrecvFn(torch.autograd.Function):
-    """The exchange with its transpose: the cotangents travel back along
-    the reversed pattern."""
+    """The exchange with its transpose (the cotangents travel back
+    along the reversed pattern), its tangent rule (the tangents travel
+    the same pattern, after the primals) and its batching rule (one
+    exchange of the whole batched buffers)."""
 
     @staticmethod
-    def forward(ctx, comm, src, dst, n, *bufs):
-        ctx.comm, ctx.src, ctx.dst, ctx.n = comm, src, dst, n
-        ctx.send_layout = [(b.shape, b.dtype) for b in bufs[:n]]
+    def forward(comm, src, dst, n, *bufs):
         got = move(comm, bufs[:n], bufs[n:], src, dst)
         if got is None:
             return tuple(b.clone() for b in bufs[n:])
         return tuple(got)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.comm, ctx.src, ctx.dst, ctx.n, *bufs = inputs
+        ctx.send_layout = [(b.shape, b.dtype) for b in bufs[:ctx.n]]
 
     @staticmethod
     def backward(ctx, *grads):
@@ -193,14 +202,18 @@ class _SendrecvFn(torch.autograd.Function):
                    else [torch.zeros_like(g) for g in grads])
         return (None, None, None, None, *back, *to_recv)
 
+    @staticmethod
+    def jvp(ctx, _comm, _src, _dst, _n, *tangents):
+        return _SendrecvFn.apply(ctx.comm, ctx.src, ctx.dst, ctx.n,
+                                 *tangents)
 
-def _sendrecv_parts(sendbufs, recvbufs, comm, src, dst):
-    if torch.is_grad_enabled() and any(
-            b.requires_grad for b in (*sendbufs, *recvbufs)):
-        return list(_SendrecvFn.apply(comm, src, dst, len(sendbufs),
-                                      *sendbufs, *recvbufs))
-    got = move(comm, sendbufs, recvbufs, src, dst)
-    return list(recvbufs) if got is None else got
+    @staticmethod
+    def vmap(info, in_dims, comm, src, dst, n, *bufs):
+        bufs = [b.movedim(d, 0) if d is not None
+                else b.expand(info.batch_size, *b.shape)
+                for b, d in zip(bufs, in_dims[4:])]
+        out = _SendrecvFn.apply(comm, src, dst, n, *bufs)
+        return out, (0,) * len(out)
 
 
 @publishes_token
@@ -237,7 +250,7 @@ def sendrecv(
     if status is not None:
         status.source = ANY_SOURCE if src is None else src
         status.tag = sendtag
-    (y,) = _sendrecv_parts([sendbuf], [recvbuf], comm, src, dst)
+    (y,) = _SendrecvFn.apply(comm, src, dst, 1, sendbuf, recvbuf)
     return y, token
 
 
@@ -283,7 +296,8 @@ def sendrecv_multi(
     if status is not None:
         status.source = ANY_SOURCE if src is None else src
         status.tag = sendtag
-    return _sendrecv_parts(sendbufs, recvbufs, comm, src, dst), token
+    return list(_SendrecvFn.apply(comm, src, dst, len(sendbufs), *sendbufs,
+                                  *recvbufs)), token
 
 
 # -- send / recv ----------------------------------------------------------

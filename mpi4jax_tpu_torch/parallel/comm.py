@@ -268,6 +268,13 @@ class MeshComm(Comm):
         )
         return replace(self, groups=groups)
 
+    def expand_perm(self, pairs):
+        """Map (source, dest) pairs in comm-rank space to grid ranks, one
+        copy per split group (identity when the comm is not split)."""
+        if self.groups is None:
+            return list(pairs)
+        return [(g[s], g[d]) for g in self.groups for s, d in pairs]
+
     def sub(self, *axes):
         """Sub-communicator over a subset of axes (MPI_Cart_sub analog).
 

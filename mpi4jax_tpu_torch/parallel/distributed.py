@@ -48,12 +48,14 @@ import torch.distributed as dist
 
 from mpi4jax_tpu_torch.ops._core import ANY_SOURCE, pop_match
 from mpi4jax_tpu_torch.parallel.comm import MeshComm, default_comm, set_default_comm
+from mpi4jax_tpu_torch.utils.runtime import release_graphs
 
 __all__ = [
     "Transport",
     "initialize",
     "world_comm",
     "local_world",
+    "finalize",
     "DEFAULT_TIMEOUT_S",
 ]
 
@@ -71,13 +73,18 @@ _DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
            torch.bool, torch.complex64, torch.complex128)
 
 # reduction operators the backends compute natively; every other
-# (operator, dtype) goes through allgather + rank_ordered_fold
+# (operator, dtype) moves the rows (allgather, gather or alltoall) and
+# folds them in rank order (rank_ordered_fold)
 _NATIVE = {"sum": dist.ReduceOp.SUM, "prod": dist.ReduceOp.PRODUCT,
            "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
            "band": dist.ReduceOp.BAND, "bor": dist.ReduceOp.BOR,
            "bxor": dist.ReduceOp.BXOR}
 _NATIVE_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64)
 _BITWISE = ("band", "bor", "bxor")
+# what travels in place of the dtypes the backends do not carry (complex
+# travels as pairs of its real dtype, ``torch.view_as_real``)
+_AS_SIGNED = {torch.bool: torch.uint8, torch.uint16: torch.int16,
+              torch.uint32: torch.int32, torch.uint64: torch.int64}
 
 
 class Transport:
@@ -100,6 +107,10 @@ class Transport:
         self.pg = pg
         self.mail_pg = pg if mail_pg is None else mail_pg
         self.pg_ranks = pg_ranks  # comm rank -> the process group's rank
+        identity = list(pg_ranks) == list(range(self.size))
+        self._to_comm = None if identity else list(pg_ranks)
+        self._to_pg = None if identity else [
+            pg_ranks.index(p) for p in range(self.size)]
         self.backend = world.backend
         self.pending = []  # sends in flight: (works, buffers kept alive)
         self.stash = []  # received messages no recv has taken yet
@@ -107,13 +118,17 @@ class Transport:
     # -- staging: what a tensor looks like on the wire --------------------
 
     def _wire(self, t, private=False, host=None):
-        """``t`` as the backend moves it: contiguous, bool as uint8, and
-        in host memory for gloo (or with ``host``, as the mailbox
-        needs); with ``private``, never ``t``'s own memory."""
+        """``t`` as the backend moves it: contiguous, in a dtype the
+        backends carry (bool as uint8, complex as pairs of reals,
+        unsigned as signed of the same width), and in
+        host memory for gloo (or with ``host``, as the mailbox needs);
+        with ``private``, never ``t``'s own memory."""
         host = self.backend == "gloo" if host is None else host
         w = t.detach().contiguous()
-        if w.dtype == torch.bool:
-            w = w.view(torch.uint8)
+        if w.is_complex():
+            w = torch.view_as_real(w)
+        elif w.dtype in _AS_SIGNED:
+            w = w.view(_AS_SIGNED[w.dtype])
         if host and w.is_cuda:
             w = w.cpu()
         if private and w.data_ptr() == t.data_ptr():
@@ -121,16 +136,30 @@ class Transport:
         return w
 
     def _wire_empty(self, shape, dtype, device, host=None):
-        wire_dtype = torch.uint8 if dtype == torch.bool else dtype
+        if dtype.is_complex:
+            shape, dtype = (*shape, 2), dtype.to_real()
         if self.backend == "gloo" if host is None else host:
             device = torch.device("cpu")
-        return torch.empty(shape, dtype=wire_dtype, device=device)
+        return torch.empty(shape, dtype=_AS_SIGNED.get(dtype, dtype),
+                           device=device)
 
     @staticmethod
     def _unwire(w, dtype, device):
-        if dtype == torch.bool:
-            w = w.view(torch.bool)
+        if dtype.is_complex:
+            w = torch.view_as_complex(w.contiguous())
+        elif dtype in _AS_SIGNED:
+            w = w.view(dtype)
         return w.to(device)
+
+    def _pg_order(self, rows):
+        """Rows in comm-rank order -> in the process group's rank order
+        (a ``new_group`` numbers its members by world rank, a split
+        comm by (key, rank))."""
+        return rows if self._to_pg is None else rows[self._to_pg]
+
+    def _comm_order(self, rows):
+        """Rows in the process group's rank order -> comm-rank order."""
+        return rows if self._to_comm is None else rows[self._to_comm]
 
     # -- collectives -------------------------------------------------------
 
@@ -153,10 +182,70 @@ class Transport:
     def allgather(self, x):
         """``(size, *x.shape)``, row ``r`` from comm rank ``r``."""
         w = self._wire(x)
-        outs = [torch.empty_like(w) for _ in range(self.size)]
-        self.pg.allgather([outs], [w]).wait()
-        rows = torch.stack([outs[p] for p in self.pg_ranks])
-        return self._unwire(rows, x.dtype, x.device)
+        rows = w.new_empty((self.size, *w.shape))
+        self.pg.allgather([list(rows.unbind(0))], [w]).wait()
+        return self._unwire(self._comm_order(rows), x.dtype, x.device)
+
+    def alltoall(self, x):
+        """``x`` is ``(size, *rest)``: row ``p`` goes to comm rank
+        ``p``; row ``p`` of the result came from comm rank ``p``."""
+        w = self._pg_order(self._wire(x))
+        rows = torch.empty_like(w)
+        self.pg.alltoall_base(rows, w, [], [], dist.AllToAllOptions()).wait()
+        return self._unwire(self._comm_order(rows), x.dtype, x.device)
+
+    def reduce_scatter(self, x, reduce_op):
+        """``x`` is ``(size, *rest)``: comm rank ``p`` gets row ``p``
+        reduced over the ranks."""
+        w = self._pg_order(self._wire(x))
+        out = w.new_empty(w.shape[1:])
+        opts = dist.ReduceScatterOptions()
+        opts.reduceOp = reduce_op
+        self.pg.reduce_scatter([out], [list(w.unbind(0))], opts).wait()
+        return self._unwire(out, x.dtype, x.device)
+
+    # rooted collectives: ``root`` is a comm rank; the backend's calls
+    # take the process group's
+
+    def broadcast(self, x, root):
+        w = self._wire(x, private=True)
+        opts = dist.BroadcastOptions()
+        opts.rootRank, opts.rootTensor = self.pg_ranks[root], 0
+        self.pg.broadcast([w], opts).wait()
+        return self._unwire(w, x.dtype, x.device)
+
+    def reduce(self, x, reduce_op, root):
+        """The reduction on ``root``; None elsewhere."""
+        w = self._wire(x, private=True)
+        opts = dist.ReduceOptions()
+        opts.reduceOp, opts.rootRank, opts.rootTensor = (
+            reduce_op, self.pg_ranks[root], 0)
+        self.pg.reduce([w], opts).wait()
+        return self._unwire(w, x.dtype, x.device) if self.rank == root else None
+
+    def gather(self, x, root):
+        """``(size, *x.shape)`` on ``root``, in comm-rank order; None
+        elsewhere."""
+        w = self._wire(x)
+        rows = w.new_empty((self.size, *w.shape)) if self.rank == root else None
+        opts = dist.GatherOptions()
+        opts.rootRank = self.pg_ranks[root]
+        self.pg.gather([] if rows is None else [list(rows.unbind(0))], [w],
+                       opts).wait()
+        if rows is None:
+            return None
+        return self._unwire(self._comm_order(rows), x.dtype, x.device)
+
+    def scatter(self, x, root, shape, dtype, device):
+        """Row ``p`` of the root's ``x`` (``(size, *shape)``) to comm
+        rank ``p``; ``x`` is read on the root alone."""
+        out = self._wire_empty(shape, dtype, device)
+        opts = dist.ScatterOptions()
+        opts.rootRank = self.pg_ranks[root]
+        rows = ([list(self._pg_order(self._wire(x)).unbind(0))]
+                if self.rank == root else [])
+        self.pg.scatter([out], rows, opts).wait()
+        return self._unwire(out, dtype, device)
 
     def barrier(self):
         if self.backend == "gloo":
@@ -290,7 +379,9 @@ class World:
 
 class _StoreWorld(World):
     """A local world's rank: gloo groups built on one shared store, each
-    by its members alone."""
+    by its members alone.  A group numbers its members by world rank,
+    as ``new_group`` does, so the comm-rank mapping (``pg_ranks``) of a
+    split comm's groups runs here as it does under torchrun."""
 
     def __init__(self, store, prefix, rank, size, timeout):
         super().__init__(rank, size, "gloo", "cpu")
@@ -300,6 +391,7 @@ class _StoreWorld(World):
 
     def _make(self, partition, context):
         mine = next(g for g in partition if self.rank in g)
+        by_rank = sorted(mine)
         pg = None
         if len(mine) > 1:
             opts = dist.ProcessGroupGloo._Options()
@@ -310,10 +402,10 @@ class _StoreWorld(World):
                 interface="lo")]
             name = f"{self.prefix}/{context}/{'.'.join(map(str, mine))}"
             pg = dist.ProcessGroupGloo(
-                dist.PrefixStore(name, self.store), mine.index(self.rank),
+                dist.PrefixStore(name, self.store), by_rank.index(self.rank),
                 len(mine), opts)
         self._transports[(context, mine)] = Transport(
-            self, mine, pg, list(range(len(mine))))
+            self, mine, pg, [by_rank.index(m) for m in mine])
 
 
 class _DistWorld(World):
@@ -413,6 +505,39 @@ def world_comm(axes=None, *, set_default=False):
     return comm
 
 
+def finalize(world=None):
+    """End this rank's part of a world, on every rank after its last op:
+
+    1. wait for the device;
+    2. reset the CUDA graphs still alive (``utils/runtime.py:
+       release_graphs``): an NCCL chunk's graph holds NCCL work, and
+       destroying the groups under it hung;
+    3. a host barrier on the world's gloo group (the NCCL world's twin),
+       so that no rank tears down a group a peer still uses;
+    4. complete the sends in flight and drop the process groups (and
+       ``torch.distributed``'s default group).
+
+    ``world`` is the ``initialize``d job by default (steps 2 and 4 end
+    it; ``initialize`` may then join a new one); a local world's rank
+    passes ``comm.world`` (its graphs are not touched: the process goes
+    on)."""
+    global _dist_world
+    own = world is None or world is _dist_world
+    world = _dist_world if world is None else world
+    if world is None:
+        return
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    if own:
+        release_graphs()
+    if world.size > 1:
+        world.comm().transport().mail_pg.barrier().wait()
+    world.release()
+    if own:
+        dist.destroy_process_group()
+        _dist_world = None
+
+
 _local_worlds = itertools.count()
 
 
@@ -427,6 +552,12 @@ def local_world(n, fn, *, axes=None, timeout=DEFAULT_TIMEOUT_S,
     within ``deadline`` seconds (``timeout`` + 10 s by default).  If a
     rank raises, the first to fail is re-raised, naming its rank, once
     the others have ended (those waiting on it end at their timeout).
+
+    Forward-mode AD has one dual level per process: enter
+    ``torch.autograd.forward_ad.dual_level()`` around the call, not in
+    the ranks (``torch.func.jvp`` enters its own, so it runs in a world
+    of processes, or on one rank, but not in several thread ranks at
+    once).
     """
     store = dist.HashStore()
     store.set_timeout(datetime.timedelta(seconds=timeout))
@@ -439,7 +570,12 @@ def local_world(n, fn, *, axes=None, timeout=DEFAULT_TIMEOUT_S,
         world = _StoreWorld(store, prefix, rank, n, timeout)
         try:
             comm = world.comm(axes)
-            with default_comm(comm):
+            # autograd runs a CUDA tensor's backward on one thread per
+            # card, which the ranks would share: their backward
+            # collectives would wait there for each other until the
+            # timeout; each rank runs its own backward instead
+            with default_comm(comm), \
+                    torch.autograd.set_multithreading_enabled(False):
                 results[rank] = fn(comm)
             world.release()
         except Exception as exc:  # noqa: BLE001 (re-raised below)

@@ -7,18 +7,24 @@ host clock is only meaningful after one.  ``resolve_device`` is the one
 place that decides where an entry point runs: on the card unless the
 caller asked for the CPU, and never on the CPU by default.
 ``run_on_side_stream`` and ``graph_capture`` are how the port's
-entry points warm up and capture their CUDA graphs.
+entry points warm up and capture their CUDA graphs; ``release_graphs``
+resets the graphs still alive before a world ends
+(``parallel/distributed.py:finalize``).
 """
 
 import contextlib
 import gc
 import math
+import weakref
 
 import numpy as np
 import torch
 
 __all__ = ["drain", "best_mesh_shape", "resolve_device",
-           "run_on_side_stream", "graph_capture"]
+           "run_on_side_stream", "graph_capture", "release_graphs"]
+
+# every graph captured through graph_capture and still referenced
+_graphs = weakref.WeakSet()
 
 
 def drain(x):
@@ -92,6 +98,19 @@ def graph_capture(graph, pool=None, capture_error_mode=None):
                 else {"capture_error_mode": capture_error_mode})
         with torch.cuda.graph(graph, pool=pool, **mode):
             yield
+        _graphs.add(graph)
     finally:
         if enabled:
             gc.enable()
+
+
+def release_graphs():
+    """``reset()`` every CUDA graph captured through :func:`graph_capture`
+    that is still alive (its memory and the work it holds, NCCL calls
+    included, are let go; a reset graph cannot be replayed); returns how
+    many."""
+    graphs = list(_graphs)
+    for graph in graphs:
+        graph.reset()
+    _graphs.clear()
+    return len(graphs)

@@ -16,6 +16,7 @@ __all__ = [
     "check_rank_range",
     "check_comm",
     "check_op",
+    "check_root",
     "check_same_layout",
     "check_kernel_fields",
 ]
@@ -72,6 +73,18 @@ def check_op(op):
         f"op must be an mpi4jax_tpu_torch Op (e.g. reductions.SUM) or an op "
         f"name, got {type(op).__name__}"
     )
+
+
+def check_root(root, comm):
+    """Validate a root rank against the communicator size (MPI and the
+    reference both reject out-of-range roots; a silent mismatch here
+    would zero data instead of erroring)."""
+    root = check_static_int(root, "root")
+    if not 0 <= root < comm.size:
+        raise ValueError(
+            f"root={root} out of range for communicator of size {comm.size}"
+        )
+    return root
 
 
 def check_same_layout(a, b, what):

@@ -29,7 +29,6 @@ import mpi4jax_tpu as mj
 from mpi4jax_tpu.ops import reductions as jred
 
 import mpi4jax_tpu_torch as mt
-from mpi4jax_tpu_torch.ops import collectives as tcoll
 from mpi4jax_tpu_torch.ops import reductions as tred
 from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel.distributed import local_world
@@ -581,15 +580,6 @@ def test_clone_is_a_fresh_namespace():
         assert total == sum(range(4 * (r // 4), 4 * (r // 4) + 4))
 
 
-def test_not_ported_collectives_name_their_item():
-    # kept out of the package's namespace until they are ported
-    for op in (tcoll.alltoall, tcoll.bcast, tcoll.gather, tcoll.reduce,
-               tcoll.scatter, tcoll.reduce_scatter, tcoll.alltoall_multi):
-        assert not hasattr(mt, op.__name__)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            op(torch.zeros(4), comm=mt.MeshComm())
-
-
 # -- worlds --------------------------------------------------------------
 
 
@@ -631,6 +621,54 @@ def test_world_entry_points_without_a_world(monkeypatch):
     with pytest.raises(RuntimeError, match="does not cover"):
         local_world(2, lambda comm: comm.world.comm((("y", "x"), (2, 2))),
                     timeout=TIMEOUT)
+
+
+def test_finalize_ends_a_local_world_after_every_rank():
+    # its host barrier: no rank leaves before the late one arrives; then
+    # the rank's groups are dropped
+    reached = {}
+
+    def body(comm):
+        mt.allreduce(torch.ones(1), mt.SUM, comm=comm.sub("x"))
+        if comm.rank() == 0:
+            time.sleep(0.3)
+            reached[0] = time.monotonic()
+        distributed.finalize(comm.world)
+        assert comm.world._transports == {}
+        return time.monotonic()
+
+    left = local_world(4, body, axes=(("y", "x"), (2, 2)), timeout=TIMEOUT)
+    assert min(left) >= reached[0]
+
+
+def test_finalize_ends_the_joined_world_in_order(monkeypatch):
+    # device, graphs, barrier, groups; with no world joined, nothing
+    from mpi4jax_tpu_torch.utils import runtime
+
+    calls = []
+
+    class Graph:
+        def reset(self):
+            calls.append("graph reset")
+
+    class World:
+        size, device = 1, torch.device("cpu")
+
+        def release(self):
+            calls.append("groups released")
+
+    graphs = [Graph(), Graph()]
+    for g in graphs:
+        runtime._graphs.add(g)
+    monkeypatch.setattr(distributed, "_dist_world", World())
+    monkeypatch.setattr(distributed.dist, "destroy_process_group",
+                        lambda: calls.append("default group destroyed"))
+    distributed.finalize()
+    assert calls == ["graph reset", "graph reset", "groups released",
+                     "default group destroyed"]
+    assert distributed._dist_world is None and len(runtime._graphs) == 0
+    distributed.finalize()
+    assert len(calls) == 4
 
 
 def test_launch_counts_survive_racing_ranks(monkeypatch):

@@ -300,3 +300,65 @@ def test_runtime_helpers_match_jax():
     assert trt.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         trt.resolve_device("meta")
+
+
+# -- the public surface -------------------------------------------------------
+
+# names of the JAX package's surface the port has not ported yet, by the
+# ROADMAP.md Queue 1 item that ports them
+NOT_PORTED = {
+    5: {"ProcComm", "WorldResized"},
+    7: {"BucketedGradSync", "Request", "iallreduce", "ireduce_scatter",
+        "isend", "irecv", "wait", "waitall", "test",
+        "assert_requests_drained", "annotate_step", "step_scope",
+        "current_step", "end_step"},
+}
+
+
+def test_public_names_match_jax():
+    missing = set(mj.__all__) - set(mt.__all__)
+    assert missing == set().union(*NOT_PORTED.values())
+    for name in mt.__all__:
+        assert getattr(mt, name) is not None, name
+    # the port's top level also carries the halo exchange and the
+    # attention schemes, which the JAX package keeps in its submodules
+    from mpi4jax_tpu.parallel import halo as jhalo
+
+    for name in set(mt.__all__) - set(mj.__all__):
+        assert hasattr(mj.parallel, name) or hasattr(jhalo, name), name
+
+
+def test_capability_probes_and_version():
+    # this torch has no CUDA; no torch drives a TPU
+    assert mt.has_cuda_support() is False
+    assert mt.has_tpu_support() is False
+    # the same lookup on the same checkout: the JAX package's version
+    assert mt.__version__ == mj.__version__
+    with pytest.raises(AttributeError, match="no attribute 'nope'"):
+        mt.nope  # noqa: B018
+
+
+def test_token_array_matches_jax():
+    want = np.asarray(mj.token_array(mj.create_token()))
+    got = mt.token_array(mt.create_token())
+    assert got.dtype == torch.float32 and got.shape == want.shape == ()
+    assert got.item() == want.item()
+    assert mt.token_array(None).item() == 0.0
+    with pytest.raises(TypeError, match="token"):
+        mt.token_array("token")
+
+
+def test_expand_perm_matches_jax(comm1d):
+    from mpi4jax_tpu_torch.parallel.distributed import local_world
+
+    pairs = [(0, 1), (1, 2), (3, 0)]
+    splits = {"none": lambda c: c,
+              "halves": lambda c: c.split(lambda r: r // 4),
+              "parity_reversed": lambda c: c.split(lambda r: r % 2,
+                                                   key=lambda r: -r)}
+    got = local_world(8, lambda c: {k: f(c).expand_perm(pairs)
+                                    for k, f in splits.items()},
+                      axes=(("i",), (8,)), timeout=20.0)
+    for k, f in splits.items():
+        want = f(comm1d).expand_perm(pairs)
+        assert all(g[k] == want for g in got), k

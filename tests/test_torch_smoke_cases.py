@@ -1,0 +1,68 @@
+"""``chip_smoke.py``'s multi-rank op cases and BASELINE configs 3-4 on
+the CPU: the cases it holds on the card to a CPU local world (one card:
+a 2x2 local world over gloo; ``--nccl-world 4``: four NCCL processes)
+run here in a 2x2 local world, where the device is the CPU itself, and
+its holds raise on a shape that differs, naming the rank."""
+
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+from mpi4jax_tpu_torch.parallel import distributed
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+AXES = (("y", "x"), (2, 2))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_op_cases_run_and_hold(smoke):
+    # every case, the rooted ones with rank-dependent shapes, held to
+    # themselves (89: the 26 earlier ones, 54 of the other collectives,
+    # 8 backward and 1 forward-mode case)
+    n = smoke.multirank_ops_phase("cpu")
+    assert n == 89
+    with torch.autograd.forward_ad.dual_level():
+        got = distributed.local_world(
+            4, lambda c: smoke.run_op_cases(c, "cpu"), axes=AXES)
+    gather = [k for k, (name, dtype, _) in enumerate(got[0])
+              if name == "gather root 3" and dtype == "int32"][0]
+    assert tuple(got[3][gather][2].shape) == (4, 4, 257)
+    assert tuple(got[0][gather][2].shape) == (4, 257)
+    # the first case whose shapes differ between ranks 0 and 3
+    with pytest.raises(RuntimeError, match=r"rank 0: gather root 0 float32: "
+                       r"torch.float32 \(4, 4, 257\), not torch.float32 "
+                       r"\(4, 257\)"):
+        smoke.hold_op_cases(got[0], got[3], 0)
+
+
+def test_baseline_configs_round_trip(smoke, monkeypatch):
+    # configs 3 and 4 at 64x64 in place of 1024x1024: rank 0 gathers its
+    # own array back; the holds are exact
+    monkeypatch.setattr(smoke, "BASELINE_SIDE", 64)
+    got = distributed.local_world(
+        4, lambda c: smoke.baseline_collectives(c, "cpu", False)[0],
+        axes=AXES)
+    assert tuple(got[0]["config 3 gather"].shape) == (4, 16, 64)
+    assert tuple(got[1]["config 3 gather"].shape) == (16, 64)
+    assert torch.equal(got[2]["config 3 bcast"], got[0]["config 3 bcast"])
+    # row 0 of rank r's exchange is block r of rank 0's array
+    for r, g in enumerate(got):
+        assert torch.equal(g["config 4 alltoall world"][0],
+                           got[0]["config 3 bcast"][16 * r:16 * (r + 1)])
+    for r, g in enumerate(got):
+        readings = smoke.hold_baseline(g, g, r)
+        assert len(readings) == 6 and all(ok for *_, ok in readings)
+    with pytest.raises(RuntimeError, match="rank 1: config 3 gather"):
+        smoke.hold_baseline(got[1], got[0], 1)

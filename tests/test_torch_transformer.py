@@ -27,6 +27,7 @@ position.  Categorical sampling is held to JAX in
 
 import contextlib
 import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from mpi4jax_tpu.models import transformer as jtfm
 from mpi4jax_tpu_torch.examples import transformer_decode
 from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
+from mpi4jax_tpu_torch.utils import runtime
 from mpi4jax_tpu_torch.utils.runtime import graph_capture
 
 torch.set_num_threads(1)
@@ -415,8 +417,13 @@ def test_example_record_on_cpu():
 def test_graph_capture_holds_off_the_collector(monkeypatch):
     # a collection in the middle of a capture could free a dead graph,
     # whose memory release the capturing stream refuses: the collector is
-    # off for the capture and back on after it, an exception included
+    # off for the capture and back on after it, an exception included.
+    # A captured graph is kept (weakly) for distributed.finalize; one
+    # whose capture failed is not
     seen = []
+
+    class Graph:  # stands in for torch.cuda.CUDAGraph
+        pass
 
     @contextlib.contextmanager
     def fake_graph(graph, pool=None):
@@ -424,12 +431,15 @@ def test_graph_capture_holds_off_the_collector(monkeypatch):
         yield
 
     monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    monkeypatch.setattr(runtime, "_graphs", weakref.WeakSet())
+    graph, failed = Graph(), Graph()
     assert gc.isenabled()
-    with graph_capture("graph", "pool"):
+    with graph_capture(graph, "pool"):
         assert not gc.isenabled()
     assert gc.isenabled()
     with pytest.raises(ValueError):
-        with graph_capture("graph"):
+        with graph_capture(failed):
             raise ValueError
     assert gc.isenabled()
-    assert seen == [("graph", "pool", False), ("graph", None, False)]
+    assert seen == [(graph, "pool", False), (failed, None, False)]
+    assert list(runtime._graphs) == [graph]
