@@ -67,14 +67,15 @@ Phases, each of which raises on failure (nothing is caught):
    causal, and at [2, 2048, 16, 128]; the f32 (3xTF32) kernel at the
    training path's shape; both kernels (f32 and bf16) on a padded case,
    q/k offsets with and without fully masked rows, grouped-query heads
-   and D 128 with offsets: the largest and the mean output difference
+   and D 128 with offsets; the bf16 kernel at the MFU preset's shape
+   [16, 2048, 16, 128]: the largest and the mean output difference
    and the largest m and l difference, each within a limit that planted
    faults exceed; every case is checked before the phase raises.  The
-   bf16 kernel is timed at both path shapes, the f32 kernel at the f32
-   decode check's prefill shape [2, 1024, 8, 64] and at the training
-   path's shape, each beside its bound, its plain version and one
-   scaled_dot_product_attention call (with the kernels that call ran,
-   from a profiler trace).
+   bf16 kernel is timed at both path shapes and the MFU preset's, the
+   f32 kernel at the f32 decode check's prefill shape [2, 1024, 8, 64]
+   and at the training path's shape, each beside its bound, its plain
+   version and one scaled_dot_product_attention call (with the kernels
+   that call ran, from a profiler trace).
 6. path (decode): the long-prompt serving point (batch 4, prompt 8192,
    256 generated tokens, bf16, flash prefill, kv_bucket 16) through
    ``make_global_decode``, every launch count set to 0 just before each
@@ -108,37 +109,57 @@ Phases, each of which raises on failure (nothing is caught):
    the same inputs and the same forward (out, m, l): both pairs at the
    training path's shape [2, 8192, 16, 128] causal, and both pairs (f32
    and bf16) on a padded case, q/k offsets, fully masked rows,
-   grouped-query heads and D 32, the bf16 pair at D 64 too, each case on
-   its own seed and three more; for each of dq, dk and dv the mean
+   grouped-query heads and D 32, the bf16 pair at D 64 and at the MFU
+   preset's shape [16, 2048, 16, 128] too, each case on its own seed and
+   three more; for each of dq, dk and dv the mean
    absolute difference over max|plain| and the largest (f32: over
    max|plain|; bf16: in bf16 steps of max|plain|), each within a limit
    that planted faults exceed; every case is checked before the phase
    raises.  The bf16 pair is timed at
-   the path shape, the f32 pair at the f32 decode check's shape [2,
-   1024, 8, 64] causal and at the path shape, each beside its bound, its
+   the path shape and the MFU preset's, the f32 pair at the f32 decode
+   check's shape [2, 1024, 8, 64] causal and at the path shape, each beside its bound, its
    plain version and the backward of one scaled_dot_product_attention
    call (with the kernels its forward and backward ran, from a
    profiler trace).
-9. path (train): the long-context training preset (~940M parameters,
-   batch 2, seq 8192, bf16, flash attention; benchmarks/transformer.py
-   SIZES["long"], without remat) through ``make_global_train_step``:
-   one warm-up step, then timed steps with every launch count set to 0
-   just before each and read just after it: 16 launches of each of
-   the bf16 kernels (flash_fwd_mma, flash_bwd_dkv_mma,
-   flash_bwd_dq_mma) per step and none of the f32 ones.  Losses finite,
-   parameters changed; step ms, tokens/s, both MFU readings and the peak
-   memory are printed.  Then at 2 layers of the same width and sequence
-   the bf16 gradient of the loss on the kernel path is held against the
-   gradient on the plain path (the kernels' plain versions as the
-   attention function), leaf by leaf; and likewise in f32 at the decode
-   model's width (batch 2, seq 1024), where the f32 kernels launch once
-   per layer each.  The bf16 check runs on seed 1 and three more and also
-   reads each path against a float64 witness of the gradient (the same
-   loss from the same bf16 inputs in float64): per leaf the kernel path's
-   mean difference from it within ``TRAIN_WITNESS_RATIO`` of the plain
+9. path (train): the long-context training preset as written (~940M
+   parameters, batch 2, seq 8192, bf16, flash attention, remat="names";
+   benchmarks/transformer.py SIZES["long"]) through
+   ``make_global_train_step``: one warm-up step, then timed steps with
+   every launch count set to 0 just before each and read just after it:
+   per step 32 launches of flash_fwd_mma (the forward and the backward's
+   recompute of each layer) and 16 of each bf16 backward kernel
+   (flash_bwd_dkv_mma, flash_bwd_dq_mma), none of the f32 ones.  Losses
+   finite, parameters changed; step ms, tokens/s, both MFU readings and
+   the peak memory are printed beside the card's name and power limit.
+   Then at 2 layers of the same width and sequence the bf16 gradient of
+   the loss on the kernel path is held against the gradient on the
+   plain path (the kernels' plain versions as the attention function),
+   leaf by leaf; and likewise in f32 at the decode model's width (batch
+   2, seq 1024), where the f32 kernels launch once per layer each.  The
+   bf16 check runs on seed 1 and three more and also reads each path
+   against a float64 witness of the gradient (the same loss from the
+   same bf16 inputs in float64): per leaf the kernel path's mean
+   difference from it within ``TRAIN_WITNESS_RATIO`` of the plain
    path's, which sees a forward fault the largest difference cannot.
+   Each remat policy (``REMAT_POLICIES``: True, "dots", "names", two
+   save-lists) runs the kernel path too, on the same seeds: its loss
+   and every leaf equal bit for bit to the kernel path without remat,
+   and within ``TRAIN_WITNESS_RATIO`` of the plain path against the
+   witness, its launches 2 of flash_fwd_mma and 1 of each backward
+   kernel a layer.
 10. profile (train): one step under torch.profiler, for device time by
    kernel, the flash kernels' share of it and the idle share.
+10b. the bench's training legs (``bench.training_legs``): the small
+   preset's tokens/s, the bf16 matmul yardstick, the MFU preset
+   ("large", remat="names", the autotuned attention) and the long
+   preset, each once at 1 timed batch and 1 yardstick burst: every
+   leg's code on the card; the timed sizes are the bench's.  Every
+   launch count is set to 0 just before each leg's timed batch and read
+   just after it: per step and layer, the small preset (no remat) 1 of
+   each bf16 flash kernel, the large and long presets
+   (``TRAIN_LAUNCHES``) 2 of flash_fwd_mma and 1 of each bf16 backward
+   kernel, none of the f32 ones; the large leg's autotuned attention
+   must be the flash kernels.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -184,7 +205,10 @@ world bit for bit, each op's device ms by CUDA events and bus GB/s,
 then the solver with ``make_multistep`` as a CUDA graph that holds the
 NCCL exchanges (each rank first runs the one-rank reference on its
 card), then the 64 MB allreduce's bus bandwidth,
-``allreduce_busbw_gbps`` with ``allreduce_devices``; each rank ends its
+``allreduce_busbw_gbps`` with ``allreduce_devices``, then the bench
+across the world (``bench.run_bench(quick=True)`` on the 2x2 grid of the
+four cards): every rank must take the same schedule and return the same
+record, rank 0's finite with ``allreduce_devices`` 4; each rank ends its
 world with ``distributed.finalize()``.  It raises with fewer than four
 cards.
 
@@ -196,6 +220,7 @@ seeds of four cases (``WITNESS_CASES``): the evidence for the bf16
 limits' measure.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -320,9 +345,8 @@ F32_DECODE = dict(batch=2, prompt=1024, max_len=1152)
 # the categorical decode held to its eager run on the graphs
 CATEGORICAL = dict(temperature=0.8, top_k=50, seed=1234)
 
-# the long-context training preset (benchmarks/transformer.py:71-74) at
-# full width and depth, bf16, without remat (its "names" save-list is a
-# memory lever; the step fits in 80 GB without one)
+# the long-context training preset (benchmarks/transformer.py:71-74) as
+# written: full width and depth, bf16, remat="names"
 TRAIN = transformer_train.SIZES["long"]
 TRAIN_CFG = tfm.TransformerConfig(
     vocab=32768, d_model=TRAIN["d_model"], layers=TRAIN["layers"],
@@ -333,11 +357,28 @@ TRAIN_CFG = tfm.TransformerConfig(
 TRAIN_LR = 1e-3  # run's SGD rate (benchmarks/transformer.py:252)
 TRAIN_TIMED_STEPS = 3
 TRAIN_CHECK_LAYERS = 2
-# flash launches per layer of one bf16 training step: the bf16 kernels,
-# and none of the f32 ones
-TRAIN_LAUNCHES = {"flash_fwd": 0, "flash_fwd_mma": 1, "flash_bwd_dkv": 0,
+# flash launches per layer of one bf16 training step under a remat
+# policy: the bf16 kernels, the forward twice (the backward's recompute
+# runs it again, as JAX's policies do), and none of the f32 ones
+TRAIN_LAUNCHES = {"flash_fwd": 0, "flash_fwd_mma": 2, "flash_bwd_dkv": 0,
                   "flash_bwd_dq": 0, "flash_bwd_dkv_mma": 1,
                   "flash_bwd_dq_mma": 1}
+# flash launches per layer of one bf16 training step without remat (the
+# bench's small preset): each bf16 kernel once
+NO_REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, flash_fwd_mma=1)
+# the bench's training legs: the preset each runs and its flash launches
+# per layer of one step
+BENCH_TRAIN_LEGS = {"transformer": ("small", NO_REMAT_LAUNCHES),
+                    "transformer_large": ("large", TRAIN_LAUNCHES),
+                    "long_context": ("long", TRAIN_LAUNCHES)}
+# the MFU preset (benchmarks/transformer.py:58-61): its attention shape is
+# one more case of the flash kernels' checks and timings
+LARGE = transformer_train.SIZES["large"]
+LARGE_SHAPE = (LARGE["batch"], LARGE["seq"], LARGE["seq"], LARGE["heads"],
+               LARGE["kv_heads"], LARGE["d_model"] // LARGE["heads"])
+# the remat policies held on the card at the 2-layer bf16 gradient check
+REMAT_POLICIES = (True, "dots", "names", ("attn_out", "mlp_out"),
+                  tfm.CHECKPOINT_NAMES)
 # the f32 gradient check: the decode model's width (flash attention) at
 # batch 2, seq 1024, the f32 kernels once per layer each
 F32_TRAIN_CFG = DECODE_CFG._replace(attn_impl="flash")
@@ -400,6 +441,12 @@ TRAIN_GRAD_LIMIT = 5e-2
 # 1.8e-4 (head) to 4.3e-3 (ln2).
 TRAIN_WITNESS_RATIO = 1.2
 TRAIN_GRAD_EXTRA_SEEDS = 3
+# a remat policy's loss and gradient against the kernel path's without
+# remat: equal bit for bit (torch.equal).  The recompute runs the same
+# kernels and GEMMs on the same inputs, and every policy read so on four
+# seeds (PERF.md §6); a policy that saved or replayed a wrong tensor
+# moves some leaf.  Each policy's path is also held to the float64
+# witness as the kernel path is (TRAIN_WITNESS_RATIO).
 # the same in f32: the f32 kernels differ from their plain versions by
 # f32 summation order (about 1e-6 of the largest output: FLASH_LIMITS,
 # BWD_LIMITS), which two layers carry through LayerNorm and the matmuls'
@@ -1640,6 +1687,30 @@ def nccl_world(n):
     if any(codes) or len(records) != n:
         raise RuntimeError(f"the NCCL world failed: exit codes {codes}")
     log(json.dumps({"nccl_world": records}))
+    # the bench across the four cards: one schedule and one record on
+    # every rank (its decisions are taken on the slowest rank's time),
+    # finite, with its allreduce over the four
+    benches = [r["bench"] for r in records]
+    lead = benches[0]
+    numbers = [x for x in lead.values()
+               if isinstance(x, (int, float)) and not isinstance(x, bool)]
+    checks = {
+        "every rank took the same schedule":
+            len({b["ghost"] for b in benches}) == 1,
+        "every rank returned the same record":
+            all(b == lead for b in benches),
+        "rank 0's record is finite":
+            all(math.isfinite(x) for x in numbers) and lead["value"] > 0,
+        "allreduce_devices is 4": lead.get("allreduce_devices") == n,
+    }
+    for what, ok in checks.items():
+        log(f"bench across {n} cards: {what}: {'ok' if ok else 'FAIL'}")
+    log(f"bench across {n} cards (quick): {lead['value']:.1f} cell "
+        f"updates/s per card at ghost {lead['ghost']}, allreduce "
+        f"{lead.get('allreduce_busbw_gbps')} GB/s bus over "
+        f"{lead.get('allreduce_devices')} ranks")
+    if not all(checks.values()):
+        raise RuntimeError(f"the bench across the world failed: {checks}")
     return 0
 
 
@@ -1709,6 +1780,10 @@ def nccl_rank():
     step_ms = run["wall_s"] / run["steps"] * 1e3
     busbw = port_bench.allreduce_bandwidth(comm, device)
     log(f"rank {rank}: allreduce timed")
+    # the bench across the world: the flagship on the 2x2 grid, per card,
+    # and its allreduce leg (its stderr lines come from rank 0)
+    bench_rec = port_bench.run_bench(quick=True, device=device, comm=comm)
+    log(f"rank {rank}: bench run")
     rec = {"rank": rank, "steps": steps, "launches": counts,
            "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
            "cell_updates_per_s_per_card": cfg.ny * cfg.nx / comm.size
@@ -1718,7 +1793,8 @@ def nccl_rank():
            "baseline_ms_busbw": base_ms,
            "allreduce_busbw_gbps": busbw,
            "allreduce_devices": comm.size,
-           "allreduce_mb": port_bench.ALLREDUCE_MB}
+           "allreduce_mb": port_bench.ALLREDUCE_MB,
+           "bench": bench_rec}
     print(json.dumps(rec), flush=True)
     # the world ends through distributed.finalize (the solver's graph,
     # which holds NCCL work, reset before the groups go); a rank that
@@ -1827,6 +1903,7 @@ def flash_check_cases():
     # last, so that every earlier case keeps its seed (its index)
     cases.append(("train_path_f32", (tb, tt, tt, th, th, td),
                   torch.float32, True, 0, 0))
+    cases.append(("large_train", LARGE_SHAPE, torch.bfloat16, True, 0, 0))
     return cases
 
 
@@ -1861,7 +1938,7 @@ def flash_bounds(shape, dtype, with_lse):
 def flash_kernel_phase(device, timed=True):
     """Both forward kernels against their plain version at each kernel's
     key tile; then (``timed``) the bf16 kernel timed at both transformer
-    paths' shapes and the f32 kernel at the f32 decode check's prefill
+    paths' shapes and the MFU preset's, and the f32 kernel at the f32 decode check's prefill
     shape and at the training path's shape, each beside its bound, its
     plain version and one scaled_dot_product_attention call."""
     errs_by = {}
@@ -1925,6 +2002,8 @@ def flash_kernel_phase(device, timed=True):
          5, errs_by["path"]),
         ("flash_fwd_mma", "_train_shape", tshape, torch.bfloat16, True, 3,
          errs_by["train_path"]),
+        ("flash_fwd_mma", "_large_shape", LARGE_SHAPE, torch.bfloat16, True,
+         3, errs_by["large_train"]),
         ("flash_fwd", "", f32_shape, torch.float32, False, 5,
          worst(f32_names)),
         ("flash_fwd", "_train_shape", tshape, torch.float32, True, 3,
@@ -2427,6 +2506,7 @@ def bwd_check_cases():
         ("d64_bf16", (2, 512, 512, 4, 4, 64), torch.bfloat16, True, 0, 0),
         # last, so that every earlier case keeps its seed (its index)
         ("path_f32", (b, t, t, h, h, d), torch.float32, True, 0, 0),
+        ("large_train", LARGE_SHAPE, torch.bfloat16, True, 0, 0),
     ]
     return cases
 
@@ -2594,7 +2674,7 @@ def within(err, lim):
 def flash_bwd_kernel_phase(device, timed=True):
     """Both backward kernels of each dtype against their plain versions at
     the kernel's own key tile; then (``timed``) the bf16 pair timed at the
-    training path's shape and the f32 pair at the f32 decode check's
+    training path's shape and the MFU preset's, and the f32 pair at the f32 decode check's
     shape and at the training path's shape, each beside its bound, its
     plain version and the backward of one scaled_dot_product_attention
     call."""
@@ -2648,6 +2728,7 @@ def flash_bwd_kernel_phase(device, timed=True):
         (f32_shape, torch.float32,
          [c[0] for c in cases if c[2] == torch.float32], ""),
         (cases[0][1], torch.float32, ["path_f32"], "_train_shape"),
+        (LARGE_SHAPE, torch.bfloat16, ["large_train"], "_large_shape"),
     ]
     kernels = {}
     for shape, dtype, names, key in timings:
@@ -2764,18 +2845,18 @@ def train_data(cfg, device, seed=0, dtype=torch.bfloat16,
     return params, (tokens, torch.roll(tokens, -1, dims=1))
 
 
-def loss_and_grads(params, batch, cfg, comm_tp, comm_sp):
+def loss_and_grads(params, batch, cfg, comm_tp, comm_sp, remat=False):
     """The training step's loss and raw gradients (no update)."""
     leaves = tfm._leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     logits, aux = tfm._forward_sharded(params, batch[0], cfg, comm_tp,
-                                       comm_sp)
+                                       comm_sp, remat=remat)
     loss = tfm._ce(logits, batch[1]) + aux
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def train_path_phase(device, bwd_kernels, flash_kernel):
+def train_path_phase(device, bwd_kernels, flash_kernel, card):
     cfg = TRAIN_CFG
     batch_size, seq = TRAIN["batch"], TRAIN["seq"]
     world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
@@ -2783,13 +2864,14 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
     params, batch = train_data(cfg, device)
     n_params = sum(t.numel() for t in tfm._leaves(params))
     step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=TRAIN_LR,
-                                      device=device)
+                                      remat=TRAIN["remat"], device=device)
     before = [t.detach().clone() for t in tfm._leaves(params)]
     torch.cuda.reset_peak_memory_stats(device)
     (params, loss), warm_s = synced_seconds(lambda: step(params, batch))
     losses = [loss.item()]
     log(f"  make_global_train_step: {n_params / 1e6:.1f} M parameters, "
-        f"batch {batch_size}, seq {seq}, bf16, attn_impl='flash', no remat; "
+        f"batch {batch_size}, seq {seq}, bf16, attn_impl='flash', "
+        f"remat={TRAIN['remat']!r}; "
         f"warm-up step {warm_s:.4f} s, loss {losses[0]:.6f}")
 
     walls = []
@@ -2836,14 +2918,15 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
         mfu = {"mfu_pct": 100.0 * model_tflops / peak,
                "mfu_incl_attn_pct": 100.0 * (model_tflops + attn_tflops)
                / peak}
-    kernel_ms = cfg.layers * (flash_kernel["ms_train_shape"] + sum(
-        k["ms"] for k in bwd_kernels if TRAIN_LAUNCHES[k["name"]]))
+    kernel_ms = cfg.layers * (
+        TRAIN_LAUNCHES["flash_fwd_mma"] * flash_kernel["ms_train_shape"]
+        + sum(TRAIN_LAUNCHES[k["name"]] * k["ms"] for k in bwd_kernels))
     log(f"  step {best * 1e3:.4f} ms (best of {TRAIN_TIMED_STEPS}; all "
         f"{[round(w * 1e3, 4) for w in walls]}), {tokens / best:.2f} "
         f"tokens/s, {model_tflops:.4f} model TFLOP/s (6·N·tokens), "
         f"{model_tflops + attn_tflops:.4f} with the causal attention "
         f"scores; MFU {mfu}; the flash kernels {kernel_ms:.4f} ms of it at "
-        f"the kernel phases' rates; peak memory {peak_gb:.4f} GB")
+        f"the kernel phases' rates; peak memory {peak_gb:.4f} GB; on {card}")
     del params, step
     worst = train_grad_check(device)
     f32_worst, f32_launches = train_grad_check(device, torch.float32)
@@ -2857,7 +2940,7 @@ def train_path_phase(device, bwd_kernels, flash_kernel):
             "peak_memory_gb": peak_gb, "losses": losses,
             "warmup_s": warm_s, "grad_check_worst": worst,
             "f32_grad_check_worst": f32_worst,
-            "params_m": n_params / 1e6}
+            "params_m": n_params / 1e6, "remat": TRAIN["remat"]}
 
 
 class WitnessAttention(torch.autograd.Function):
@@ -2962,10 +3045,15 @@ def train_grad_check(device, dtype=torch.bfloat16):
     read against the float64 witness (:func:`witness_loss_and_grads`),
     and every leaf's kernel-path mean difference from it within
     ``TRAIN_WITNESS_RATIO`` of the plain path's; returns the worst of
-    each measure.  f32: at
-    the decode model's width, batch 2, seq 1024, on seed 1; returns the
-    worst reading and the kernel path's launches (each f32 flash kernel
-    once per layer).  Every seed is read before it raises."""
+    each measure; and the kernel path under each policy of
+    ``REMAT_POLICIES``, its loss and every leaf equal bit for bit to the
+    kernel path without remat and its mean difference from the witness
+    within ``TRAIN_WITNESS_RATIO`` of the plain path's, its launches
+    those of ``TRAIN_LAUNCHES`` (the worst of each under ``"remat"``).
+    f32: at the decode model's width, batch 2, seq 1024, on seed 1;
+    returns the worst reading and the kernel path's launches (each f32
+    flash kernel once per layer).  Every seed is read before it
+    raises."""
     world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
     tp, sp = world.sub("tp"), world.sub("sp")
     bf16 = dtype == torch.bfloat16
@@ -2975,16 +3063,27 @@ def train_grad_check(device, dtype=torch.bfloat16):
     shape = {} if bf16 else F32_TRAIN
     limits = ({"kp_max": TRAIN_GRAD_LIMIT, "ratio": TRAIN_WITNESS_RATIO}
               if bf16 else {"kp_max": F32_GRAD_LIMIT})
-    paths = [("kernel", "flash"), ("plain", plain_train_attention)]
+    # label, attention, remat
+    paths = [("kernel", "flash", False), ("plain", plain_train_attention,
+                                          False)]
+    policies = [f"remat {policy!r}" for policy in REMAT_POLICIES] \
+        if bf16 else []
     if bf16:
-        paths.append(("witness", None))
+        paths.append(("witness", None, False))
+        paths += [(label, "flash", policy)
+                  for label, policy in zip(policies, REMAT_POLICIES)]
     seeds = (1, *extra_seeds(1, TRAIN_GRAD_EXTRA_SEEDS)) if bf16 else (1,)
     worst = dict.fromkeys(("kp_max", "kp_mean", "kw_max", "kw_mean",
                            "pw_max", "pw_mean", "ratio"), 0.0)
+    remat_worst = {label: {"nr_max": 0.0, "ratio": 0.0, "identical": True}
+                   for label in policies}
+    remat_limits = {"ratio": TRAIN_WITNESS_RATIO}
+    remat_launches = {kname: TRAIN_CHECK_LAYERS * n
+                      for kname, n in TRAIN_LAUNCHES.items()}
     failed = []
     for seed in seeds:
         grads = {}
-        for label, impl in paths:
+        for label, impl, remat in paths:
             params, batch = train_data(check_cfg, device, seed=seed,
                                        dtype=dtype, **shape)
             reset_launch_counts()
@@ -2994,9 +3093,14 @@ def train_grad_check(device, dtype=torch.bfloat16):
             else:
                 grads[label] = loss_and_grads(
                     params, batch, check_cfg._replace(attn_impl=impl), tp,
-                    sp)
+                    sp, remat=remat)
             if label == "kernel":
                 counts = launch_counts()
+            elif remat:
+                got = {k: n for k, n in launch_counts().items()
+                       if k in remat_launches}
+                if got != remat_launches:
+                    failed.append((seed, label, f"launches {got}"))
             del params
         torch.cuda.synchronize()
         log(f"  {TRAIN_CHECK_LAYERS}-layer {name} gradient, seed {seed}: "
@@ -3018,6 +3122,37 @@ def train_grad_check(device, dtype=torch.bfloat16):
                 f"{key} {x:.3e}" for key, x in r.items() if key != "finite")
                 + ("" if r["finite"] else " NOT FINITE")
                 + (f" FAIL {bad}" if bad else ""))
+        for label in policies:
+            # the policy's kernel path against no remat ("nr") and, in
+            # the kernel path's place, against the witness
+            bad_leaves = []
+            if not torch.equal(grads[label][0], grads["kernel"][0]):
+                bad_leaves.append("loss")
+            top = {"nr_max": 0.0, "ratio": 0.0, "identical": True}
+            for leaf, rg, kg, pg, wg in zip(
+                    transformer_names(), grads[label][1], grads["kernel"][1],
+                    grads["plain"][1], witness):
+                r = {"nr_max": grad_readings(rg, kg)["kp_max"],
+                     **grad_readings(rg, pg, wg)}
+                same = torch.equal(rg, kg)
+                top["identical"] = top["identical"] and same
+                for key in ("nr_max", "ratio"):
+                    top[key] = max(top[key], r[key])
+                if not (same and r["finite"] and all(
+                        r[key] <= lim for key, lim in remat_limits.items())):
+                    bad_leaves.append(leaf)
+            if bad_leaves:
+                failed.append((seed, label, bad_leaves))
+            total = remat_worst[label]
+            total["identical"] = total["identical"] and top["identical"]
+            for key in ("nr_max", "ratio"):
+                total[key] = max(total[key], top[key])
+            log(f"    {name} gradient seed {seed}, {label} (kernel path): "
+                f"loss {grads[label][0].item():.8f}, worst leaf nr_max "
+                f"(against no remat) {top['nr_max']:.3e}, witness ratio "
+                f"{top['ratio']:.3e}, bit for bit with no remat "
+                f"{top['identical']}"
+                + (f" FAIL {bad_leaves}" if bad_leaves else ""))
         del grads
     if not bf16:
         want = {kname: TRAIN_CHECK_LAYERS if kname in (
@@ -3030,10 +3165,63 @@ def train_grad_check(device, dtype=torch.bfloat16):
         f"path over {len(seeds)} seed(s), worst: " + ", ".join(
             f"{key} {x:.3e}" for key, x in worst.items() if x)
         + f" (limits {limits}) {'FAIL' if failed else 'ok'}")
+    for label, top in remat_worst.items():
+        log(f"  {TRAIN_CHECK_LAYERS}-layer {name} gradient, {label} over "
+            f"{len(seeds)} seed(s), worst: nr_max {top['nr_max']:.3e}, "
+            f"ratio {top['ratio']:.3e} (limits {remat_limits}, and bit for "
+            f"bit with no remat); bit for bit with no remat on every seed "
+            f"{top['identical']}")
     if failed:
         raise RuntimeError(f"the {name} training gradient on the kernel "
-                           f"path disagrees with the plain path: {failed}")
-    return worst if bf16 else (worst["kp_max"], counts)
+                           f"path disagrees with the plain path or with no "
+                           f"remat: {failed}")
+    return dict(worst, remat=remat_worst) if bf16 else (worst["kp_max"],
+                                                       counts)
+
+
+def bench_training_phase(device, card):
+    """The bench's training legs (``bench.training_legs``) at 1 timed
+    batch and 1 yardstick burst.  Every launch count is set to 0 just
+    before each leg's timed batch and read just after it, and must be
+    the leg's launches per layer and step (``BENCH_TRAIN_LEGS``) times
+    its layers and timed steps; the large leg's autotuned attention must
+    be the flash kernels; every reading a positive finite number.
+    Returns the legs' keys and the counts read."""
+    counted = {}
+
+    @contextlib.contextmanager
+    def timed(leg, steps):
+        reset_launch_counts()
+        yield
+        counted[leg] = (steps, launch_counts())
+
+    keys = port_bench.training_legs(device, batches=1, roofline_reps=1,
+                                    timed=timed)
+    log(f"  {json.dumps(keys)} on {card}")
+    failed = []
+    numbers = {key: x for key, x in keys.items()
+               if not key.endswith("_attn_impl")}
+    if not all(math.isfinite(x) and x > 0 for x in numbers.values()):
+        failed.append(f"a reading is not a positive finite number: "
+                      f"{numbers}")
+    if keys["transformer_large_attn_impl"] != "flash":
+        failed.append(f"the large leg's attention is "
+                      f"{keys['transformer_large_attn_impl']!r}, not the "
+                      f"flash kernels")
+    launches = {}
+    for leg, (preset, per_layer) in BENCH_TRAIN_LEGS.items():
+        steps, counts = counted[leg]
+        layers = port_bench.TRAIN_SIZES[preset]["layers"]
+        want = {kname: layers * n * steps for kname, n in per_layer.items()}
+        got = {kname: counts[kname] for kname in per_layer}
+        launches[leg] = {"steps": steps, "layers": layers, "counts": got}
+        log(f"  {leg} ({preset}): launches over its {steps} timed steps "
+            f"{got}; expected {want}")
+        if got != want:
+            failed.append(f"{leg} launched {got}, expected {want}")
+    if failed:
+        raise RuntimeError(f"the bench's training legs: {failed}")
+    return dict(keys, launches=launches)
 
 
 def transformer_names():
@@ -3049,7 +3237,7 @@ def train_profile_phase(device, train):
     params, batch = train_data(TRAIN_CFG, device)
     step = tfm.make_global_train_step(
         world.sub("dp"), world.sub("tp"), world.sub("sp"), TRAIN_CFG,
-        lr=TRAIN_LR, device=device)
+        lr=TRAIN_LR, remat=TRAIN["remat"], device=device)
     step(params, batch)  # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -3389,11 +3577,15 @@ def main(argv):
 
     log(f"phase path, train (long-context preset: {TRAIN_CFG.layers} "
         f"layers, d_model {TRAIN_CFG.d_model}, batch {TRAIN['batch']}, seq "
-        f"{TRAIN['seq']}, bf16, flash attention)")
-    train = train_path_phase(device, bwd_kernels, flash_kernel)
+        f"{TRAIN['seq']}, bf16, flash attention, remat={TRAIN['remat']!r})")
+    train = train_path_phase(device, bwd_kernels, flash_kernel, card)
 
     log("phase profile, train (one step under torch.profiler)")
     train_profile = train_profile_phase(device, train)
+
+    log("phase bench training legs (bench.training_legs: small, matmul "
+        "yardstick, large, long; 1 timed batch and 1 yardstick burst each)")
+    bench_training = bench_training_phase(device, card)
 
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
@@ -3403,6 +3595,7 @@ def main(argv):
                     "decode_profile": decode_profile,
                     "short_decode": short_decode,
                     "train_path": train, "train_profile": train_profile,
+                    "bench_training": bench_training,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES}}))

@@ -4,45 +4,55 @@ The counterpart of ``benchmarks/transformer.py:run`` in dense mode:
 tokens per second through ``make_global_train_step`` on one rank, with
 the same JSON record (model FLOPs as 6·N·tokens, with and without the
 causal attention scores, and the MFU of both against the card's bf16
-tensor-core peak).  The presets are the benchmark's ``SIZES``; weights
-and tokens are random, made from a fixed seed.
+tensor-core peak).  The presets are the benchmark's ``SIZES``, remat
+policy included; weights and tokens are random, made from a fixed seed.
 
 Usage:
 
     # the long-context preset: ~940M parameters (vocab 32768, d_model
     # 2048, 16 layers, 16 heads of 128, d_ff 8192), batch 2, seq 8192,
-    # bf16, attention and its gradient through the hand-written CUDA
-    # flash kernels
+    # bf16, remat="names", attention and its gradient through the
+    # hand-written CUDA flash kernels
     python -m mpi4jax_tpu_torch.examples.transformer_train --size long --bf16
+
+    # the MFU preset (batch 16, seq 2048, the same model, remat="names"),
+    # its attention picked by timing flash against the dense path
+    python -m mpi4jax_tpu_torch.examples.transformer_train --size large \
+        --bf16 --attn-impl autotune
 
     # the plain PyTorch path on the CPU, small
     python -m mpi4jax_tpu_torch.examples.transformer_train --device cpu \\
         --batch 2 --seq 32 --layers 2 --d-model 32 --heads 4 --kv-heads 2 \\
         --d-ff 64 --vocab 64 --attn-impl flash --batches 1
 
-The preset's ``remat="names"`` (a JAX save-list policy, a memory lever
-that leaves the numbers as they are) is not ported; the presets here run
-without remat, which fits the long preset on an 80 GB card.  Timing
-follows ``run``: one untimed step (it builds the kernels at first use),
+``--remat`` recomputes each layer in the backward, ``--remat-policy``
+picks the policy (``full``, ``dots``, ``names`` or ``save:TAG,...``) and
+overrides the preset's.  ``--attn-impl autotune`` times the flash
+kernels against the dense attention at the run's shape
+(:func:`autotune_attn_impl`); a preset's own attention (``long``:
+flash) wins over ``auto`` and ``autotune``.  Timing follows ``run``: one untimed step (it builds the kernels at first use),
 one measured step that sizes the timed batches (at least 4 steps each,
 about a second), then the best of ``--batches`` batches, each ended by a
 device synchronize.  The loss must stay finite.
 """
 
 import argparse
+import contextlib
+import inspect
 import json
+import sys
 import time
 
 import torch
 
-# benchmarks/transformer.py SIZES; remat is left out (see above)
+# benchmarks/transformer.py SIZES
 SIZES = {
     "small": dict(batch=8, seq=1024, layers=8, d_model=512, heads=8,
                   kv_heads=8, d_ff=2048),
     "large": dict(batch=16, seq=2048, layers=16, d_model=2048, heads=16,
-                  kv_heads=16, d_ff=8192),
+                  kv_heads=16, d_ff=8192, remat="names"),
     "long": dict(batch=2, seq=8192, layers=16, d_model=2048, heads=16,
-                 kv_heads=16, d_ff=8192, attn_impl="flash"),
+                 kv_heads=16, d_ff=8192, remat="names", attn_impl="flash"),
 }
 
 # dense bf16 tensor-core peak per card (NVIDIA's data sheet, SXM part),
@@ -69,11 +79,63 @@ def attention_flops(cfg, batch, seq):
         * cfg.head_dim * 0.5
 
 
+def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
+                       reps=3, device="cuda"):
+    """Time the flash kernels against the dense attention (``"xla"``),
+    forward and backward, at ``[batch, seq, heads, head_dim]`` bf16, and
+    return the faster one's name (``benchmarks/transformer.py``'s).
+
+    Each timed call chains ``chain`` gradients of the causal attention's
+    ``sum(out²)``, each step's q moved by ``1e-9·dq``, and ends in a
+    synchronise; the best of ``reps`` calls after a warm one.  The batch
+    is clamped to 8, as there: the ratio does not depend on it and the
+    dense leg's [T, T] scores grow with it.  On the CPU it returns
+    ``"auto"`` (the JAX version's off-TPU answer) without timing.  On the
+    card both legs run, and an error in either raises."""
+    from mpi4jax_tpu_torch.parallel.longseq import local_attention
+    from mpi4jax_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return "auto"
+    shape = (min(batch, 8), seq, heads, head_dim)
+    k, v = (torch.ones(shape, dtype=torch.bfloat16, device=device,
+                       requires_grad=True) for _ in range(2))
+    timings = {}
+    for impl in ("flash", "xla"):
+        def call(impl=impl):
+            q = torch.ones(shape, dtype=torch.bfloat16, device=device)
+            for _ in range(chain):
+                q.requires_grad_(True)
+                out = local_attention(q, k, v, causal=True, impl=impl)
+                dq, _, _ = torch.autograd.grad(
+                    (out.float() ** 2).sum(), (q, k, v))
+                q = (q + 1e-9 * dq).detach()
+            torch.cuda.synchronize(device)
+
+        call()  # builds the kernels, warms up
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            best = min(best, time.perf_counter() - t0)
+        timings[impl] = best
+    winner = min(timings, key=timings.get)
+    print(f"[transformer-train] attn autotune at {list(shape)}: "
+          f"{timings} -> {winner}", file=sys.stderr)
+    return winner
+
+
 def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
-        d_ff=2048, vocab=32768, bf16=False, batches=8, attn_impl="auto",
-        device="cuda"):
+        d_ff=2048, vocab=32768, bf16=False, batches=8, remat=False,
+        attn_impl="auto", ce_chunk=0, device="cuda", timed=None):
     """Train-step throughput record (``run``'s keys, and the device it
-    ran on)."""
+    ran on).  ``remat`` and ``ce_chunk`` are the training step's (see
+    ``make_global_train_step``); the record names both as ``run``'s
+    does, and the peak device memory on the card.  ``timed(steps)``,
+    given, is a context entered around the timed batches, ``steps``
+    training steps in all (``chip_smoke.py`` counts the kernels'
+    launches in it)."""
     from mpi4jax_tpu_torch.models import transformer as tfm
     from mpi4jax_tpu_torch.parallel.comm import MeshComm
     from mpi4jax_tpu_torch.utils.runtime import drain, resolve_device
@@ -85,12 +147,12 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     cfg = tfm.TransformerConfig(
         vocab=vocab, d_model=d_model, layers=layers, heads=heads,
         kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
-        attn_impl=attn_impl,
+        attn_impl=attn_impl, ce_chunk=ce_chunk,
     )
     gen = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_params(cfg, generator=gen, dtype=dtype, device=device)
     step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
-                                      device=device)
+                                      remat=remat, device=device)
     tokens = torch.randint(0, vocab, (batch, seq), generator=gen,
                            device=device)
     data = (tokens, torch.roll(tokens, -1, dims=1))
@@ -98,6 +160,9 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     n_params = sum(t.numel() for t in tfm._leaves(params))
     tokens_per_step = batch * seq
 
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     params, loss = step(params, data)  # builds the kernels, warms up
     drain(loss)
 
@@ -108,12 +173,13 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     steps = max(4, min(50, int(1.0 / per_step)))
 
     walls = []
-    for _ in range(batches):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            params, loss = step(params, data)
-        drain(loss)
-        walls.append(time.perf_counter() - t0)
+    with (timed or (lambda n: contextlib.nullcontext()))(batches * steps):
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                params, loss = step(params, data)
+            drain(loss)
+            walls.append(time.perf_counter() - t0)
     best = min(walls) / steps
     if not torch.isfinite(loss).all():
         raise RuntimeError(f"the training loss diverged: {loss}")
@@ -135,18 +201,64 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         "step_ms": best * 1e3,
         "model_tflops_per_sec": model_tflops,
         "model_tflops_incl_attn": incl_attn_tflops,
-        "remat": False,
+        "remat": list(remat) if isinstance(remat, (tuple, list)) else remat,
+        **({"ce_chunk": ce_chunk} if ce_chunk else {}),
         "attn_impl": attn_impl,
         "loss": float(loss[0]),
         "steps_per_batch": steps,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": torch.cuda.get_device_name(device) if on_card else "cpu",
     }
+    if on_card:
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     peak = _peak_tflops(device) if bf16 else None
     if peak:
         rec["mfu_pct"] = 100.0 * model_tflops / peak
         rec["mfu_incl_attn_pct"] = 100.0 * incl_attn_tflops / peak
     return rec
+
+
+# run's keyword defaults, from which preset_run fills a preset
+RUN_DEFAULTS = {name: param.default
+                for name, param in inspect.signature(run).parameters.items()}
+
+
+def preset_run(preset, attn_impl="auto", **overrides):
+    """``run`` of ``preset`` (an entry of ``SIZES``, or ``{}`` for
+    ``run``'s defaults) with ``overrides``, each of which wins over the
+    preset unless it is None: the one place a preset becomes a run.  The
+    preset's ``remat`` applies unless ``remat`` is given; its own
+    attention wins over ``"auto"`` and ``"autotune"`` (long's dense leg
+    would hold [8192, 8192] scores per head); ``"autotune"`` times flash
+    against the dense attention at the run's shape
+    (:func:`autotune_attn_impl`)."""
+    kw = {**RUN_DEFAULTS, **preset}
+    kw.update((key, value) for key, value in overrides.items()
+              if value is not None)
+    if attn_impl not in ("auto", "autotune") or "attn_impl" not in preset:
+        kw["attn_impl"] = attn_impl
+    if kw["attn_impl"] == "autotune":
+        kw["attn_impl"] = autotune_attn_impl(
+            batch=kw["batch"], seq=kw["seq"], heads=kw["heads"],
+            head_dim=kw["d_model"] // kw["heads"], device=kw["device"])
+    return run(**kw)
+
+
+def remat_policy(text, error):
+    """``--remat-policy``'s value as the step's ``remat``: ``full`` is
+    True, ``dots`` and ``names`` themselves, ``save:A,B`` the tuple
+    ``("A", "B")``; anything else calls ``error`` with
+    ``benchmarks/transformer.py``'s message."""
+    if text == "full":
+        return True
+    if text.startswith("save:"):
+        tags = tuple(t for t in text[5:].split(",") if t)
+        if not tags:
+            error("save: needs at least one tag (e.g. save:attn_out)")
+        return tags
+    if text in ("dots", "names"):
+        return text
+    error(f"--remat-policy must be full, dots, names or "
+          f"save:TAG[,TAG...], got {text!r}")
 
 
 def main(argv=None):
@@ -161,8 +273,19 @@ def main(argv=None):
         p.add_argument(f"--{flag}", type=int, default=None)
     p.add_argument("--vocab", type=int, default=32768)
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--attn-impl", choices=("auto", "flash", "xla"),
-                   default=None)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each layer in the backward")
+    p.add_argument(
+        "--remat-policy", default=None,
+        help="checkpoint policy (overrides the preset's): full = save "
+        "nothing per layer, dots = save every projection's output, names "
+        "= save q/k/attn-out/mlp-out only, or save:TAG[,TAG...] for a "
+        "save-list drawn from qkv/v_proj/attn_out/mlp_out",
+    )
+    p.add_argument("--attn-impl", choices=("auto", "flash", "xla",
+                                           "autotune"), default="auto",
+                   help="single-device attention; 'autotune' times flash "
+                   "against the dense attention and keeps the faster")
     p.add_argument("--batches", type=int, default=8,
                    help="timed batches (the best is taken)")
     p.add_argument(
@@ -171,13 +294,15 @@ def main(argv=None):
         "plain PyTorch versions)",
     )
     args = p.parse_args(argv)
-    kw = dict(SIZES[args.size]) if args.size else {}
-    for key in ("batch", "seq", "layers", "d_model", "heads", "kv_heads",
-                "d_ff", "attn_impl"):
-        if getattr(args, key) is not None:
-            kw[key] = getattr(args, key)
-    rec = run(**kw, vocab=args.vocab, bf16=args.bf16, batches=args.batches,
-              device=args.device)
+    preset = SIZES[args.size] if args.size else {}
+    remat = (remat_policy(args.remat_policy, p.error) if args.remat_policy
+             else preset.get("remat", False) or args.remat)
+    rec = preset_run(
+        preset, attn_impl=args.attn_impl, remat=remat, vocab=args.vocab,
+        bf16=args.bf16, batches=args.batches, device=args.device,
+        **{key: getattr(args, key) for key in (
+            "batch", "seq", "layers", "d_model", "heads", "kv_heads",
+            "d_ff")})
     print(json.dumps(rec))
     return rec
 

@@ -8,8 +8,9 @@ layer math, and
 
 * training: :func:`make_global_train_step` (forward, backward and an
   SGD update; the streaming or chunked cross-entropy; per-layer
-  recomputation with ``remat=True``) and its unsharded oracle
-  :func:`reference_loss`.  With ``attn_impl="flash"`` the attention and
+  recomputation with ``remat=True`` and the partial policies
+  ``"dots"``, ``"names"`` and tuple save-lists) and its unsharded
+  oracle :func:`reference_loss`.  With ``attn_impl="flash"`` the attention and
   its gradient run the hand-written CUDA flash-attention kernels.
 * inference: :func:`make_global_decode` — a batched causal prefill over
   the prompt that fills the cache, then one cached step per generated
@@ -25,7 +26,6 @@ sync are identities (they stay in the code, where a tensor-parallel run
 needs them), and ring/ulysses attention take their one-rank shortcut.
 Larger data-, tensor- or sequence-parallel comms raise naming
 :data:`MESH_ITEM`.
-Not ported yet: the partial-remat policies (:data:`REMAT_ITEM`).
 
 Where the JAX package returns new arrays, the decoder here writes its
 static KV cache in place (zeroed at the start of every call, each
@@ -33,13 +33,21 @@ position written once), and the training step updates the parameters
 in place.
 """
 
+import contextlib
+import functools
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from mpi4jax_tpu_torch.ops import reductions
 from mpi4jax_tpu_torch.ops._core import create_token
@@ -67,6 +75,7 @@ __all__ = [
     "reference_greedy_decode",
     "reference_sample_decode",
     "CHECKPOINT_NAMES",
+    "checkpoint_tag",
     "TP_SHARDED",
     "config_from_jax",
     "params_from_jax",
@@ -78,14 +87,34 @@ MESH_ITEM = (
     "sequence-parallel meshes and param_specs)"
 )
 
-REMAT_ITEM = (
-    "ROADMAP.md Queue 1 item 13 (the partial-remat policies 'dots', "
-    "'names' and tuple save-lists)"
-)
-
 # checkpoint_name tags of the JAX package's layer; remat may name a
-# tuple of them as a save-list (validated here, not ported yet)
+# tuple of them as a save-list, and "names" saves NAMES_SAVED (of which
+# "mlp_out" keeps nothing, as in JAX: _recompute_layers)
 CHECKPOINT_NAMES = ("qkv", "v_proj", "attn_out", "mlp_out")
+NAMES_SAVED = ("qkv", "attn_out", "mlp_out")
+
+_MM = torch.ops.aten.mm.default
+_tag = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_tag(name):
+    """Tag the projection computed inside the block with ``name`` (one
+    of :data:`CHECKPOINT_NAMES`), as the JAX layer's ``checkpoint_name``
+    tags its output: a policy that saves ``name`` keeps the output of
+    the block's ``aten.mm`` (a 3-D by 2-D ``@`` reaches the dispatcher
+    as one), so the backward's recompute returns it without running the
+    product again.  Inert outside a checkpointed region.
+
+    ``"mlp_out"`` marks the MLP's output product, which no policy saves
+    (:func:`_recompute_layers`); a custom ``mlp`` that ends in a product
+    tags it so, or ``"dots"`` keeps that product for nothing."""
+    prev = getattr(_tag, "name", None)
+    _tag.name = name
+    try:
+        yield
+    finally:
+        _tag.name = prev
 
 
 class TransformerConfig(NamedTuple):
@@ -229,7 +258,9 @@ def _dense_mlp(h2, bp, cfg, comm_tp, comm_sp, token):
     """Megatron MLP: column-sharded up, row-sharded down, g-allreduce.
     ``jax.nn.gelu`` is the tanh approximation, and so is this one."""
     h2, token = _f_collective(h2, comm_tp, token)
-    m_part = F.gelu(h2 @ bp.w1, approximate="tanh") @ bp.w2
+    m_part = F.gelu(h2 @ bp.w1, approximate="tanh")
+    with checkpoint_tag("mlp_out"):
+        m_part = m_part @ bp.w2
     return allreduce(m_part, reductions.SUM, comm=comm_tp, token=token)
 
 
@@ -256,10 +287,38 @@ def dense_layer(x, bp, cfg):
 
 
 def _recompute_layers(remat):
-    """Validate ``remat`` as the JAX package's ``_forward_sharded`` does;
-    True when each layer is to be recomputed in the backward.  The
-    partial policies ("dots", "names", a tuple save-list) are validated,
-    then raise: they are :data:`REMAT_ITEM`."""
+    """Validate ``remat`` as the JAX package's ``_forward_sharded`` does.
+    Returns None without remat, else the ``context_fn`` of the layer's
+    ``torch.utils.checkpoint`` (its default, ``noop_context_fn``, for
+    ``remat=True``: recompute everything).
+
+    The partial policies are selective activation checkpointing: the
+    policy sees each dispatcher op of the layer's forward and saves the
+    outputs it names; every other op runs again in the backward.
+    ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``) saves every
+    ``aten.mm``: the projections, not the attention's batched products
+    (``bmm``) nor the flash forward, which the dispatcher does not see
+    (a ctypes launch).  ``"names"`` saves the products tagged ``"qkv"``
+    and ``"attn_out"`` (:func:`checkpoint_tag`), a tuple exactly its
+    tags.  Allocations are never saved: the flash kernels write into
+    theirs outside autograd's version counters.
+
+    Two tags sit elsewhere than the JAX layer's:
+
+    * ``"mlp_out"``: JAX tags the MLP's output, which no backward reads
+      (a residual add follows it), so JAX keeps no residual for it under
+      any policy, ``"dots"`` included.  Here the backward's recompute
+      ends once it has rebuilt the last tensor the layer's backward
+      saved, the output product's inputs (torch's early stop, on by
+      default), so that product never runs again; saving it would hold
+      one ``[tokens, d]`` a layer unread.  No policy saves it.
+    * ``"attn_out"``: JAX tags the attention's output after the
+      tensor-parallel allreduce; here the ``wo`` product before it, the
+      op that computes it (an eager recompute re-runs every op it does
+      not replay, so tagging the allreduce's output would run the
+      product again).  The recompute runs the allreduce again: a copy
+      on one rank.
+    """
     if isinstance(remat, (tuple, list)) and not remat:
         # () is falsy: it would silently run without remat
         raise ValueError(
@@ -267,7 +326,7 @@ def _recompute_layers(remat):
             f"non-empty subset of {CHECKPOINT_NAMES}"
         )
     if not remat:
-        return False
+        return None
     if isinstance(remat, (tuple, list)):
         unknown = set(remat) - set(CHECKPOINT_NAMES)
         if unknown:
@@ -275,16 +334,27 @@ def _recompute_layers(remat):
                 f"unknown checkpoint tag(s) {sorted(unknown)}; the "
                 f"layer tags are {CHECKPOINT_NAMES}"
             )
+        saved = frozenset(remat)
     elif remat is True:
-        return True
-    elif remat not in ("dots", "names"):
+        return noop_context_fn
+    elif remat == "dots":
+        saved = None
+    elif remat == "names":
+        saved = frozenset(NAMES_SAVED)
+    else:
         raise ValueError(
             f"remat must be False, True, 'dots', 'names' or a "
             f"tuple of tag names, got {remat!r}"
         )
-    raise NotImplementedError(
-        f"remat={remat!r} is not ported yet: {REMAT_ITEM}"
-    )
+
+    def policy(ctx, func, *args, **kwargs):
+        tag = getattr(_tag, "name", None)
+        if func == _MM and tag != "mlp_out" and (saved is None
+                                                 or tag in saved):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def _sequence_attention(sequence, impl):
@@ -326,8 +396,10 @@ def _forward_sharded(params, tokens, cfg, comm_tp, comm_sp, mlp=None,
     ("ring" or "ulysses"), ``cfg.attn_impl`` its single-device
     attention.  ``remat=True`` recomputes each layer in the backward
     (``torch.utils.checkpoint``): activation memory for one layer
-    instead of all, at one more forward pass; the gradients are the
-    same.
+    instead of all, at one more forward pass; ``"dots"``, ``"names"``
+    and a tuple of :data:`CHECKPOINT_NAMES` keep some of the layer's
+    products and recompute the rest (:func:`_recompute_layers`).  The
+    gradients are the same.
     """
     mlp = mlp or _dense_mlp
     tp = comm_tp.size
@@ -335,17 +407,21 @@ def _forward_sharded(params, tokens, cfg, comm_tp, comm_sp, mlp=None,
     hq_l, hk_l = cfg.heads // tp, cfg.kv_heads // tp
     b, s = tokens.shape
     attend = _sequence_attention(sequence, cfg.attn_impl)
-    recompute = _recompute_layers(remat)
+    context_fn = _recompute_layers(remat)
 
     def layer(x, aux, bp):
         token = create_token()
         h = _rmsnorm(x, bp.ln1, cfg.eps)
         h, token = _f_collective(h, comm_tp, token)
-        q = (h @ bp.wq).reshape(b, s, hq_l, dh)
-        k = (h @ bp.wk).reshape(b, s, hk_l, dh)
-        v = (h @ bp.wv).reshape(b, s, hk_l, dh)
+        # the JAX layer's checkpoint_name tags, on the products
+        with checkpoint_tag("qkv"):
+            q = (h @ bp.wq).reshape(b, s, hq_l, dh)
+            k = (h @ bp.wk).reshape(b, s, hk_l, dh)
+        with checkpoint_tag("v_proj"):
+            v = (h @ bp.wv).reshape(b, s, hk_l, dh)
         attn, token = attend(q, k, v, comm_sp, token)
-        a_part = attn.reshape(b, s, hq_l * dh) @ bp.wo
+        with checkpoint_tag("attn_out"):
+            a_part = attn.reshape(b, s, hq_l * dh) @ bp.wo
         a, token = allreduce(a_part, reductions.SUM, comm=comm_tp,
                              token=token)
         x = x + a
@@ -359,8 +435,9 @@ def _forward_sharded(params, tokens, cfg, comm_tp, comm_sp, mlp=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.layers):
         bp = _layer(params.blocks, i)
-        if recompute:
-            x, aux = checkpoint(layer, x, aux, bp, use_reentrant=False)
+        if context_fn is not None:
+            x, aux = checkpoint(layer, x, aux, bp, use_reentrant=False,
+                                context_fn=context_fn)
         else:
             x, aux = layer(x, aux, bp)
     x = _rmsnorm(x, params.ln_f, cfg.eps)
@@ -419,8 +496,10 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
     The parameters are updated in place and returned.
 
     ``mlp`` substitutes the MLP sublayer, ``sequence`` picks the
-    context-parallel scheme ("ring" or "ulysses"), ``remat=True``
-    recomputes each layer in the backward (see :func:`_forward_sharded`);
+    context-parallel scheme ("ring" or "ulysses"), ``remat`` recomputes
+    each layer in the backward, all of it (``True``) or all but the
+    products a policy saves (``"dots"``, ``"names"``, a tuple of
+    :data:`CHECKPOINT_NAMES`; see :func:`_forward_sharded`);
     ``cfg.attn_impl="flash"`` runs the attention and its gradient through
     the flash kernels and ``cfg.ce_chunk`` chunks the loss.
 

@@ -9,8 +9,12 @@ and the flash kernels' plain versions) is held against the JAX
 ``make_global_train_step`` on a 1x1x1 ``("dp", "tp", "sp")`` mesh and
 against the JAX ``reference_loss`` with ``jax.grad``: the loss to rtol
 2e-5 and the updated parameters to rtol and atol 2e-4, the JAX test's
-tolerances.  ``remat=True`` matches no remat to rtol 1e-5, the chunked
-loss matches the streaming one, and the loss falls over eight steps.
+tolerances.  ``remat=True`` matches no remat to rtol 1e-5, and so do
+the partial policies (``"dots"``, ``"names"``, tuple save-lists), which
+also match the JAX step under the same policy, with the dense MLP and
+with a custom hook; the backward's recompute runs the products JAX's
+policy recomputes, and no policy saves the MLP's output product.  The chunked loss matches the
+streaming one, and the loss falls over eight steps.
 """
 
 import jax
@@ -18,6 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import CheckpointPolicy
 
 import mpi4jax_tpu as mj
 from mpi4jax_tpu.models import transformer as jtfm
@@ -40,6 +47,13 @@ B, S = 4, 16
 LOSS_RTOL = 2e-5
 PARAM_TOL = 2e-4
 REMAT_RTOL = 1e-5
+# the partial policies, by the ids the tests give them
+POLICIES = {
+    "dots": "dots",
+    "names": "names",
+    "save-residuals": ("attn_out", "mlp_out"),
+    "save-all-tags": ("qkv", "v_proj", "attn_out", "mlp_out"),
+}
 NAMES = ["embed", "ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2", "ln_f",
          "head"]
 
@@ -205,15 +219,192 @@ def test_mlp_hook_adds_its_auxiliary_loss():
         (dict(remat=()), ValueError, "empty remat save-list"),
         (dict(remat=("qkv", "kv")), ValueError, "unknown checkpoint tag"),
         (dict(remat="all"), ValueError, "remat must be"),
-        (dict(remat="names"), NotImplementedError, "Queue 1 item 13"),
-        (dict(remat="dots"), NotImplementedError, "Queue 1 item 13"),
-        (dict(remat=("attn_out", "mlp_out")), NotImplementedError,
-         "Queue 1 item 13"),
     ],
 )
 def test_train_step_validation(kw, error, match):
     with pytest.raises(error, match=match):
         _step(_cfg(), **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_policy_runs():
+    """The JAX 1x1x1-mesh step under each partial policy, on the
+    weights and batch of test_remat_policy_matches_plain_and_jax; made
+    once per policy."""
+    jparams = jtfm.init_params(jax.random.PRNGKey(9), JCFG)
+    batch = _batch(seed=10)
+    mesh = jax.make_mesh((1, 1, 1), ("dp", "tp", "sp"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 3)
+    world = mj.MeshComm.from_mesh(mesh)
+    runs = {}
+
+    def run(policy_id):
+        if policy_id not in runs:
+            step = jtfm.make_global_train_step(
+                mesh, world.sub("dp"), world.sub("tp"), world.sub("sp"),
+                JCFG, lr=1e-1, remat=POLICIES[policy_id])
+            new, loss = step(jparams, tuple(map(jnp.asarray, batch)))
+            runs[policy_id] = (float(loss[0]),
+                               [np.asarray(t) for t in jax.tree.leaves(new)])
+        return runs[policy_id]
+
+    return jparams, batch, run
+
+
+@pytest.mark.parametrize("policy_id", list(POLICIES))
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_remat_policy_matches_plain_and_jax(jax_policy_runs, attn_impl,
+                                            policy_id):
+    # a partial policy recomputes part of each layer: the same loss and
+    # update as no remat, and as the JAX step under the same policy
+    jparams, batch, jax_run = jax_policy_runs
+    cfg = _cfg(attn_impl=attn_impl)
+    p1, l1 = _step(cfg)(_port_params(jparams, cfg), batch)
+    p2, l2 = _step(cfg, remat=POLICIES[policy_id])(
+        _port_params(jparams, cfg), batch)
+    np.testing.assert_allclose(float(l2[0]), float(l1[0]), rtol=REMAT_RTOL)
+    for name, a, b in zip(NAMES, _numpy(p2), _numpy(p1), strict=True):
+        np.testing.assert_allclose(a, b, rtol=REMAT_RTOL, atol=1e-6,
+                                   err_msg=name)
+    want_loss, want_new = jax_run(policy_id)
+    np.testing.assert_allclose(float(l2[0]), want_loss, rtol=LOSS_RTOL,
+                               atol=LOSS_RTOL)
+    for name, got, want in zip(NAMES, _numpy(p2), want_new, strict=True):
+        np.testing.assert_allclose(got, want, rtol=PARAM_TOL, atol=PARAM_TOL,
+                                   err_msg=name)
+
+
+class _RecomputedProducts(TorchDispatchMode):
+    """Names the layer weights of the ``aten.mm`` calls made with grad
+    mode on inside a backward: those of the checkpoint's recompute (the
+    backward's own gradient products run with grad mode off)."""
+
+    def __init__(self, weights):
+        super().__init__()
+        self.weights = weights
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func == torch.ops.aten.mm.default and torch.is_grad_enabled():
+            ptr = args[1].data_ptr()
+            self.names.append(next((name for name, w in self.weights.items()
+                                    if w.data_ptr() == ptr), "other"))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat, recomputed", [
+    (True, ["wq", "wk", "wv", "wo", "w1"]),
+    ("dots", []),
+    ("names", ["wv", "w1"]),
+    (("attn_out", "mlp_out"), ["wq", "wk", "wv", "w1"]),
+    (("qkv", "v_proj", "attn_out", "mlp_out"), ["w1"]),
+], ids=["full", "dots", "names", "save-residuals", "save-all-tags"])
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_remat_recompute_runs_the_policys_products(attn_impl, remat,
+                                                   recomputed):
+    # the products the backward's recompute runs in one layer: JAX's
+    # policies recompute v and w1 under "names" and no projection under
+    # "dots"; a tagged product is saved itself, so the wo GEMM does not
+    # run again.  torch's recompute stops once the last saved tensor is
+    # rebuilt, which the w2 product's inputs are, so w2 runs again under
+    # no policy (and none saves it: JAX keeps no residual of it).
+    cfg = _cfg(attn_impl=attn_impl, layers=1)
+    params = _port_params(
+        jtfm.init_params(jax.random.PRNGKey(1), JCFG._replace(layers=1)),
+        cfg)
+    tokens, targets = (torch.as_tensor(t) for t in _batch())
+    leaves = tfm._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    dp, tp, sp = _comms()
+    logits, _ = tfm._forward_sharded(params, tokens, cfg, tp, sp,
+                                     remat=remat)
+    loss = tfm._ce(logits, targets)
+    weights = {name: getattr(params.blocks, name)[0]
+               for name in ("wq", "wk", "wv", "wo", "w1", "w2")}
+    with _RecomputedProducts(weights) as mode:
+        torch.autograd.grad(loss, leaves)
+    assert mode.names == recomputed
+
+
+def _port_relu_mlp(h2, bp, cfg, comm_tp, comm_sp, token):
+    # a custom MLP hook that tags nothing
+    return F.relu(h2 @ bp.w1) @ bp.w2 * 0.5, token
+
+
+def _jax_relu_mlp(h2, bp, cfg, comm_tp, comm_sp, token):
+    return jax.nn.relu(h2 @ bp.w1) @ bp.w2 * 0.5, token
+
+
+@pytest.mark.parametrize("policy_id", ["dots", "names", "save-all-tags"])
+def test_remat_policy_with_a_custom_mlp(policy_id):
+    # the JAX layer tags the hook's output "mlp_out", the port tags
+    # nothing of an untagged hook: the same loss and update as no remat,
+    # and as the JAX step with the same hook under the same policy
+    cfg = _cfg()
+    jparams = jtfm.init_params(jax.random.PRNGKey(13), JCFG)
+    batch = _batch(seed=14)
+    remat = POLICIES[policy_id]
+    p1, l1 = _step(cfg, mlp=_port_relu_mlp)(_port_params(jparams, cfg), batch)
+    p2, l2 = _step(cfg, mlp=_port_relu_mlp, remat=remat)(
+        _port_params(jparams, cfg), batch)
+    np.testing.assert_allclose(float(l2[0]), float(l1[0]), rtol=REMAT_RTOL)
+    for name, a, b in zip(NAMES, _numpy(p2), _numpy(p1), strict=True):
+        np.testing.assert_allclose(a, b, rtol=REMAT_RTOL, atol=1e-6,
+                                   err_msg=name)
+    mesh = jax.make_mesh((1, 1, 1), ("dp", "tp", "sp"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 3)
+    world = mj.MeshComm.from_mesh(mesh)
+    jstep = jtfm.make_global_train_step(
+        mesh, world.sub("dp"), world.sub("tp"), world.sub("sp"), JCFG,
+        lr=1e-1, mlp=_jax_relu_mlp, remat=remat)
+    new, loss = jstep(jparams, tuple(map(jnp.asarray, batch)))
+    np.testing.assert_allclose(float(l2[0]), float(loss[0]), rtol=LOSS_RTOL,
+                               atol=LOSS_RTOL)
+    for name, got, want in zip(NAMES, _numpy(p2), jax.tree.leaves(new),
+                               strict=True):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=PARAM_TOL,
+                                   atol=PARAM_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("remat, recomputed", [
+    ("names", ["wv", "w1"]),
+    (("attn_out", "mlp_out"), ["wq", "wk", "wv", "w1"]),
+], ids=["names", "save-residuals"])
+def test_remat_recompute_with_a_custom_mlp(remat, recomputed):
+    # the hook's output product is never run again, tagged or not, as
+    # JAX's "mlp_out" keeps it out of the recompute
+    cfg = _cfg(layers=1)
+    params = _port_params(
+        jtfm.init_params(jax.random.PRNGKey(1), JCFG._replace(layers=1)),
+        cfg)
+    tokens, targets = (torch.as_tensor(t) for t in _batch())
+    leaves = tfm._leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    logits, _ = tfm._forward_sharded(params, tokens, cfg, *_comms()[1:],
+                                     mlp=_port_relu_mlp, remat=remat)
+    weights = {name: getattr(params.blocks, name)[0]
+               for name in ("wq", "wk", "wv", "wo", "w1", "w2")}
+    with _RecomputedProducts(weights) as mode:
+        torch.autograd.grad(tfm._ce(logits, targets), leaves)
+    assert mode.names == recomputed
+
+
+@pytest.mark.parametrize("remat", ["dots", "names", tfm.CHECKPOINT_NAMES])
+def test_no_policy_saves_the_mlp_output(remat):
+    # the policy's decision per tag: the MLP's output product is never
+    # saved (no backward reads it), the others as the policy names them
+    policy = tfm._recompute_layers(remat).args[0]
+    mm = torch.ops.aten.mm.default
+    want = {"qkv": True, "v_proj": remat != "names", "attn_out": True,
+            "mlp_out": False, None: remat == "dots"}
+    for tag, saved in want.items():
+        with tfm.checkpoint_tag(tag):
+            got = policy(None, mm)
+            other = policy(None, torch.ops.aten.gelu.default)
+        assert (got == CheckpointPolicy.MUST_SAVE) == saved, tag
+        assert other == CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def test_ce_chunk_must_divide_the_sequence():
@@ -305,3 +496,20 @@ def test_example_record_on_cpu():
     attn = transformer_train.attention_flops(cfg, 2, 16)
     np.testing.assert_allclose(ratio, 1 + attn / (6.0 * n_params * 32),
                                rtol=1e-9)
+
+
+@pytest.mark.parametrize("remat, ce_chunk, want", [
+    ("names", 8, "names"),
+    (("attn_out", "mlp_out"), 0, ["attn_out", "mlp_out"]),
+])
+def test_example_record_names_its_remat(remat, ce_chunk, want):
+    # run's record names the policy (a save-list as a list) and the
+    # loss chunk, as benchmarks/transformer.py records them
+    rec = transformer_train.run(
+        batch=2, seq=16, layers=2, d_model=32, heads=4, kv_heads=2, d_ff=64,
+        vocab=64, batches=1, remat=remat, ce_chunk=ce_chunk,
+        attn_impl="flash", device="cpu",
+    )
+    assert rec["remat"] == want
+    assert rec.get("ce_chunk", 0) == ce_chunk
+    assert np.isfinite(rec["loss"]) and "peak_memory_gb" not in rec
