@@ -160,6 +160,25 @@ Phases, each of which raises on failure (nothing is caught):
    (``TRAIN_LAUNCHES``) 2 of flash_fwd_mma and 1 of each bf16 backward
    kernel, none of the f32 ones; the large leg's autotuned attention
    must be the flash kernels.
+10c. multi-rank transformer: four thread ranks of a local world on the
+   card (gloo) on the JAX bench's 4-device meshes.  Training on (dp, tp,
+   sp) = (1, 2, 2) at the long preset's width cut to 2 layers, batch 2,
+   seq 2048 a sp rank, remat="names", for the ring, the zigzag ring
+   (the step's ring attention given the zigzag layout and the batch
+   reordered to it) and Ulysses (flash): in f32 one step at lr 1 held
+   to the one-rank step on the same global batch (dense attention),
+   the loss and every leaf gathered with ``gather_params`` within
+   ``MESH_TRAIN_LIMIT``, and a planted fault (a gradient sync that
+   skips sp) read beside them, which must fail it; then one bf16 step
+   per scheme with every launch count set to 0 just before and read
+   just after: Ulysses 2 x layers flash_fwd_mma and layers of each bf16
+   backward kernel a rank, the ring none.  The decoder on (dp, tp) =
+   (2, 2) at the decode model's width in f32, greedy, prompt 16 of 48
+   positions, its steps eager (gloo): every rank's tokens equal to the
+   one-rank decoder's.  Phases 5 and 8 hold the flash kernels at the
+   shapes this path gives them: Ulysses at the long leg on (1, 2, 2)
+   [2, 16384, 4, 128] bf16 causal (forward and backward) and the
+   decode prefill at tp 2 [4, 8192, 4, 64] (forward).
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -180,9 +199,9 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh
 
-runs those checks (any of the four) on this tree alone.
+runs those checks (any of them) on this tree alone.
 
     python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
 
@@ -208,8 +227,18 @@ card), then the 64 MB allreduce's bus bandwidth,
 ``allreduce_busbw_gbps`` with ``allreduce_devices``, then the bench
 across the world (``bench.run_bench(quick=True)`` on the 2x2 grid of the
 four cards): every rank must take the same schedule and return the same
-record, rank 0's finite with ``allreduce_devices`` 4; each rank ends its
-world with ``distributed.finalize()``.  It raises with fewer than four
+record, rank 0's finite with ``allreduce_devices`` 4; then the
+transformer: the decoder on (dp, tp) = (2, 2) in f32 with its generate
+steps CUDA graphs that hold the NCCL allreduces, its tokens equal to a
+(2, 2) gloo world's on the same card (run before NCCL starts), and the
+bench's three decode legs on the mesh (bf16, one timed burst); the long
+training preset as written (16 layers, batch 2, seq 8192 a sp rank,
+bf16, remat="names") on (dp, tp, sp) = (1, 2, 2) through
+``transformer_train.preset_run`` for the ring and for Ulysses: step ms
+(the slowest rank's), tokens/s in all and a card, each rank's peak
+memory; and one step of each traced on rank 0 (device ms by kernel
+class: flash, cuBLAS GEMMs, NCCL, the rest).  Each rank ends its world
+with ``distributed.finalize()``.  It raises with fewer than four
 cards.
 
     python3 chip_smoke.py --witness-readings
@@ -223,6 +252,7 @@ limits' measure.
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -252,6 +282,7 @@ from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
+from mpi4jax_tpu_torch.parallel.longseq import zigzag_shard
 from mpi4jax_tpu_torch.utils import prng
 from mpi4jax_tpu_torch.utils.runtime import graph_capture
 
@@ -296,7 +327,7 @@ MULTIRANK_CHUNK = 3
 MULTIRANK_OPS = ("sum", "prod", "min", "max", "land", "lor", "lxor",
                  "band", "bor", "bxor")
 MULTIRANK_FLOAT_TOL = 4e-6
-NCCL_RANK_TIMEOUT_S = 240.0  # an --nccl-world rank's whole run
+NCCL_RANK_TIMEOUT_S = 720.0  # an --nccl-world rank's whole run
 FINALIZE_TIMEOUT_S = 60.0  # distributed.finalize on an --nccl-world rank
 # BASELINE.json configs 3 and 4 over --nccl-world: 1024x1024 float32 per
 # rank, each op's device time the median of BASELINE_REPEATS calls
@@ -379,6 +410,39 @@ LARGE_SHAPE = (LARGE["batch"], LARGE["seq"], LARGE["seq"], LARGE["heads"],
 # the remat policies held on the card at the 2-layer bf16 gradient check
 REMAT_POLICIES = (True, "dots", "names", ("attn_out", "mlp_out"),
                   tfm.CHECKPOINT_NAMES)
+# the transformer across a mesh of ranks on one card: four thread ranks
+# over gloo on the JAX bench's 4-device training mesh (dp, tp, sp) =
+# (1, 2, 2) (benchmarks/transformer.py:218-224), at the long preset's
+# width, cut to 2 layers, batch 2 a dp rank and seq 2048 a sp rank
+MESH_TRAIN = (1, 2, 2)
+MESH_TRAIN_CFG = TRAIN_CFG._replace(layers=2)
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 2048
+# the schemes: (name, sequence, ring layout), each under remat="names"
+MESH_SCHEMES = (("ring", "ring", "contiguous"),
+                ("ring_zigzag", "ring", "zigzag"),
+                ("ulysses", "ulysses", None))
+# the f32 check's SGD rate: lr 1 makes the update the gradient itself
+MESH_CHECK_LR = 1.0
+# a scheme's loss and updated leaves against the one-rank step on the
+# same global batch, f32: the loss's relative difference and per leaf
+# max|difference| over max|one-rank update|, each within this limit
+# (PERF.md §6: the sound schemes' readings and a planted fault's, a
+# gradient sync that skips sp, lie either side of it)
+MESH_TRAIN_LIMIT = 1e-3
+# the decoder on the JAX bench's decode mesh (dp, tp) = (2, 2)
+# (benchmarks/transformer.py:377-380) at the decode model's width, f32,
+# greedy, a short prompt: its tokens equal the one-rank decoder's
+MESH_DECODE = (2, 2)
+MESH_DECODE_RUN = dict(batch=4, prompt=16, max_len=48)
+# the flash kernels' shapes on this slice's path: Ulysses's full-sequence
+# attention at the long leg on (1, 2, 2) (16 heads / tp 2 / sp 2 over
+# 16384 tokens) and the decode prefill at tp 2 (8 heads / 2)
+ULYSSES_LONG_SHAPE = (TRAIN["batch"], 2 * TRAIN["seq"], 2 * TRAIN["seq"],
+                      TRAIN["heads"] // 4, TRAIN["kv_heads"] // 4,
+                      TRAIN["d_model"] // TRAIN["heads"])
+PREFILL_TP2_SHAPE = (LONG["batch"], LONG["prompt"], LONG["prompt"],
+                     DECODE_CFG.heads // 2, DECODE_CFG.kv_heads // 2,
+                     DECODE_CFG.head_dim)
 # the f32 gradient check: the decode model's width (flash attention) at
 # batch 2, seq 1024, the f32 kernels once per layer each
 F32_TRAIN_CFG = DECODE_CFG._replace(attn_impl="flash")
@@ -1666,15 +1730,18 @@ def spawn_world(n, worker_args, cards, timeout_s):
 def nccl_world(n):
     """The 2x2 solver check over NCCL, one process per card: make_multistep
     as a CUDA graph that holds the NCCL exchanges, then the 64 MB
-    allreduce's bus bandwidth.  Needs ``n`` = 4 cards."""
+    allreduce's bus bandwidth, the quick bench, and the transformer: the
+    decoder on (dp, tp) = (2, 2) with graphs that hold NCCL, and the
+    long preset as written on (dp, tp, sp) = (1, 2, 2), ring and
+    Ulysses.  Needs ``n`` = 4 cards."""
     have = torch.cuda.device_count()
     if n != MULTIRANK_GRID[0] * MULTIRANK_GRID[1] or have < n:
         raise RuntimeError(f"--nccl-world {n} needs a 2x2 grid on 4 cards; "
                            f"this host has {have}")
     for line in card_lines():
         log(f"card: {line}")
-    log("phase build (sw_step)")
-    build_phase(("sw_step",))
+    log("phase build")
+    build_phase()
     log(f"phase NCCL world: {n} processes, one per card")
     codes, outs = spawn_world(n, ["--nccl-rank"], list(range(n)),
                               NCCL_RANK_TIMEOUT_S + 60.0)
@@ -1711,6 +1778,33 @@ def nccl_world(n):
         f"{lead.get('allreduce_devices')} ranks")
     if not all(checks.values()):
         raise RuntimeError(f"the bench across the world failed: {checks}")
+    # the transformer across the four cards: every rank's record holds
+    # the slowest rank's times, so they agree
+    tfs = [r["transformer"] for r in records]
+    lead = tfs[0]
+    same = all(t["train"][seq]["step_ms"] == lead["train"][seq]["step_ms"]
+               for t in tfs for seq in ("ring", "ulysses"))
+    same &= all(t["decode"]["legs"] == lead["decode"]["legs"] for t in tfs)
+    for seq in ("ring", "ulysses"):
+        t = lead["train"][seq]
+        log(f"long preset on {t['mesh']} over NCCL ({seq}): "
+            f"{t['step_ms']:.4f} ms a step (the slowest rank's), "
+            f"{t['value']:.2f} tokens/s, {t['tokens_per_s_per_card']:.2f} a "
+            f"card, MFU {t['mfu_pct']:.2f}%, peak memory per rank "
+            f"{t['peak_memory_gb_ranks']} GB")
+        trace = t.get("trace")
+        log(f"  traced on rank 0: "
+            + (f"busy {trace['busy_ms']:.1f} ms of {trace['span_ms']:.1f}, "
+               f"{ {k: round(v, 2) for k, v in trace['split_ms'].items()} }"
+               if trace else "not measured"))
+    for key, leg in lead["decode"]["legs"].items():
+        log(f"{key} on {leg['mesh']} over NCCL (graphs): "
+            f"{leg['value']:.2f} generated tokens/s, global batch "
+            f"{leg['batch']}")
+    log(f"the transformer across {n} cards: every rank agrees: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise RuntimeError("the ranks' transformer records differ")
     return 0
 
 
@@ -1738,6 +1832,10 @@ def nccl_rank():
             n, lambda c: run_op_cases(c, "cpu"), axes=axes)[rank]
     base_want, _ = distributed.local_world(
         n, lambda c: baseline_collectives(c, "cpu", False), axes=axes)[rank]
+    # the decoder's (2, 2) gloo world on this card: the NCCL decode's
+    # tokens are held to it
+    decode_want = mesh_decode_reference(device)
+    log(f"rank {rank}: the (2, 2) gloo decode on {device}")
     distributed.initialize("cuda")
     comm = distributed.world_comm(axes)
     if comm.transport().backend != "nccl":
@@ -1784,6 +1882,10 @@ def nccl_rank():
     # and its allreduce leg (its stderr lines come from rank 0)
     bench_rec = port_bench.run_bench(quick=True, device=device, comm=comm)
     log(f"rank {rank}: bench run")
+    # the transformer across the four cards: the decoder on (2, 2) with
+    # its graphs holding NCCL, then the long preset on (1, 2, 2)
+    decode_rec = nccl_decode_phase(comm, device, rank, decode_want)
+    train_rec = nccl_train_phase(comm, device, rank)
     rec = {"rank": rank, "steps": steps, "launches": counts,
            "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
            "cell_updates_per_s_per_card": cfg.ny * cfg.nx / comm.size
@@ -1794,7 +1896,8 @@ def nccl_rank():
            "allreduce_busbw_gbps": busbw,
            "allreduce_devices": comm.size,
            "allreduce_mb": port_bench.ALLREDUCE_MB,
-           "bench": bench_rec}
+           "bench": bench_rec,
+           "transformer": {"decode": decode_rec, "train": train_rec}}
     print(json.dumps(rec), flush=True)
     # the world ends through distributed.finalize (the solver's graph,
     # which holds NCCL work, reset before the groups go); a rank that
@@ -1904,6 +2007,10 @@ def flash_check_cases():
     cases.append(("train_path_f32", (tb, tt, tt, th, th, td),
                   torch.float32, True, 0, 0))
     cases.append(("large_train", LARGE_SHAPE, torch.bfloat16, True, 0, 0))
+    cases.append(("ulysses_long", ULYSSES_LONG_SHAPE, torch.bfloat16, True,
+                  0, 0))
+    cases.append(("prefill_tp2", PREFILL_TP2_SHAPE, torch.bfloat16, True, 0,
+                  0))
     return cases
 
 
@@ -2507,6 +2614,7 @@ def bwd_check_cases():
         # last, so that every earlier case keeps its seed (its index)
         ("path_f32", (b, t, t, h, h, d), torch.float32, True, 0, 0),
         ("large_train", LARGE_SHAPE, torch.bfloat16, True, 0, 0),
+        ("ulysses_long", ULYSSES_LONG_SHAPE, torch.bfloat16, True, 0, 0),
     ]
     return cases
 
@@ -3200,10 +3308,13 @@ def bench_training_phase(device, card):
     log(f"  {json.dumps(keys)} on {card}")
     failed = []
     numbers = {key: x for key, x in keys.items()
-               if not key.endswith("_attn_impl")}
+               if not key.endswith(("_attn_impl", "_mesh"))}
     if not all(math.isfinite(x) and x > 0 for x in numbers.values()):
         failed.append(f"a reading is not a positive finite number: "
                       f"{numbers}")
+    if keys["transformer_mesh"] != [1, 1, 1]:
+        failed.append(f"the legs ran on the mesh {keys['transformer_mesh']}, "
+                      f"not one card's")
     if keys["transformer_large_attn_impl"] != "flash":
         failed.append(f"the large leg's attention is "
                       f"{keys['transformer_large_attn_impl']!r}, not the "
@@ -3222,6 +3333,341 @@ def bench_training_phase(device, card):
     if failed:
         raise RuntimeError(f"the bench's training legs: {failed}")
     return dict(keys, launches=launches)
+
+
+def mesh_comms(comm):
+    return comm.sub("dp"), comm.sub("tp"), comm.sub("sp")
+
+
+@contextlib.contextmanager
+def ring_layout(layout):
+    """The training step's ring attention with ``layout`` while inside:
+    the step itself takes the contiguous layout, as JAX's does."""
+    plain = tfm.ring_attention
+    if layout not in (None, "contiguous"):
+        tfm.ring_attention = functools.partial(plain, layout=layout)
+    try:
+        yield
+    finally:
+        tfm.ring_attention = plain
+
+
+@contextlib.contextmanager
+def sync_skipping_sp():
+    """A planted fault: the training step's allreduces over sp (the
+    gradient sync's and the loss's) leave each rank's own value."""
+    plain = tfm.allreduce
+
+    def faulty(x, op=p_ops.SUM, *, comm=None, token=None):
+        if comm is not None and comm.axes == ("sp",):
+            return x, token
+        return plain(x, op, comm=comm, token=token)
+
+    tfm.allreduce = faulty
+    try:
+        yield
+    finally:
+        tfm.allreduce = plain
+
+
+def mesh_batch(batch, sp, layout):
+    """The global batch as the ranks see it: zigzag-reordered along the
+    sequence for the zigzag layout (the model has no positions but the
+    causal mask, and the loss is a mean over tokens, so the reordered
+    batch on the zigzag ring is the same loss as the original on one
+    rank)."""
+    if layout != "zigzag":
+        return batch
+    return tuple(zigzag_shard(t, sp) for t in batch)
+
+
+def mesh_train_run(params, batch, cfg, sequence, layout, device, lr,
+                   fault=None):
+    """One step of ``make_global_train_step`` (remat="names") on four
+    thread ranks of a (1, 2, 2) local world on the card, from the full
+    ``params`` (every rank cuts its tp shards): ``(loss, gathered full
+    parameters, slowest rank's ms)`` of rank 0, held equal on every rank
+    unless a ``fault`` is planted."""
+    dp, tp, sp = MESH_TRAIN
+    batch = mesh_batch(batch, sp, layout)
+
+    def body(comm):
+        comm_dp, comm_tp, comm_sp = mesh_comms(comm)
+        shards = tfm.shard_params(params, comm_tp)
+        step = tfm.make_global_train_step(
+            comm_dp, comm_tp, comm_sp, cfg, lr=lr, sequence=sequence,
+            remat="names", device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, loss = step(shards, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return loss, tfm.gather_params(shards, comm_tp), wall
+
+    with ring_layout(layout), (fault or contextlib.nullcontext)():
+        runs = distributed.local_world(
+            dp * tp * sp, body, axes=(("dp", "tp", "sp"), MESH_TRAIN),
+            deadline=600.0)
+    loss, full, _ = runs[0]
+    for rank, (l, f, _) in enumerate(runs[1:] if fault is None else [], 1):
+        if not (torch.equal(l, loss) and all(
+                torch.equal(a, b) for a, b in zip(tfm._leaves(f),
+                                                  tfm._leaves(full)))):
+            raise RuntimeError(f"rank {rank} of the mesh holds another "
+                               f"loss or other parameters")
+    return loss, full, max(w for *_, w in runs) * 1e3
+
+
+def mesh_readings(loss, full, ref_loss, ref_full, p0):
+    """The loss's relative difference and, per leaf, max|difference| of
+    the updated parameters over max|one-rank update| (the update is the
+    gradient at ``MESH_CHECK_LR``)."""
+    out = {"loss": abs(float(loss[0]) - float(ref_loss[0]))
+           / abs(float(ref_loss[0]))}
+    for name, got, want, start in zip(transformer_names(),
+                                      tfm._leaves(full),
+                                      tfm._leaves(ref_full), p0):
+        got, want = got.detach().float(), want.detach().float()
+        scale = float((want - start.float()).abs().max())
+        out[name] = float((got - want).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def mesh_train_phase(device, kernels, card):
+    """The transformer's training step on four gloo thread ranks of the
+    (1, 2, 2) mesh on one card (``MESH_TRAIN_CFG``: the long preset's
+    width at 2 layers), remat="names", for each scheme of
+    ``MESH_SCHEMES``: in f32 the loss and every updated leaf against the
+    one-rank step on the same global batch (dense attention), within
+    ``MESH_TRAIN_LIMIT``, and a planted fault's readings beside them;
+    then one bf16 step per scheme with the launch counts set to 0 just
+    before and read just after: Ulysses 2 x layers flash forwards and
+    layers of each backward kernel a rank, the ring none."""
+    cfg = MESH_TRAIN_CFG
+    dp, tp, sp = MESH_TRAIN
+    ranks = dp * tp * sp
+    b, s = MESH_TRAIN_BATCH * dp, MESH_TRAIN_SEQ * sp
+    params, batch = train_data(cfg, device, seed=3, dtype=torch.float32,
+                               batch=b, seq=s)
+    p0 = [t.detach().clone() for t in tfm._leaves(params)]
+    one = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    ref_step = tfm.make_global_train_step(
+        *mesh_comms(one), cfg._replace(attn_impl="xla"), lr=MESH_CHECK_LR,
+        remat="names", device=device)
+    ref_full = tfm.shard_params(params, one.sub("tp"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_full, ref_loss = ref_step(ref_full, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  one rank (dense attention, f32): loss {float(ref_loss[0]):.6f}, "
+        f"{ref_ms:.1f} ms")
+    record = {"mesh": list(MESH_TRAIN), "layers": cfg.layers,
+              "batch": b, "seq": s, "one_rank_ms": ref_ms, "schemes": {}}
+    failed = []
+    runs = [(name, seq_, layout, None) for name, seq_, layout in MESH_SCHEMES]
+    runs.append(("fault_sync_skips_sp", "ring", "contiguous",
+                 sync_skipping_sp))
+    for name, sequence, layout, fault in runs:
+        attn = "flash" if sequence == "ulysses" else "xla"
+        loss, full, ms = mesh_train_run(
+            params, batch, cfg._replace(attn_impl=attn), sequence, layout,
+            device, MESH_CHECK_LR, fault)
+        read = mesh_readings(loss, full, ref_loss, ref_full, p0)
+        worst = max(read.values())
+        ok = worst <= MESH_TRAIN_LIMIT
+        planted = fault is not None
+        log(f"  {name} (f32, {sequence}"
+            + (f", {layout}" if layout else "") + f", attention {attn}): "
+            f"loss {float(loss[0]):.6f}, the slowest rank {ms:.1f} ms; "
+            f"largest reading {worst:.3e} (limit {MESH_TRAIN_LIMIT:g}) "
+            + ("planted fault: " + ("FAIL (passed)" if ok else "caught")
+               if planted else ("ok" if ok else "FAIL")))
+        log(f"    readings: { {k: f'{v:.2e}' for k, v in read.items()} }")
+        record["schemes"][name] = {"readings": read, "worst": worst,
+                                   "ms": ms}
+        if ok == planted:
+            failed.append(name)
+        del full
+
+    # one bf16 step per scheme, its flash launches counted
+    params16, batch16 = train_data(cfg, device, seed=4, dtype=torch.bfloat16,
+                                   batch=b, seq=s)
+    for name, sequence, layout in MESH_SCHEMES:
+        want = (dict(TRAIN_LAUNCHES) if sequence == "ulysses"
+                else dict.fromkeys(TRAIN_LAUNCHES, 0))
+        want = {k: v * cfg.layers * ranks for k, v in want.items()}
+        reset_launch_counts()
+        loss, _, ms = mesh_train_run(
+            params16, batch16, cfg._replace(attn_impl="flash"), sequence,
+            layout, device, TRAIN_LR)
+        got = {k: launch_counts()[k] for k in want}
+        ok = got == want and bool(torch.isfinite(loss).all())
+        log(f"  {name} (bf16): loss {float(loss[0]):.4f}, the slowest rank "
+            f"{ms:.1f} ms; launches over {ranks} ranks {got} (want {want}) "
+            f"{'ok' if ok else 'FAIL'}")
+        record["schemes"][name]["bf16_launches"] = got
+        record["schemes"][name]["bf16_ms"] = ms
+        if not ok:
+            failed.append(f"{name} bf16")
+    for kern in kernels:
+        if kern["name"] in TRAIN_LAUNCHES:
+            kern["launches_mesh_ulysses"] = record["schemes"]["ulysses"][
+                "bf16_launches"][kern["name"]]
+    log(f"  four thread ranks on one card over gloo (a correctness rig; "
+        f"times are readings, host staging included), on {card}")
+    if failed:
+        raise RuntimeError(f"the mesh training checks failed: {failed}")
+    return record
+
+
+def mesh_decode_tokens(comm, params, prompts, device):
+    """The greedy decode of ``prompts`` (global) at ``MESH_DECODE_RUN``'s
+    length on this rank's tp shards (``params`` full), on the decoder's
+    ``(dp, tp)`` mesh ``comm``: ``(tokens, captures, replays)``."""
+    comm_dp, comm_tp = comm.sub("dp"), comm.sub("tp")
+    decode = tfm.make_global_decode(
+        comm_dp, comm_tp, DECODE_CFG, MESH_DECODE_RUN["max_len"],
+        device=device)
+    shards = tfm.shard_params(params, comm_tp)
+    first = decode(shards, prompts)
+    again = decode(shards, prompts)  # the graphs' replays, where captured
+    if not torch.equal(first, again):
+        raise RuntimeError("a second decode gave other tokens")
+    return again, decode.captures, decode.replays
+
+
+def mesh_decode_inputs(device):
+    gen = torch.Generator(device=device).manual_seed(11)
+    params = tfm.init_params(DECODE_CFG, generator=gen, device=device)
+    prompts = torch.randint(
+        0, DECODE_CFG.vocab, (MESH_DECODE_RUN["batch"],
+                              MESH_DECODE_RUN["prompt"]),
+        generator=gen, device=device, dtype=torch.int32)
+    return params, prompts
+
+
+def mesh_decode_reference(device):
+    """The one-rank decode's tokens and the (2, 2) gloo local world's on
+    the card (eager), which must agree."""
+    params, prompts = mesh_decode_inputs(device)
+    one = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1))
+    want, _, _ = mesh_decode_tokens(one, params, prompts, device)
+    runs = distributed.local_world(
+        MESH_DECODE[0] * MESH_DECODE[1],
+        lambda comm: mesh_decode_tokens(comm, params, prompts, device),
+        axes=(("dp", "tp"), MESH_DECODE), deadline=300.0)
+    for rank, (got, captures, _) in enumerate(runs):
+        if captures or not torch.equal(got, want):
+            raise RuntimeError(
+                f"rank {rank} of the (2, 2) gloo decode: {captures} graphs, "
+                f"tokens {'equal' if torch.equal(got, want) else 'differ'}")
+    return want
+
+
+def mesh_decode_phase(device):
+    """The decoder on the (2, 2) mesh of four gloo thread ranks on the
+    card (its steps eager), greedy, f32, at the decode model's width:
+    every rank's tokens equal the one-rank decoder's."""
+    t0 = time.perf_counter()
+    want = mesh_decode_reference(device)
+    log(f"  tokens {list(want.shape)} equal on every rank of the (2, 2) "
+        f"gloo world and on one rank ({time.perf_counter() - t0:.1f} s)")
+    return {"mesh": list(MESH_DECODE), **MESH_DECODE_RUN, "equal": True}
+
+
+def device_split(per_kernel):
+    """Device ms of a trace by class: the flash kernels, cuBLAS GEMMs,
+    NCCL, and the rest (elementwise and reductions), by kernel name."""
+    split = dict.fromkeys(("flash", "gemm", "nccl", "other"), 0.0)
+    for name, (ms, _) in per_kernel.items():
+        low = name.lower()
+        cls = ("nccl" if "nccl" in low else "flash" if "flash_" in low
+               else "gemm" if any(k in low for k in (
+                   "gemm", "nvjet", "xmma", "cutlass", "cublas")) else "other")
+        split[cls] += ms
+    return split
+
+
+def nccl_train_phase(comm, device, rank):
+    """The long preset as written on the (1, 2, 2) mesh over NCCL, for
+    the ring and Ulysses: ``run`` (the bench's training leg), then one
+    step of each traced on rank 0."""
+    out = {}
+    for sequence in ("ring", "ulysses"):
+        rec = transformer_train.preset_run(
+            TRAIN, bf16=True, batches=1, device=device, comm=comm,
+            sequence=sequence)
+        if not math.isfinite(rec["loss"]) or rec["mesh"] != list(MESH_TRAIN):
+            raise RuntimeError(f"rank {rank}: the {sequence} step: {rec}")
+        out[sequence] = {k: rec[k] for k in (
+            "step_ms", "value", "peak_memory_gb", "peak_memory_gb_ranks",
+            "mfu_pct", "loss", "steps_per_batch", "mesh", "devices")}
+        out[sequence]["tokens_per_s_per_card"] = rec["value"] / rec["devices"]
+        log(f"rank {rank}: long preset on {rec['mesh']} ({sequence}): "
+            f"{rec['step_ms']:.1f} ms a step, {rec['value']:.1f} tokens/s "
+            f"({rec['value'] / rec['devices']:.1f} a card), peak memory "
+            f"{rec['peak_memory_gb_ranks']} GB")
+        torch.cuda.empty_cache()
+    # one step of each under torch.profiler on rank 0
+    world = comm.world.comm((("dp", "tp", "sp"), MESH_TRAIN))
+    comm_dp, comm_tp, comm_sp = mesh_comms(world)
+    cfg = TRAIN_CFG
+    b, s = TRAIN["batch"] * MESH_TRAIN[0], TRAIN["seq"] * MESH_TRAIN[2]
+    for sequence in ("ring", "ulysses"):
+        params, batch = train_data(cfg, device, batch=b, seq=s)
+        params = tfm.shard_params(params, comm_tp)
+        step = tfm.make_global_train_step(
+            comm_dp, comm_tp, comm_sp, cfg, lr=TRAIN_LR, sequence=sequence,
+            remat=TRAIN["remat"], device=device)
+        step(params, batch)  # warm
+        torch.cuda.synchronize()
+        if rank == 0:
+            per_kernel, span = device_trace(lambda: step(params, batch))
+            split = device_split(per_kernel)
+            busy = sum(split.values())
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+            log(f"rank 0: one traced {sequence} step: device busy "
+                f"{busy:.1f} ms over a {span:.1f} ms timeline; by class "
+                f"{ {k: round(v, 2) for k, v in split.items()} } ms")
+            for name, (ms, count) in top:
+                log(f"    {ms:.2f} ms, {count} launches: {name[:90]}")
+            out[sequence]["trace"] = {
+                "busy_ms": busy, "span_ms": span, "split_ms": split,
+                "top": [(name[:90], ms, count)
+                        for name, (ms, count) in top]}
+        else:
+            step(params, batch)
+            torch.cuda.synchronize()
+        del params, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_decode_phase(comm, device, rank, want):
+    """The decoder on the (2, 2) mesh over NCCL, its generate steps CUDA
+    graphs that hold the tp allreduces: tokens equal to the gloo world's
+    (``want``); then the bench's decode legs on the mesh."""
+    world = comm.world.comm((("dp", "tp"), MESH_DECODE))
+    params, prompts = mesh_decode_inputs(device)
+    got, captures, replays = mesh_decode_tokens(world, params, prompts,
+                                                device)
+    if not captures or not torch.equal(got, want):
+        raise RuntimeError(
+            f"rank {rank}: the NCCL decode captured {captures} graphs, "
+            f"tokens {'equal' if torch.equal(got, want) else 'differ'}")
+    log(f"rank {rank}: NCCL decode on (2, 2): {captures} graphs, {replays} "
+        f"replayed steps, tokens equal to the gloo world's")
+    legs = {}
+    for leg, key, kw in port_bench.DECODE_LEGS:
+        rec = transformer_decode.run_decode(
+            **port_bench.DECODE_MODEL, **kw, bf16=True, batches=1,
+            device=device, comm=comm)
+        legs[key] = {"value": rec["value"], "wall_s": rec["wall_s"],
+                     "batch": rec["batch"], "mesh": rec["mesh"]}
+        log(f"rank {rank}: {key} on {rec['mesh']}: {rec['value']:.1f} "
+            f"generated tokens/s (global batch {rec['batch']})")
+    return {"captures": captures, "replays": replays, "legs": legs}
 
 
 def transformer_names():
@@ -3285,7 +3731,8 @@ def run_checks(device, parts):
     """The kernel checks named in ``parts`` (``fwd``: phase 5's cases,
     ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient,
     ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
-    kernel), without timings, after building the kernels they need.
+    kernel; ``mesh``: phase 10c's transformer across thread ranks),
+    without timings, after building the kernels they need.
     Every check runs and prints its readings even when an earlier one
     failed; returns 1 when any failed."""
     sources = ((("sw_step",) if "sw" in parts else ())
@@ -3299,6 +3746,8 @@ def run_checks(device, parts):
         "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
         "grad": lambda: (train_grad_check(device),
                          train_grad_check(device, torch.float32)),
+        "mesh": lambda: (mesh_train_phase(device, [], card_line()),
+                         mesh_decode_phase(device)),
     }
     failed = []
     for part in parts:
@@ -3498,7 +3947,8 @@ def main(argv):
     if argv == ["--witness-readings"]:
         return witness_readings(device)
     if len(argv) == 2 and argv[0] == "--check" and set(
-            argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops"}:
+            argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
+                                    "mesh"}:
         return run_checks(device, argv[1].split(","))
     if argv[:1] == ["--sw-forms"] and len(argv) > 1:
         return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])
@@ -3587,6 +4037,18 @@ def main(argv):
         "yardstick, large, long; 1 timed batch and 1 yardstick burst each)")
     bench_training = bench_training_phase(device, card)
 
+    log(f"phase multi-rank transformer, training (four thread ranks on one "
+        f"card over gloo, (dp, tp, sp) = {MESH_TRAIN}; d_model "
+        f"{MESH_TRAIN_CFG.d_model}, {MESH_TRAIN_CFG.layers} layers, batch "
+        f"{MESH_TRAIN_BATCH}, seq {MESH_TRAIN_SEQ} a sp rank, "
+        f"remat='names'; ring, zigzag ring, Ulysses)")
+    mesh_train = mesh_train_phase(device, kernels, card)
+
+    log(f"phase multi-rank transformer, decode (four thread ranks on one "
+        f"card over gloo, (dp, tp) = {MESH_DECODE}; the decode model in "
+        f"f32, greedy, {MESH_DECODE_RUN})")
+    mesh_decode = mesh_decode_phase(device)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -3596,6 +4058,7 @@ def main(argv):
                     "short_decode": short_decode,
                     "train_path": train, "train_profile": train_profile,
                     "bench_training": bench_training,
+                    "mesh_train": mesh_train, "mesh_decode": mesh_decode,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES}}))

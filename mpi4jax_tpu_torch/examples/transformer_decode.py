@@ -1,11 +1,13 @@
 """Greedy-decode throughput of the transformer, on PyTorch.
 
 The counterpart of ``benchmarks/transformer.py:run_decode``: generated
-tokens per second through ``make_global_decode`` on one rank, with the
-same JSON record (the bytes model of a generated step included).  The
-model defaults are the decode benchmark's (vocab 32768, d_model 512, 8
-layers, 8 heads of 64, d_ff 2048); weights and prompts are random, made
-from a fixed seed.
+tokens per second through ``make_global_decode`` on one rank, or on the
+``(dp, tp)`` mesh ``(n//2, 2)`` of ``n`` ranks (:func:`decode_mesh_shape`)
+when ``run_decode`` is given the world's comm (as the bench passes it
+under ``torchrun``), with the same JSON record (the bytes model of a
+generated step included).  The model defaults are the decode
+benchmark's (vocab 32768, d_model 512, 8 layers, 8 heads of 64, d_ff
+2048); weights and prompts are random, made from a fixed seed.
 
 Usage:
 
@@ -35,20 +37,30 @@ import time
 
 import torch
 
+from mpi4jax_tpu_torch.examples.transformer_train import mesh_comm
+
 LONG = dict(batch=4, prompt=8192, max_len=8448, kv_bucket=16, bf16=True,
             prefill_impl="flash")
 
 
-def decode_bytes_per_step(cfg, params, batch, prompt, max_len):
-    """``run_decode``'s bytes model of one generated step: every weight
-    read once but the embedding table (decode gathers ``batch`` rows of
-    it), the KV cache read at the average length over the generation,
-    one position written."""
+def decode_mesh_shape(n):
+    """``benchmarks/transformer.py``'s decode mesh ``(dp, tp)`` for ``n``
+    ranks: ``(n//2, 2)`` when 2 divides ``n``, else ``(1, 1)``."""
+    return (n // 2, 2) if n % 2 == 0 else (1, 1)
+
+
+def decode_bytes_per_step(cfg, params, batch, prompt, max_len, tp=1):
+    """``run_decode``'s bytes model of one generated step on one card:
+    every weight of its tp shard read once but the embedding table
+    (decode gathers ``batch`` rows of it), its KV cache (``batch`` rows,
+    ``kv_heads / tp`` heads) read at the average length over the
+    generation, one position written."""
     leaves = [params.embed, *params.blocks, params.ln_f, params.head]
     params_bytes = sum(t.numel() * t.element_size() for t in leaves)
     embed_bytes = params.embed.numel() * params.embed.element_size()
     esz = params.embed.element_size()
-    kv_per_pos = cfg.layers * batch * cfg.kv_heads * cfg.head_dim * 2 * esz
+    kv_per_pos = (cfg.layers * batch * (cfg.kv_heads // tp) * cfg.head_dim
+                  * 2 * esz)
     avg_positions = (prompt + max_len) / 2
     per_step = (params_bytes - embed_bytes) + kv_per_pos * avg_positions \
         + kv_per_pos
@@ -57,15 +69,25 @@ def decode_bytes_per_step(cfg, params, batch, prompt, max_len):
 
 def run_decode(batch=8, prompt=16, max_len=512, layers=8, d_model=512,
                heads=8, kv_heads=8, d_ff=2048, vocab=32768, bf16=False,
-               batches=5, kv_bucket=None, prefill_impl="xla", device="cuda"):
+               batches=5, kv_bucket=None, prefill_impl="xla", device="cuda",
+               comm=None):
     """Decode throughput record (``run_decode``'s keys, and the device
-    it ran on)."""
+    it ran on).  ``comm``, given, is the world's comm: every rank of it
+    calls ``run_decode`` and decodes on the :func:`decode_mesh_shape`
+    mesh, ``batch`` rows per dp rank; the walls are the slowest rank's,
+    and the record (the same on every rank) counts the global batch and
+    names the mesh.  ``hbm_bytes_per_step`` is one card's."""
     from mpi4jax_tpu_torch.models import transformer as tfm
-    from mpi4jax_tpu_torch.parallel.comm import MeshComm
-    from mpi4jax_tpu_torch.utils.runtime import drain, resolve_device
+    from mpi4jax_tpu_torch.utils.runtime import (
+        drain,
+        resolve_device,
+        slowest,
+    )
 
     device = resolve_device(device)
-    world = MeshComm(axes=("dp", "tp"), axis_sizes=(1, 1))
+    n = 1 if comm is None else comm.size
+    shape = decode_mesh_shape(n)
+    world = mesh_comm(comm, ("dp", "tp"), shape)
     dp, tp = world.sub("dp"), world.sub("tp")
     dtype = torch.bfloat16 if bf16 else torch.float32
     cfg = tfm.TransformerConfig(
@@ -74,11 +96,14 @@ def run_decode(batch=8, prompt=16, max_len=512, layers=8, d_model=512,
     )
     gen = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_params(cfg, generator=gen, dtype=dtype, device=device)
+    if tp.size > 1:
+        params = tfm.shard_params(params, tp)
     decode = tfm.make_global_decode(
         dp, tp, cfg, max_len, kv_bucket=kv_bucket, prefill_impl=prefill_impl,
         device=device,
     )
-    prompts = torch.randint(0, vocab, (batch, prompt), generator=gen,
+    b = batch * dp.size
+    prompts = torch.randint(0, vocab, (b, prompt), generator=gen,
                             device=device, dtype=torch.int32)
 
     out = decode(params, prompts)  # warm-up
@@ -90,19 +115,19 @@ def run_decode(batch=8, prompt=16, max_len=512, layers=8, d_model=512,
         out = decode(params, prompts)
         drain(out)
         walls.append((time.perf_counter() - t0) / 2.0)
-    best = min(walls)
-    generated = batch * (max_len - prompt)
+    best = min(slowest(comm, walls, device))
+    generated = b * (max_len - prompt)
     bytes_per_step, params_bytes = decode_bytes_per_step(
-        cfg, params, batch, prompt, max_len
+        cfg, params, batch, prompt, max_len, tp=tp.size
     )
     return {
         "metric": "transformer_decode_tokens_per_sec",
         "value": generated / best,
         "unit": "generated tokens/s",
-        "devices": 1,
-        "mesh": [1, 1],
+        "devices": n,
+        "mesh": list(shape),
         "dtype": "bf16" if bf16 else "f32",
-        "batch": batch,
+        "batch": b,
         "prompt": prompt,
         "max_len": max_len,
         "wall_s": best,

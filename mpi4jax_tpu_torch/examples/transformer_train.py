@@ -1,11 +1,14 @@
 """Training-step throughput of the transformer, on PyTorch.
 
 The counterpart of ``benchmarks/transformer.py:run`` in dense mode:
-tokens per second through ``make_global_train_step`` on one rank, with
-the same JSON record (model FLOPs as 6·N·tokens, with and without the
-causal attention scores, and the MFU of both against the card's bf16
-tensor-core peak).  The presets are the benchmark's ``SIZES``, remat
-policy included; weights and tokens are random, made from a fixed seed.
+tokens per second through ``make_global_train_step`` on one rank, or
+on the ``(dp, tp, sp)`` mesh that run builds from the rank count
+(:func:`train_mesh_shape`) when ``run`` is given the world's comm (as
+the bench passes it under ``torchrun``), with the same JSON record
+(model FLOPs as 6·N·tokens, with and without the causal attention
+scores, and the MFU of both against the cards' bf16 tensor-core
+peak).  The presets are the benchmark's ``SIZES``, remat policy
+included; weights and tokens are random, made from a fixed seed.
 
 Usage:
 
@@ -40,10 +43,13 @@ import argparse
 import contextlib
 import inspect
 import json
+import math
 import sys
 import time
 
 import torch
+
+from mpi4jax_tpu_torch.parallel.comm import MeshComm
 
 # benchmarks/transformer.py SIZES
 SIZES = {
@@ -59,6 +65,45 @@ SIZES = {
 # keyed by a substring of torch.cuda.get_device_name; unknown cards omit
 # the MFU keys rather than guess
 PEAK_BF16_TFLOPS = {"H100": 989.0}
+
+
+def train_mesh_shape(n):
+    """``benchmarks/transformer.py``'s training mesh ``(dp, tp, sp)`` for
+    ``n`` ranks: ``(n//4, 2, 2)`` when 4 divides ``n``, ``(1, 2, 1)`` on
+    two, else ``(1, 1, 1)``."""
+    if n % 4 == 0:
+        return (n // 4, 2, 2)
+    if n == 2:
+        return (1, 2, 1)
+    return (1, 1, 1)
+
+
+def mesh_comm(comm, names, shape):
+    """A comm over the ranks of ``comm``'s world on the mesh ``shape``
+    with the axis ``names``: the one-rank mesh without a comm (or on one
+    rank).  The mesh covers every rank, or this raises (the JAX bench
+    leaves the ranks outside its mesh idle; here every rank runs)."""
+    n = 1 if comm is None else comm.size
+    if n == 1:
+        return MeshComm(axes=names, axis_sizes=(1,) * len(names))
+    if math.prod(shape) != n:
+        raise ValueError(
+            f"the {'x'.join(map(str, shape))} mesh covers "
+            f"{math.prod(shape)} of the {n} ranks"
+        )
+    return comm.world.comm((names, shape))
+
+
+def world_readings(comm, values, device):
+    """Each rank's ``values`` (floats), gathered in rank order: a list of
+    lists, the same on every rank."""
+    if comm is None or comm.size == 1:
+        return [list(values)]
+    from mpi4jax_tpu_torch.ops.collectives import allgather
+
+    rows, _ = allgather(torch.tensor(values, dtype=torch.float64,
+                                     device=device), comm=comm)
+    return rows.tolist()
 
 
 def _peak_tflops(device):
@@ -80,7 +125,7 @@ def attention_flops(cfg, batch, seq):
 
 
 def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
-                       reps=3, device="cuda"):
+                       reps=3, device="cuda", comm=None):
     """Time the flash kernels against the dense attention (``"xla"``),
     forward and backward, at ``[batch, seq, heads, head_dim]`` bf16, and
     return the faster one's name (``benchmarks/transformer.py``'s).
@@ -91,9 +136,11 @@ def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
     is clamped to 8, as there: the ratio does not depend on it and the
     dense leg's [T, T] scores grow with it.  On the CPU it returns
     ``"auto"`` (the JAX version's off-TPU answer) without timing.  On the
-    card both legs run, and an error in either raises."""
+    card both legs run, and an error in either raises.  With ``comm``,
+    every rank times both and the slowest rank's times decide, so the
+    ranks agree."""
     from mpi4jax_tpu_torch.parallel.longseq import local_attention
-    from mpi4jax_tpu_torch.utils.runtime import resolve_device
+    from mpi4jax_tpu_torch.utils.runtime import resolve_device, slowest
 
     device = resolve_device(device)
     if device.type != "cuda":
@@ -120,6 +167,8 @@ def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
             call()
             best = min(best, time.perf_counter() - t0)
         timings[impl] = best
+    timings = dict(zip(timings, slowest(comm, list(timings.values()),
+                                        device)))
     winner = min(timings, key=timings.get)
     print(f"[transformer-train] attn autotune at {list(shape)}: "
           f"{timings} -> {winner}", file=sys.stderr)
@@ -128,20 +177,33 @@ def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
 
 def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         d_ff=2048, vocab=32768, bf16=False, batches=8, remat=False,
-        attn_impl="auto", ce_chunk=0, device="cuda", timed=None):
+        attn_impl="auto", ce_chunk=0, sequence="ring", device="cuda",
+        timed=None, comm=None):
     """Train-step throughput record (``run``'s keys, and the device it
-    ran on).  ``remat`` and ``ce_chunk`` are the training step's (see
-    ``make_global_train_step``); the record names both as ``run``'s
-    does, and the peak device memory on the card.  ``timed(steps)``,
-    given, is a context entered around the timed batches, ``steps``
-    training steps in all (``chip_smoke.py`` counts the kernels'
-    launches in it)."""
+    ran on).  ``remat``, ``ce_chunk`` and ``sequence`` are the training
+    step's (see ``make_global_train_step``); the record names the first
+    two as ``run``'s does, and the peak device memory on the card.
+    ``timed(steps)``, given, is a context entered around the timed
+    batches, ``steps`` training steps in all (``chip_smoke.py`` counts
+    the kernels' launches in it).
+
+    ``comm``, given, is the world's comm: every rank of it calls ``run``
+    and runs the step on the :func:`train_mesh_shape` mesh, ``batch``
+    per dp rank and ``seq`` per sp rank, as the JAX bench does.  Every
+    decision and reading is the slowest rank's (a MAX allreduce); the
+    record, the same on every rank, names the mesh, and the peak memory
+    is the largest rank's, each rank's in ``peak_memory_gb_ranks``."""
     from mpi4jax_tpu_torch.models import transformer as tfm
-    from mpi4jax_tpu_torch.parallel.comm import MeshComm
-    from mpi4jax_tpu_torch.utils.runtime import drain, resolve_device
+    from mpi4jax_tpu_torch.utils.runtime import (
+        drain,
+        resolve_device,
+        slowest,
+    )
 
     device = resolve_device(device)
-    world = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    n = 1 if comm is None else comm.size
+    shape = train_mesh_shape(n)
+    world = mesh_comm(comm, ("dp", "tp", "sp"), shape)
     dp, tp, sp = world.sub("dp"), world.sub("tp"), world.sub("sp")
     dtype = torch.bfloat16 if bf16 else torch.float32
     cfg = tfm.TransformerConfig(
@@ -149,16 +211,22 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
         attn_impl=attn_impl, ce_chunk=ce_chunk,
     )
+    # every rank draws the same full weights and global batch, and
+    # keeps its tp shards; the step takes its (dp, sp) block
     gen = torch.Generator(device=device).manual_seed(0)
     params = tfm.init_params(cfg, generator=gen, dtype=dtype, device=device)
+    if tp.size > 1:
+        params = tfm.shard_params(params, tp)
     step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
-                                      remat=remat, device=device)
-    tokens = torch.randint(0, vocab, (batch, seq), generator=gen,
-                           device=device)
+                                      sequence=sequence, remat=remat,
+                                      device=device)
+    b, s = batch * dp.size, seq * sp.size
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device=device)
     data = (tokens, torch.roll(tokens, -1, dims=1))
 
-    n_params = sum(t.numel() for t in tfm._leaves(params))
-    tokens_per_step = batch * seq
+    n_params = sum(math.prod(shp) for shp in tfm._leaves(
+        tfm._param_shapes(cfg)))
+    tokens_per_step = b * s
 
     on_card = device.type == "cuda"
     if on_card:
@@ -169,7 +237,7 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     t0 = time.perf_counter()
     params, loss = step(params, data)
     drain(loss)
-    per_step = max(time.perf_counter() - t0, 1e-4)
+    per_step, = slowest(comm, [max(time.perf_counter() - t0, 1e-4)], device)
     steps = max(4, min(50, int(1.0 / per_step)))
 
     walls = []
@@ -180,19 +248,19 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
                 params, loss = step(params, data)
             drain(loss)
             walls.append(time.perf_counter() - t0)
-    best = min(walls) / steps
+    best = min(slowest(comm, walls, device)) / steps
     if not torch.isfinite(loss).all():
         raise RuntimeError(f"the training loss diverged: {loss}")
 
     model_tflops = 6.0 * n_params * tokens_per_step / best / 1e12
     incl_attn_tflops = (model_tflops
-                        + attention_flops(cfg, batch, seq) / best / 1e12)
+                        + attention_flops(cfg, b, s) / best / 1e12)
     rec = {
         "metric": "transformer_train_tokens_per_sec",
         "value": tokens_per_step / best,
         "unit": "tokens/s",
-        "devices": 1,
-        "mesh": [1, 1, 1],
+        "devices": n,
+        "mesh": list(shape),
         "params_m": n_params / 1e6,
         "layers": layers,
         "dtype": "bf16" if bf16 else "f32",
@@ -204,16 +272,21 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         "remat": list(remat) if isinstance(remat, (tuple, list)) else remat,
         **({"ce_chunk": ce_chunk} if ce_chunk else {}),
         "attn_impl": attn_impl,
+        **({"sequence": sequence} if sp.size > 1 else {}),
         "loss": float(loss[0]),
         "steps_per_batch": steps,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
     }
     if on_card:
-        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        peaks = [row[0] for row in world_readings(
+            comm, [torch.cuda.max_memory_allocated(device) / 1e9], device)]
+        rec["peak_memory_gb"] = max(peaks)
+        if n > 1:
+            rec["peak_memory_gb_ranks"] = peaks
     peak = _peak_tflops(device) if bf16 else None
     if peak:
-        rec["mfu_pct"] = 100.0 * model_tflops / peak
-        rec["mfu_incl_attn_pct"] = 100.0 * incl_attn_tflops / peak
+        rec["mfu_pct"] = 100.0 * model_tflops / (peak * n)
+        rec["mfu_incl_attn_pct"] = 100.0 * incl_attn_tflops / (peak * n)
     return rec
 
 
@@ -239,7 +312,8 @@ def preset_run(preset, attn_impl="auto", **overrides):
     if kw["attn_impl"] == "autotune":
         kw["attn_impl"] = autotune_attn_impl(
             batch=kw["batch"], seq=kw["seq"], heads=kw["heads"],
-            head_dim=kw["d_model"] // kw["heads"], device=kw["device"])
+            head_dim=kw["d_model"] // kw["heads"], device=kw["device"],
+            comm=kw["comm"])
     return run(**kw)
 
 

@@ -20,12 +20,13 @@ layer math, and
   generate steps replay CUDA graphs — and its full-recompute oracles
   :func:`reference_greedy_decode` and :func:`reference_sample_decode`.
 
-The model runs on one rank: the comms are a one-rank ``MeshComm``'s
-sub-communicators, so the Megatron f/g collectives and the gradient
-sync are identities (they stay in the code, where a tensor-parallel run
-needs them), and ring/ulysses attention take their one-rank shortcut.
-Larger data-, tensor- or sequence-parallel comms raise naming
-:data:`MESH_ITEM`.
+Both run over a ``(dp, tp, sp)`` mesh of ranks (the decoder over
+``(dp, tp)``), given as the three 1-D sub-communicators of one world's
+comm (``comm.sub("dp")`` ...): the batch split over dp, the sequence
+over sp (ring or Ulysses attention), the projections over tp (the
+Megatron f/g collectives; :func:`shard_params` cuts each rank's shards
+and :func:`gather_params` joins them).  On one rank the comms are a
+one-rank ``MeshComm``'s, every collective an identity.
 
 Where the JAX package returns new arrays, the decoder here writes its
 static KV cache in place (zeroed at the start of every call, each
@@ -77,15 +78,12 @@ __all__ = [
     "CHECKPOINT_NAMES",
     "checkpoint_tag",
     "TP_SHARDED",
+    "shard_params",
+    "gather_params",
     "config_from_jax",
     "params_from_jax",
     "params_to_numpy",
 ]
-
-MESH_ITEM = (
-    "ROADMAP.md Queue 1 item 15 (the transformer's tensor- and "
-    "sequence-parallel meshes and param_specs)"
-)
 
 # checkpoint_name tags of the JAX package's layer; remat may name a
 # tuple of them as a save-list, and "names" saves NAMES_SAVED (of which
@@ -127,9 +125,11 @@ class TransformerConfig(NamedTuple):
     d_ff: int = 64
     eps: float = 1e-6
     # single-device attention of the training forward ("auto" / "flash"
-    # / "xla", see parallel.longseq.local_attention), reached through
-    # ring/ulysses attention's one-rank shortcut; a function with
-    # local_attention's (q, k, v, *, causal) signature is called instead
+    # / "xla", see parallel.longseq.local_attention): the one-rank
+    # shortcut of ring/ulysses attention and Ulysses's full-sequence
+    # attention across sp ranks (the ring across ranks runs its own
+    # dense blocks); on one sp rank a function with local_attention's
+    # (q, k, v, *, causal) signature is called instead
     attn_impl: str = "auto"
     # >0: the training loss in token chunks of this size (must divide the
     # sequence), each chunk's head matmul and logsumexp recomputed in the
@@ -156,13 +156,19 @@ class TransformerParams(NamedTuple):
     head: torch.Tensor   # (d, V)
 
 
-# Which leaves are sharded over tp (``param_specs`` of the JAX package, as
-# data: the projections' head/ff dims); the gradient sync scales the two
-# classes apart.
+# The axis each leaf is sharded on over tp (``param_specs`` of the JAX
+# package, as data: the projections' head/ff dims), None where it is
+# replicated, and which leaves are sharded at all.
+_TP_AXIS = TransformerParams(
+    embed=None,
+    blocks=BlockParams(ln1=None, wq=2, wk=2, wv=2, wo=1, ln2=None, w1=2,
+                       w2=1),
+    ln_f=None,
+    head=None,
+)
 TP_SHARDED = TransformerParams(
     embed=False,
-    blocks=BlockParams(ln1=False, wq=True, wk=True, wv=True, wo=True,
-                       ln2=False, w1=True, w2=True),
+    blocks=BlockParams(*(a is not None for a in _TP_AXIS.blocks)),
     ln_f=False,
     head=False,
 )
@@ -171,6 +177,46 @@ TP_SHARDED = TransformerParams(
 def _leaves(p):
     """A TransformerParams' leaves in the JAX package's tree order."""
     return [p.embed, *p.blocks, p.ln_f, p.head]
+
+
+def _from_leaves(leaves):
+    return TransformerParams(embed=leaves[0], blocks=BlockParams(*leaves[1:9]),
+                             ln_f=leaves[9], head=leaves[10])
+
+
+def shard_params(params, comm_tp):
+    """This rank's tp shards of full parameters (every rank passes the
+    same ``params``): ``wq``, ``wk``, ``wv`` and ``w1`` cut on their last
+    axis, ``wo`` and ``w2`` on axis 1 of the ``(L, F, d)`` stack, the
+    rest replicated (copies, so the step's in-place update never writes
+    the caller's tensors).  One rank: copies of every leaf."""
+    tp, r = comm_tp.size, comm_tp.rank()
+
+    def cut(t, axis):
+        if axis is None:
+            return t.detach().clone()
+        n = t.shape[axis] // tp
+        return t.detach().narrow(axis, r * n, n).contiguous().clone()
+
+    return _from_leaves([cut(t, a) for t, a in zip(_leaves(params),
+                                                    _leaves(_TP_AXIS))])
+
+
+@torch.no_grad()
+def gather_params(params, comm_tp):
+    """The full parameters from every tp rank's shards (each rank gets
+    them all): the inverse of :func:`shard_params`, a collective over
+    ``comm_tp``."""
+    from mpi4jax_tpu_torch.ops.collectives import allgather
+
+    def join(t, axis):
+        if axis is None or comm_tp.size == 1:
+            return t.detach().clone()
+        rows, _ = allgather(t.detach(), comm=comm_tp)
+        return torch.cat(rows.unbind(0), dim=axis)
+
+    return _from_leaves([join(t, a) for t, a in zip(_leaves(params),
+                                                     _leaves(_TP_AXIS))])
 
 
 def _param_shapes(cfg):
@@ -316,8 +362,13 @@ def _recompute_layers(remat):
       tensor-parallel allreduce; here the ``wo`` product before it, the
       op that computes it (an eager recompute re-runs every op it does
       not replay, so tagging the allreduce's output would run the
-      product again).  The recompute runs the allreduce again: a copy
-      on one rank.
+      product again).  So the recompute runs the tp allreduce again,
+      one more ``[tokens, d]`` allreduce a layer in every backward (a
+      copy on one rank), with the same inputs and so the same result;
+      JAX's does not.  Saving the collective's output instead would
+      need the policy to see a process group's call, which no backend
+      routes alike.  ``tests/test_torch_multirank_transformer.py``
+      counts it.
     """
     if isinstance(remat, (tuple, list)) and not remat:
         # () is falsy: it would silently run without remat
@@ -370,6 +421,11 @@ def _sequence_attention(sequence, impl):
         )
     if callable(impl):
         def attend(q, k, v, comm, token):
+            if comm.size > 1:
+                raise ValueError(
+                    "a function as cfg.attn_impl runs on one sp rank; "
+                    f"comm_sp has {comm.size}"
+                )
             return impl(q, k, v, causal=True), token
         return attend
     seq_attn = ring_attention if sequence == "ring" else ulysses_attention
@@ -488,12 +544,17 @@ def _ce_chunked(x, head, targets, chunk):
 def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
                            mlp=None, sequence="ring", remat=False,
                            device="cuda"):
-    """The training step: forward, backward and one SGD update.
+    """The training step over a ``(dp, tp, sp)`` mesh of ranks: forward,
+    backward and one SGD update.
 
-    ``step(params, (tokens, targets)) -> (params, loss)``: ``tokens`` and
-    ``targets`` are ``[B, S]`` int (tensors or arrays; targets are the
-    caller's shifted next tokens), ``loss`` is f32 of shape ``[1]``.
-    The parameters are updated in place and returned.
+    ``step(params, (tokens, targets)) -> (params, loss)``: ``params`` are
+    this rank's tp shards (:func:`shard_params`); ``tokens`` and
+    ``targets`` are the global ``[B, S]`` int batch (tensors or arrays;
+    targets are the caller's shifted next tokens, shifted globally, as
+    the shift crosses sp blocks), the same on every rank, of which the
+    step takes this rank's ``(dp, sp)`` block.  ``loss`` is f32 of shape
+    ``[1]``, the mean over the whole batch, the same on every rank.  The
+    parameters are updated in place and returned.
 
     ``mlp`` substitutes the MLP sublayer, ``sequence`` picks the
     context-parallel scheme ("ring" or "ulysses"), ``remat`` recomputes
@@ -503,16 +564,15 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
     ``cfg.attn_impl="flash"`` runs the attention and its gradient through
     the flash kernels and ``cfg.ce_chunk`` chunks the loss.
 
-    There is no mesh argument: the comms carry the layout, one rank in
-    this port.  The JAX package's validation runs first; then comms of
-    more than one rank raise.
+    There is no mesh argument: the comms carry the layout.  Every rank
+    of the mesh calls the step in the same order: its forward and
+    backward run the mesh's collectives.
     """
     if sequence not in ("ring", "ulysses"):
         raise ValueError(
             f"sequence must be 'ring' or 'ulysses', got {sequence!r}"
         )
     n_data = float(comm_dp.size * comm_sp.size)
-    tp = float(comm_tp.size)
     _check_tp_divisibility(cfg, comm_tp.size)
     if sequence == "ulysses" and comm_sp.size > 1:
         for name, heads in (("heads", cfg.heads), ("kv_heads", cfg.kv_heads)):
@@ -524,24 +584,43 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
                     f"sequence='ring')"
                 )
     _recompute_layers(remat)
-    for name, comm in (("comm_dp", comm_dp), ("comm_tp", comm_tp),
-                       ("comm_sp", comm_sp)):
-        if comm.size != 1:
-            raise NotImplementedError(
-                f"{name} has {comm.size} ranks; the training step runs on "
-                f"one rank in this port: {MESH_ITEM}"
-            )
     device = resolve_device(device)
     ce_chunk = cfg.ce_chunk
+    data_comms = [c for c in (comm_dp, comm_sp) if c.size > 1]
+    dp_rank, sp_rank = comm_dp.rank(), comm_sp.rank()
 
-    def sync_grad(g, tp_sharded):
-        # each rank's gradient is already the sum over the ranks that
-        # share the parameter (the comms' autograd rules); only the
-        # scaling to the mean loss remains.  tp-sharded leaves: the mean
-        # over (dp, sp); replicated ones also over tp, whose f-collectives
-        # made each rank's gradient the full tp sum.  One rank: 1.
-        scale = n_data if tp_sharded else n_data * tp
-        return g if scale == 1.0 else g.div_(scale)
+    def data_sum(x):
+        """``x`` summed over the (dp, sp) ranks (over dp, then sp)."""
+        for comm in data_comms:
+            x, _ = allreduce(x, reductions.SUM, comm=comm)
+        return x
+
+    def sync_grad(g):
+        # Autograd sums nothing across ranks on its own: each rank holds
+        # the gradient of its own block's loss (the ring's and Ulysses's
+        # cotangents from the other sp ranks' losses included, by the
+        # exchanges' transposes).  The f-collectives already made a
+        # replicated leaf's gradient the full tp sum on every tp rank,
+        # and a tp shard's is its own.  So every leaf is summed over the
+        # (dp, sp) ranks and divided by n_data, the mean of the blocks'
+        # losses.  (JAX's shard_map AD also sums replicated leaves over
+        # tp and so divides those by n_data * tp.)
+        g = data_sum(g)
+        return g if n_data == 1.0 else g.div_(n_data)
+
+    def local_block(t, like):
+        t = torch.as_tensor(t, device=like.device)
+        b, s = t.shape
+        for name, n, size in (("batch", b, comm_dp.size),
+                              ("sequence", s, comm_sp.size)):
+            if n % size:
+                raise ValueError(
+                    f"the global {name} length {n} must be divisible by "
+                    f"its mesh axis's {size} ranks"
+                )
+        bl, sl = b // comm_dp.size, s // comm_sp.size
+        return t[dp_rank * bl:(dp_rank + 1) * bl,
+                 sp_rank * sl:(sp_rank + 1) * sl]
 
     def loss_fn(params, tokens, targets):
         out, aux = _forward_sharded(
@@ -558,8 +637,7 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
                 f"params are on {params.embed.device}, the step was made "
                 f"for {device}"
             )
-        tokens, targets = (torch.as_tensor(t, device=params.embed.device)
-                           for t in batch)
+        tokens, targets = (local_block(t, params.embed) for t in batch)
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -569,11 +647,12 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
         # (the JAX step returns new arrays; here the parameters' memory
         # is reused and the gradient's buffer holds lr * g)
         with torch.no_grad():
-            for p, g, sharded in zip(leaves, grads, _leaves(TP_SHARDED)):
-                p.sub_(sync_grad(g, sharded).mul_(lr))
-        # the mean over the ranks (psum / n): one rank, the identity
-        loss = loss.detach() / (n_data * tp)
-        return params, loss.reshape(1)
+            for p, g in zip(leaves, grads):
+                p.sub_(sync_grad(g).mul_(lr))
+            # the mean of the (dp, sp) blocks' losses (JAX: the psum over
+            # every rank / (n_data * tp)); one rank: the identity
+            loss = data_sum(loss.detach().reshape(1)) / n_data
+        return params, loss
 
     return step
 
@@ -779,7 +858,8 @@ class _DecodeLoop:
     """
 
     def __init__(self, params, prompt, cfg, max_len, *, comm_tp, batched,
-                 kv_bucket, prefill_impl, sampler, temperature, top_k):
+                 kv_bucket, prefill_impl, sampler, temperature, top_k,
+                 row0=0):
         tp = comm_tp.size
         self.hq_l, self.hk_l = cfg.heads // tp, cfg.kv_heads // tp
         b, self.p_len = prompt.shape
@@ -797,7 +877,9 @@ class _DecodeLoop:
         self.cache = _new_cache(cfg, b, max_len, self.hk_l, params.embed)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.key = torch.zeros(2, dtype=torch.int64, device=device)
-        self.row_ids = torch.arange(b, device=device)
+        # global row ids: the sampler folds them in, so the draws do not
+        # depend on the dp split
+        self.row_ids = row0 + torch.arange(b, device=device)
         self.temperature = torch.full((), temperature, dtype=torch.float32,
                                       device=device)
         self.batched = batched and self.p_len > 1
@@ -881,17 +963,20 @@ def _greedy_decode(params, prompt, cfg, max_len, *, comm_tp, batched,
                     lambda view_len: loop.step(params, view_len))
 
 
-def _capture_steps(loop, params):
+def _capture_steps(loop, params, capture_error_mode=None):
     """One CUDA graph of ``loop.step`` per view length of the loop's
     segments, in segment order, all in one memory pool: each graph's
     temporaries die inside it and every live output is a static buffer
-    allocated outside the captures, so the graphs can share the pool."""
+    allocated outside the captures, so the graphs can share the pool.
+    Over NCCL each graph holds the step's tp allreduces; every tp rank
+    captures the same view lengths in the same order (the segments
+    depend only on the prompt length, ``max_len`` and ``kv_bucket``)."""
     pool = torch.cuda.graph_pool_handle()
     graphs = {}
     for view_len, _, _ in loop.segments:
         graph = torch.cuda.CUDAGraph()
         try:
-            with graph_capture(graph, pool):
+            with graph_capture(graph, pool, capture_error_mode):
                 loop.step(params, view_len)
         except RuntimeError as exc:
             raise RuntimeError(
@@ -905,15 +990,22 @@ def _capture_steps(loop, params):
 def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
                        kv_bucket=None, prefill_impl="xla", sampler="greedy",
                        temperature=1.0, top_k=None, device="cuda"):
-    """Autoregressive decoder, greedy or sampled.
+    """Autoregressive decoder over a ``(dp, tp)`` mesh of ranks, greedy
+    or sampled.
 
-    ``decode(params, prompt)``: ``prompt`` is ``[B, P]`` int (a tensor or
-    array).  ``prefill="batched"`` (default) processes the whole prompt
-    in one causal forward pass that fills the KV cache;
+    ``decode(params, prompt)``: ``params`` are this rank's tp shards
+    (:func:`shard_params`), each tp rank holding a KV cache of
+    ``kv_heads / tp`` heads; ``prompt`` is the global ``[B, P]`` int
+    batch (a tensor or array), the same on every rank, of which each dp
+    rank decodes its ``B / dp`` rows.  ``prefill="batched"`` (default)
+    processes the whole prompt in one causal forward pass that fills the
+    KV cache;
     ``prefill="stepwise"`` runs the prompt position by position through
     the cached step (same math).  Then generates ``max_len - P`` tokens.
-    Returns ``[B, max_len]`` on ``device``, in the prompt's dtype — the
-    prompt followed by the continuation.  Greedy matches
+    Returns the global ``[B, max_len]`` on ``device`` on every rank (the
+    dp ranks' rows gathered), in the prompt's dtype: the prompt followed
+    by the continuation.  Every tp rank chooses the same tokens: their
+    logits come out of the same allreduces.  Greedy matches
     :func:`reference_greedy_decode`.
 
     ``sampler="categorical"`` draws each continuation token from the
@@ -939,21 +1031,20 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
     is a direct call.  On the card the first call for a key runs eagerly
     on a side stream, then captures one CUDA graph of the step per cache
     view length; every later call replays them, one replay a position,
-    after setting the position at each segment's start.  A capture that
-    fails raises; nothing on the card falls back to the eager loop.
+    after setting the position at each segment's start.  Over NCCL the
+    graphs hold the tp allreduces (captured in ``"thread_local"`` mode:
+    NCCL's watchdog queries the device meanwhile); a world with a gloo
+    group (a local world of thread ranks on one card) runs the steps
+    eagerly, as ``make_multistep`` does: gloo stages through host
+    memory, which a graph cannot hold.  A capture that fails raises;
+    nothing on the card falls back to the eager loop.
     Every call returns a new tensor, so a later call never overwrites an
     earlier result.  ``decode.captures`` counts the graphs captured and
-    ``decode.replays`` the steps replayed (on the CPU: the direct calls).
+    ``decode.replays`` the steps replayed (eager: the direct calls).
 
-    There is no mesh argument: the comms carry the layout, one rank in
-    this port.
+    There is no mesh argument: the comms carry the layout.  Every rank
+    of the mesh calls the decoder in the same order.
     """
-    for name, comm in (("comm_dp", comm_dp), ("comm_tp", comm_tp)):
-        if comm.size != 1:
-            raise NotImplementedError(
-                f"{name} has {comm.size} ranks; the decoder runs on one "
-                f"rank in this port: {MESH_ITEM}"
-            )
     _check_tp_divisibility(cfg, comm_tp.size)
     if prefill not in ("batched", "stepwise"):
         raise ValueError(
@@ -974,6 +1065,11 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
     device = resolve_device(device)
     bucket = None if kv_bucket is None else int(kv_bucket)
     state = {"sig": None, "loop": None, "graphs": None}
+    transports = [c.transport() for c in (comm_dp, comm_tp)]
+    # a gloo group stages through host memory: no graph can hold it
+    captures = all(t is None or t.backend == "nccl" for t in transports)
+    mode = None if all(t is None for t in transports) else "thread_local"
+    dp, dp_rank = comm_dp.size, comm_dp.rank()
 
     def loop_for(params, prompt):
         sig = (tuple(prompt.shape), prompt.dtype, params.embed.dtype,
@@ -985,9 +1081,28 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
                 batched=prefill == "batched", kv_bucket=bucket,
                 prefill_impl=prefill_impl, sampler=sampler,
                 temperature=temperature, top_k=top_k,
+                row0=dp_rank * prompt.shape[0],
             )
             state["sig"] = sig
         return state["loop"]
+
+    def local_rows(prompt):
+        b = prompt.shape[0]
+        if b % dp:
+            raise ValueError(
+                f"the global batch {b} must be divisible by the {dp} dp "
+                f"ranks"
+            )
+        return prompt[dp_rank * (b // dp):(dp_rank + 1) * (b // dp)]
+
+    def gather_rows(out):
+        """The dp ranks' rows in rank order: the global batch."""
+        if dp == 1:
+            return out
+        from mpi4jax_tpu_torch.ops.collectives import allgather
+
+        rows, _ = allgather(out, comm=comm_dp)
+        return rows.reshape(-1, out.shape[1])
 
     @torch.no_grad()
     def run(params, prompt, key):
@@ -996,18 +1111,20 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
                 f"params are on {params.embed.device}, the decoder was "
                 f"made for {device}"
             )
-        prompt = torch.as_tensor(prompt, device=params.embed.device)
+        prompt = local_rows(torch.as_tensor(prompt,
+                                            device=params.embed.device))
         if key is not None:
             key = prng.raw_key(key, params.embed.device)
         loop = loop_for(params, prompt)
-        if device.type == "cuda" and state["graphs"] is None:
+        graphed = device.type == "cuda" and captures
+        if graphed and state["graphs"] is None:
             out = run_on_side_stream(lambda: loop.run(
                 params, prompt, key, lambda n: loop.step(params, n)).clone(),
                 params.embed.device)
-            state["graphs"] = _capture_steps(loop, params)
+            state["graphs"] = _capture_steps(loop, params, mode)
             decode.captures += len(state["graphs"])
-            return out
-        if device.type == "cuda":
+            return gather_rows(out)
+        if graphed:
             graphs = state["graphs"]
 
             def replay(view_len):
@@ -1017,7 +1134,7 @@ def make_global_decode(comm_dp, comm_tp, cfg, max_len, *, prefill="batched",
                 loop.step(params, view_len)
         out = loop.run(params, prompt, key, replay).clone()
         decode.replays += loop.n_steps
-        return out
+        return gather_rows(out)
 
     if sampler == "greedy":
         def decode(params, prompt):
@@ -1099,12 +1216,15 @@ def config_from_jax(cfg_fields):
     return TransformerConfig(**cfg_fields)
 
 
-def params_from_jax(arrays, cfg, *, dtype=torch.float32, device="cuda"):
+def params_from_jax(arrays, cfg, *, dtype=torch.float32, device="cuda",
+                    comm_tp=None):
     """Port parameters on ``device`` from the JAX ``TransformerParams``
     leaves as numpy arrays (the same structure: ``embed``, ``blocks``
     with its eight fields, ``ln_f``, ``head``).  bf16 arrives as
     ``ml_dtypes.bfloat16`` numpy; every leaf goes through float32, which
-    holds bf16 exactly, and is cast to ``dtype``."""
+    holds bf16 exactly, and is cast to ``dtype``.  With ``comm_tp``, the
+    full parameters land as this rank's tp shards
+    (:func:`shard_params`)."""
     device = resolve_device(device)
     shapes = _param_shapes(cfg)
 
@@ -1122,12 +1242,15 @@ def params_from_jax(arrays, cfg, *, dtype=torch.float32, device="cuda"):
         leaf(f"blocks.{name}", getattr(arrays.blocks, name), shape)
         for name, shape in zip(BlockParams._fields, shapes.blocks)
     ))
-    return TransformerParams(
+    params = TransformerParams(
         embed=leaf("embed", arrays.embed, shapes.embed),
         blocks=blocks,
         ln_f=leaf("ln_f", arrays.ln_f, shapes.ln_f),
         head=leaf("head", arrays.head, shapes.head),
     )
+    if comm_tp is None or comm_tp.size == 1:
+        return params
+    return shard_params(params, comm_tp)
 
 
 def params_to_numpy(params):

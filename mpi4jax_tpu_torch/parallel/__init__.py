@@ -17,6 +17,9 @@ from mpi4jax_tpu_torch.parallel.longseq import (
     local_attention,
     ring_attention,
     ulysses_attention,
+    zigzag_indices,
+    zigzag_shard,
+    zigzag_unshard,
 )
 
 __all__ = [
@@ -31,4 +34,7 @@ __all__ = [
     "local_attention",
     "ring_attention",
     "ulysses_attention",
+    "zigzag_indices",
+    "zigzag_shard",
+    "zigzag_unshard",
 ]

@@ -9,7 +9,8 @@ caller asked for the CPU, and never on the CPU by default.
 ``run_on_side_stream`` and ``graph_capture`` are how the port's
 entry points warm up and capture their CUDA graphs; ``release_graphs``
 resets the graphs still alive before a world ends
-(``parallel/distributed.py:finalize``).
+(``parallel/distributed.py:finalize``).  ``slowest`` is how a timing
+across ranks agrees: every rank reads the slowest rank's seconds.
 """
 
 import contextlib
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["drain", "best_mesh_shape", "resolve_device",
-           "run_on_side_stream", "graph_capture", "release_graphs"]
+           "run_on_side_stream", "graph_capture", "release_graphs",
+           "slowest"]
 
 # every graph captured through graph_capture and still referenced
 _graphs = weakref.WeakSet()
@@ -35,6 +37,21 @@ def drain(x):
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
     return np.asarray(x.reshape(-1)[0].item())
+
+
+def slowest(comm, seconds, device):
+    """Each of ``seconds`` (a list of floats) as its largest value over
+    the ranks of ``comm`` (a MAX allreduce): the same list on every rank,
+    so that decisions taken from it agree.  One rank (or no comm):
+    ``seconds``."""
+    if comm is None or comm.size == 1:
+        return list(seconds)
+    from mpi4jax_tpu_torch.ops import reductions
+    from mpi4jax_tpu_torch.ops.allreduce import allreduce
+
+    x = torch.tensor(seconds, dtype=torch.float64, device=device)
+    out, _ = allreduce(x, reductions.MAX, comm=comm)
+    return out.tolist()
 
 
 def best_mesh_shape(n):

@@ -17,7 +17,9 @@ the CPU, at a tiny size:
   bandwidth);
 * ``run_bench`` across a 2x2 local world of gloo thread ranks: every
   rank takes the same decisions and returns the same record, per card,
-  with the bus bandwidth over the four ranks;
+  with the bus bandwidth over the four ranks, and (not under
+  ``--quick``) the decode legs on the ``(2, 2)`` mesh and the training
+  legs on ``(1, 2, 2)``, at tiny presets;
 * the training example's ``--remat-policy`` and presets, and
   ``autotune_attn_impl`` off the card;
 * ``make_multistep(donate=False)`` leaves the states that earlier calls
@@ -117,6 +119,9 @@ TRAIN_KEYS = {
 # the attention each training leg ran
 ATTN_KEYS = {"transformer_train_attn_impl", "transformer_large_attn_impl",
              "transformer_long_attn_impl"}
+# the meshes the transformer legs ran on
+MESH_KEYS = {"decode_mesh", "decode_devices", "transformer_mesh",
+             "transformer_devices"}
 
 
 @pytest.mark.parametrize("quick", [False, True], ids=["full", "quick"])
@@ -130,7 +135,8 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     if quick:
         keys.add("quick")
     else:
-        keys |= DECODE_KEYS | ALLREDUCE_KEYS | TRAIN_KEYS | ATTN_KEYS
+        keys |= (DECODE_KEYS | ALLREDUCE_KEYS | TRAIN_KEYS | ATTN_KEYS
+                 | MESH_KEYS)
     # no copy rate on the CPU (it has no HBM), so no bandwidth bound, and
     # no TPU-derived key
     assert set(rec) == keys
@@ -169,6 +175,9 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
             "transformer_train_attn_impl": "auto",
             "transformer_large_attn_impl": "auto",
             "transformer_long_attn_impl": "flash"}
+        assert rec["decode_mesh"] == [1, 1] and rec["decode_devices"] == 1
+        assert rec["transformer_mesh"] == [1, 1, 1]
+        assert rec["transformer_devices"] == 1
 
 
 @pytest.mark.parametrize("quick", [False, True], ids=["full", "quick"])
@@ -199,18 +208,30 @@ def test_run_bench_across_a_local_world(tiny_bench, monkeypatch, capsys,
         "allreduce_busbw_gbps", "allreduce_devices"}
     if quick:
         keys.add("quick")
+    else:
+        # one card's keys but its allreduce call site and the local
+        # world's busbw; the transformer legs on the JAX bench's meshes
+        keys |= DECODE_KEYS | TRAIN_KEYS | ATTN_KEYS | MESH_KEYS
     assert set(rec) == keys
     assert rec["devices"] == 4 and rec["mesh"] == [2, 2]
     assert rec["allreduce_devices"] == 4 and rec["allreduce_busbw_gbps"] > 0
     best = estimates[0][0]
     assert rec["value"] == round(
         TINY.ny * TINY.nx * bench.STEPS_PER_CALL / best / 4, 1)
-    # rank 0 alone speaks; the single-card legs are named skipped, for
-    # the transformer's ranks (item 15)
+    if not quick:
+        assert rec["decode_mesh"] == [2, 2] and rec["decode_devices"] == 4
+        assert rec["transformer_mesh"] == [1, 2, 2]
+        assert rec["transformer_devices"] == 4
+        assert all(rec[key] > 0 for key in DECODE_KEYS | TRAIN_KEYS)
+        assert rec["transformer_long_seq"] == 32  # per sp rank
+        assert "mesh [1, 2, 2]" in err and "mesh [2, 2]" in err
+    # rank 0 alone speaks; the local world's busbw is named skipped, and
+    # no leg waits for the transformer's meshes
     assert err.count("[bench] schedule ghost=") == 1
     assert err.count(f"[bench] skipped {bench.WORLD_SKIPPED[0]}") == 1
-    assert "ROADMAP Queue 1 item 15" in err
-    assert "quick mode" not in err
+    assert "item 15" not in err
+    assert err.count("quick mode") == (len(bench.TRAIN_LEGS) + 2 if quick
+                                       else 0)
 
 
 def test_nominal_hbm():

@@ -2,7 +2,10 @@
 the CPU: the cases it holds on the card to a CPU local world (one card:
 a 2x2 local world over gloo; ``--nccl-world 4``: four NCCL processes)
 run here in a 2x2 local world, where the device is the CPU itself, and
-its holds raise on a shape that differs, naming the rank."""
+its holds raise on a shape that differs, naming the rank.  The
+multi-rank transformer phase's training check at a tiny width: each
+scheme within its limit of the one-rank step, the planted fault far
+outside it."""
 
 import importlib.util
 import pathlib
@@ -10,7 +13,8 @@ import pathlib
 import pytest
 import torch
 
-from mpi4jax_tpu_torch.parallel import distributed
+from mpi4jax_tpu_torch.ops.allreduce import allreduce
+from mpi4jax_tpu_torch.parallel import distributed, longseq
 
 torch.set_num_threads(1)
 
@@ -66,3 +70,43 @@ def test_baseline_configs_round_trip(smoke, monkeypatch):
         assert len(readings) == 6 and all(ok for *_, ok in readings)
     with pytest.raises(RuntimeError, match="rank 1: config 3 gather"):
         smoke.hold_baseline(got[1], got[0], 1)
+
+
+TINY_TFM = dict(vocab=64, d_model=32, layers=2, heads=8, kv_heads=8,
+                head_dim=4, d_ff=64)
+
+
+@pytest.mark.parametrize("name, sequence, layout", [
+    ("ring", "ring", "contiguous"), ("ring_zigzag", "ring", "zigzag"),
+    ("ulysses", "ulysses", None)])
+def test_mesh_schemes_hold_to_one_rank(smoke, monkeypatch, name, sequence,
+                                       layout):
+    # the training check of the multi-rank transformer phase at a tiny
+    # width on the CPU: every scheme (the zigzag ring on the reordered
+    # batch) within the limit of the one-rank step; the planted sync
+    # that skips sp far outside it
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = smoke.tfm.TransformerConfig(**TINY_TFM)
+    params, batch = smoke.train_data(cfg, "cpu", seed=3,
+                                     dtype=torch.float32, batch=2, seq=16)
+    p0 = [t.detach().clone() for t in smoke.tfm._leaves(params)]
+    one = smoke.MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    ref_step = smoke.tfm.make_global_train_step(
+        *smoke.mesh_comms(one), cfg, lr=smoke.MESH_CHECK_LR, remat="names",
+        device="cpu")
+    ref, ref_loss = ref_step(smoke.tfm.shard_params(params, one.sub("tp")),
+                             batch)
+    loss, full, _ = smoke.mesh_train_run(params, batch, cfg, sequence,
+                                         layout, "cpu", smoke.MESH_CHECK_LR)
+    read = smoke.mesh_readings(loss, full, ref_loss, ref, p0)
+    assert set(read) == {"loss", *smoke.transformer_names()}
+    assert max(read.values()) < 1e-5 < smoke.MESH_TRAIN_LIMIT
+    if name == "ring":
+        loss, full, _ = smoke.mesh_train_run(
+            params, batch, cfg, sequence, layout, "cpu",
+            smoke.MESH_CHECK_LR, smoke.sync_skipping_sp)
+        read = smoke.mesh_readings(loss, full, ref_loss, ref, p0)
+        assert max(read.values()) > 100 * smoke.MESH_TRAIN_LIMIT
+    # the patches are gone
+    assert smoke.tfm.ring_attention is longseq.ring_attention
+    assert smoke.tfm.allreduce is allreduce

@@ -338,17 +338,19 @@ def test_decode_cache_is_zeroed_each_call():
 
 
 def test_multi_rank_comms_name_their_roadmap_item():
-    # a grid of ranks needs a world of them; the decoder's tensor- and
-    # data-parallel meshes are ROADMAP item 15
+    # a grid of ranks needs a world of them; the decoder's meshes run
+    # (tests/test_torch_multirank_transformer.py), and its tp size must
+    # still divide the heads
     with pytest.raises(ValueError, match="needs a world of ranks"):
         MeshComm(axes=("dp", "tp"), axis_sizes=(1, 2))
 
     class TwoRanks:
         size = 2
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tfm.make_global_decode(_comms()[0], TwoRanks(), CFG, MAX,
-                               device="cpu")
+    with pytest.raises(ValueError, match="cfg.kv_heads=1 must be divisible "
+                       "by the tensor-parallel size 2"):
+        tfm.make_global_decode(_comms()[0], TwoRanks(),
+                               CFG._replace(kv_heads=1), MAX, device="cpu")
 
 
 def test_decode_defaults_to_the_card():
