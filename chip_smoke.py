@@ -178,7 +178,29 @@ Phases, each of which raises on failure (nothing is caught):
    one-rank decoder's.  Phases 5 and 8 hold the flash kernels at the
    shapes this path gives them: Ulysses at the long leg on (1, 2, 2)
    [2, 16384, 4, 128] bf16 causal (forward and backward) and the
-   decode prefill at tp 2 [4, 8192, 4, 64] (forward).
+   decode prefill at tp 2 [4, 8192, 4, 64] (forward), and time them
+   there beside scaled_dot_product_attention (``mesh_shape_timings``,
+   also under ``--check fwd,bwd``).
+11. proc tier: the native bridge (g++ of ``dcn.cc``, ``shm.cc`` and the
+   port's C shim, built beside the kernels in phase 1, its seconds
+   printed) and launcher jobs of the port
+   (``python -m mpi4jax_tpu_torch.launch -np 4``, every rank on the one
+   card, this script as the program under ``--proc-rank``): (a) the
+   proc battery (``proc_battery``: every op with several operators and
+   dtypes, user operators, rank-dependent gather/scatter, tagged
+   send/recv with Status, sendrecv, sendrecv_multi and alltoall_multi
+   fused and unfused, the gradients of allreduce SUM and sendrecv) on
+   CUDA tensors staged through pinned host memory, equal bit for bit to
+   the same battery on CPU tensors in a second job; (b) the 2x2 halo
+   exchange of h, u and v at the flagship's per-rank block (1804x904
+   f32, ghost 2) on a ProcGridComm, fused and unfused, equal bit for bit
+   to each other and to the same exchange in a local world of four gloo
+   thread ranks; (c) a planted failure: the launcher exits nonzero
+   within its deadline and names the failing rank first; (d) the
+   bench's two proc legs at ``--quick`` sizes (``bench.proc_legs``: the
+   8-rank allreduce busbw at 4 MB and 4 reps, staged and on host
+   memory, and the 8-rank halo latency, coalescing on and off).  Each
+   job's seconds and the legs' numbers are printed.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -199,9 +221,18 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc [--no-timings]
 
-runs those checks (any of them) on this tree alone.
+runs those checks (any of them) on this tree alone (``proc``: phase 11);
+``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
+unless ``--no-timings`` is given (``--fault-readings`` gives it to its
+copies, which share the card and so could time nothing).
+
+    python -m mpi4jax_tpu_torch.launch -np N chip_smoke.py --proc-rank \
+        battery OUT_DIR [NY NX]
+
+is a rank of phase 11's jobs (``fail -`` the planted failure): the
+battery's results go to ``OUT_DIR/rank<r>.npz``.
 
     python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
 
@@ -266,12 +297,14 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mpi4jax_tpu_torch import bench as port_bench
+from mpi4jax_tpu_torch import launch
 from mpi4jax_tpu_torch import ops as p_ops
 from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
 from mpi4jax_tpu_torch.kernels import _build, sw_step
@@ -279,6 +312,7 @@ from mpi4jax_tpu_torch.kernels import flash as kflash
 from mpi4jax_tpu_torch.kernels import flash_bwd as kbwd
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import transformer as tfm
+from mpi4jax_tpu_torch.native import build as native_build
 from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
@@ -331,6 +365,16 @@ NCCL_RANK_TIMEOUT_S = 720.0  # an --nccl-world rank's whole run
 FINALIZE_TIMEOUT_S = 60.0  # distributed.finalize on an --nccl-world rank
 # BASELINE.json configs 3 and 4 over --nccl-world: 1024x1024 float32 per
 # rank, each op's device time the median of BASELINE_REPEATS calls
+# the proc tier's phase: launcher jobs of PROC_RANKS ranks on the one
+# card; the 2x2 halo at the flagship's per-rank block (3600x1800 over
+# 2x2, ghost 2 on each side) for h, u and v
+PROC_RANKS = 4
+PROC_FIELDS = ("h", "u", "v")
+PROC_GHOST = 2
+PROC_HALO_BLOCK = (1800 + 2 * PROC_GHOST, 900 + 2 * PROC_GHOST)
+PROC_JOB_TIMEOUT_S = 240.0
+PROC_FAIL_TIMEOUT_S = 90.0
+
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
 
@@ -1912,6 +1956,369 @@ def nccl_rank():
     return 0
 
 
+# -- the proc tier: launcher jobs over the native DCN bridge ---------------
+
+
+def proc_inputs(rank, size):
+    """Rank ``rank``'s inputs of the proc battery, as numpy arrays (the
+    JAX package's proc job takes the same ones in the port's tests)."""
+    rng = np.random.default_rng(7000 + rank)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {
+        "x": f32(5, 3),
+        "x64": rng.standard_normal(7),
+        "xb16": f32(6),
+        "i": rng.integers(-40, 40, (6,)).astype(np.int32),
+        "b": rng.random(5) > 0.5,
+        "rows": f32(size, 3),
+        "rows_i": rng.integers(-40, 40, (size, 2)).astype(np.int32),
+        "rows_b": rng.random((size, 3)) > 0.5,
+        "full": f32(size, 4),
+        "parts": [f32(3), f32(2, 2), f32(4)],
+        "a2a": [f32(size, 2), f32(size, 3)],
+        "w": f32(5, 3),
+    }
+
+
+def proc_halo_inputs(rank, block):
+    """Rank ``rank``'s fields h, u, v of the 2x2 halo exchange (``block``
+    rows and columns, ghosts included)."""
+    rng = np.random.default_rng(9000 + rank)
+    return [rng.standard_normal(block).astype(np.float32) for _ in PROC_FIELDS]
+
+
+def ghost_strips(arrs, width):
+    """The ghost ring of each field: the only cells an exchange writes."""
+    w = width
+    return {f"{name}_{side}": t for name, a in zip(PROC_FIELDS, arrs)
+            for side, t in (("south", a[:w]), ("north", a[-w:]),
+                            ("west", a[:, :w]), ("east", a[:, -w:]))}
+
+
+def proc_user_ops():
+    """The battery's user operators: commuting, and not."""
+    return {
+        "max2": p_ops.Op.create(lambda a, b: torch.maximum(a, b) * 2,
+                                name="max2"),
+        "lin": p_ops.Op.create(lambda a, b: a * 3 + b, name="lin",
+                               commute=False),
+    }
+
+
+def proc_battery(comm, device, halo_block=None):
+    """Every op of the proc tier on this rank's ``proc_inputs`` on
+    ``device``: ``{case: result on the CPU}``, the same cases in the same
+    order on every rank (rooted ops give each rank its own shape).  With
+    four ranks and ``halo_block``, also the 2x2 halo exchange of h, u, v
+    at ``PROC_GHOST`` on a ProcGridComm (periodic in x, walls in y),
+    fused and unfused: each field's ghost ring."""
+    from mpi4jax_tpu_torch import tuning
+    from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d_batch
+    from mpi4jax_tpu_torch.parallel.proc import grid_comm
+
+    n, r = comm.size, comm.rank()
+    prev, nxt = (r - 1) % n, (r + 1) % n
+    inp = proc_inputs(r, n)
+    user = proc_user_ops()
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def keep(name, y):
+        if y.device.type != torch.device(device).type:
+            raise RuntimeError(f"{name}: result on {y.device}")
+        out[name] = y.detach().cpu()
+
+    def status(name, st):
+        out[name] = torch.tensor([st.Get_source(), st.Get_tag()],
+                                 dtype=torch.int32)
+
+    x, i, b = t(inp["x"]), t(inp["i"]), t(inp["b"])
+    for op in ("sum", "prod", "min", "max"):
+        keep(f"allreduce_{op}_f32", p_ops.allreduce(x, op, comm=comm)[0])
+    for op in ("sum", "band", "bor", "bxor"):
+        keep(f"allreduce_{op}_i32", p_ops.allreduce(i, op, comm=comm)[0])
+    for op in ("land", "lor", "lxor"):
+        keep(f"allreduce_{op}_bool", p_ops.allreduce(b, op, comm=comm)[0])
+    keep("allreduce_sum_f64", p_ops.allreduce(t(inp["x64"]), "sum",
+                                              comm=comm)[0])
+    keep("allreduce_sum_bf16", p_ops.allreduce(
+        t(inp["xb16"]).bfloat16(), "sum", comm=comm)[0])
+    keep("allreduce_user_max2", p_ops.allreduce(x, user["max2"],
+                                                comm=comm)[0])
+    keep("allreduce_user_lin", p_ops.allreduce(i, user["lin"], comm=comm)[0])
+    keep("scan_sum_f32", p_ops.scan(x, "sum", comm=comm)[0])
+    keep("scan_max_i32", p_ops.scan(i, "max", comm=comm)[0])
+    keep("scan_user_lin", p_ops.scan(i, user["lin"], comm=comm)[0])
+    keep("allgather_f32", p_ops.allgather(x, comm=comm)[0])
+    keep("allgather_bool", p_ops.allgather(b, comm=comm)[0])
+    rows, rows_i = t(inp["rows"]), t(inp["rows_i"])
+    keep("alltoall_f32", p_ops.alltoall(rows, comm=comm)[0])
+    keep("alltoall_i32", p_ops.alltoall(rows_i, comm=comm)[0])
+    keep("reduce_scatter_sum_f32", p_ops.reduce_scatter(rows, "sum",
+                                                        comm=comm)[0])
+    keep("reduce_scatter_max_f32", p_ops.reduce_scatter(rows, "max",
+                                                        comm=comm)[0])
+    keep("reduce_scatter_sum_i32", p_ops.reduce_scatter(rows_i, "sum",
+                                                        comm=comm)[0])
+    keep("reduce_scatter_sum_bool", p_ops.reduce_scatter(
+        t(inp["rows_b"]), "sum", comm=comm)[0])
+    keep("reduce_scatter_user_max2", p_ops.reduce_scatter(
+        rows, user["max2"], comm=comm)[0])
+    for root in sorted({min(1, n - 1), n - 1}):
+        keep(f"bcast_root{root}", p_ops.bcast(x, root, comm=comm)[0])
+    keep("reduce_sum_root0", p_ops.reduce(x, "sum", 0, comm=comm)[0])
+    keep(f"reduce_user_lin_root{n - 1}", p_ops.reduce(
+        i, user["lin"], n - 1, comm=comm)[0])
+    keep("gather_f32_root0", p_ops.gather(x, 0, comm=comm)[0])
+    keep(f"gather_i32_root{n - 1}", p_ops.gather(i, n - 1, comm=comm)[0])
+    full = t(inp["full"])
+    for root in (0, n - 1):
+        keep(f"scatter_root{root}", p_ops.scatter(
+            full if r == root else full[0], root, comm=comm)[0])
+
+    # tagged messages: an int partner is this rank's own (MPMD)
+    st = p_ops.Status()
+    p_ops.send(x, nxt, tag=5, comm=comm)
+    keep("recv_tag5", p_ops.recv(x, prev, 5, comm=comm, status=st)[0])
+    status("recv_tag5_status", st)
+    p_ops.send(x * 2, nxt, tag=9, comm=comm)
+    keep("recv_any", p_ops.recv(x, p_ops.ANY_SOURCE, p_ops.ANY_TAG,
+                                comm=comm, status=st)[0])
+    status("recv_any_status", st)
+    p_ops.send(x, nxt, tag=7, comm=comm)
+    p_ops.send(i, nxt, tag=8, comm=comm)
+    keep("recv_tag8_first", p_ops.recv(i, prev, 8, comm=comm,
+                                       status=st)[0])
+    keep("recv_tag7_second", p_ops.recv(x, prev, 7, comm=comm)[0])
+    keep("sendrecv_ints", p_ops.sendrecv(x, x, prev, nxt, sendtag=3,
+                                         comm=comm, status=st)[0])
+    status("sendrecv_ints_status", st)
+    back = [(q, (q - 1) % n) for q in range(n)]
+    keep("sendrecv_pattern", p_ops.sendrecv(rows, rows, back, back,
+                                            comm=comm)[0])
+    parts = [t(a) for a in inp["parts"]]
+    for label, co in (("fused", True), ("unfused", False), ("auto", None)):
+        outs, _ = p_ops.sendrecv_multi(
+            parts, [p.clone() for p in parts], prev, nxt, sendtag=4,
+            comm=comm, status=st, coalesce=co)
+        for k, y in enumerate(outs):
+            keep(f"sendrecv_multi_{label}_{k}", y)
+        status(f"sendrecv_multi_{label}_status", st)
+    a2a = [t(a) for a in inp["a2a"]]
+    for label, co in (("fused", True), ("unfused", False)):
+        outs, _ = p_ops.alltoall_multi(a2a, comm=comm, coalesce=co)
+        for k, y in enumerate(outs):
+            keep(f"alltoall_multi_{label}_{k}", y)
+    p_ops.barrier(comm=comm)
+
+    # gradients across processes
+    w = t(inp["w"])
+    v = x.clone().requires_grad_()
+    y, _ = p_ops.allreduce(v * w, "sum", comm=comm)
+    (y * w).sum().backward()
+    keep("grad_allreduce_sum", v.grad)
+    v = x.clone().requires_grad_()
+    z, _ = p_ops.sendrecv(v, torch.zeros_like(v), prev, nxt, comm=comm)
+    (z * w).sum().backward()
+    keep("grad_sendrecv", v.grad)
+
+    if halo_block is not None and n == 4:
+        grid = grid_comm((2, 2))
+        for label, threshold in (("fused", 1 << 30), ("unfused", 0)):
+            tuning.override_coalesce(threshold)
+            fields = [t(a) for a in proc_halo_inputs(r, halo_block)]
+            fields, _ = halo_exchange_2d_batch(
+                fields, grid, periodic=(False, True), width=PROC_GHOST)
+            for k, y in ghost_strips(fields, PROC_GHOST).items():
+                keep(f"halo_{label}_{k}", y)
+        tuning.override_coalesce(None)
+    return out
+
+
+def save_results(results, path):
+    """``{case: CPU tensor}`` to an ``.npz`` (bfloat16 as its int16
+    bits)."""
+    np.savez(path, **{k: (v.view(torch.int16) if v.dtype == torch.bfloat16
+                          else v).numpy() for k, v in results.items()})
+
+
+def load_results(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def proc_rank(argv):
+    """A rank of a launcher job (``--proc-rank KIND OUT_DIR [NY NX]``):
+    ``battery`` writes ``proc_battery``'s results (with the halo at an
+    NY x NX block) to ``OUT_DIR/rank<r>.npz``; ``fail`` is the planted
+    failure: rank ``proc_failing_rank(n)`` raises once every rank has
+    passed a barrier, while the others wait in an allreduce."""
+    from mpi4jax_tpu_torch import get_default_comm
+    from mpi4jax_tpu_torch.launch import rank_device
+
+    torch.set_num_threads(1)
+    kind, out_dir, *rest = argv
+    comm = get_default_comm()
+    if comm.backend != "proc":
+        raise RuntimeError("--proc-rank runs under "
+                           "python -m mpi4jax_tpu_torch.launch")
+    device = rank_device()
+    if kind == "battery":
+        block = tuple(int(a) for a in rest) if rest else None
+        save_results(proc_battery(comm, device, block),
+                     pathlib.Path(out_dir) / f"rank{comm.rank()}.npz")
+        return 0
+    if kind == "fail":
+        p_ops.barrier(comm=comm)
+        if comm.rank() == proc_failing_rank(comm.size):
+            raise RuntimeError(f"planted failure on rank {comm.rank()}")
+        p_ops.allreduce(torch.ones(4, device=device), "sum", comm=comm)
+        raise RuntimeError("the allreduce returned without the failed rank")
+    raise ValueError(f"unknown --proc-rank kind {kind!r}")
+
+
+def proc_failing_rank(n):
+    """The rank of an ``n``-rank job that the planted failure kills."""
+    return n // 2
+
+
+def proc_job(n, platform, rank_args, timeout_s):
+    """This script as the program of an ``n``-rank launcher job
+    (``--proc-rank *rank_args``); (exit code, stdout, stderr,
+    seconds)."""
+    return launch.run_job(
+        n, [pathlib.Path(__file__).resolve(), "--proc-rank", *rank_args],
+        platform=platform, timeout=timeout_s)
+
+
+def proc_battery_job(n, platform, block=None, timeout_s=None):
+    """``proc_battery`` in an ``n``-rank launcher job; ``{rank: results}``
+    (numpy) and the job's seconds.  A failed job raises with its
+    output."""
+    timeout_s = PROC_JOB_TIMEOUT_S if timeout_s is None else timeout_s
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_proc_"))
+    try:
+        rc, out, err, secs = proc_job(
+            n, platform, ["battery", work, *(block or ())], timeout_s)
+        if rc != 0:
+            raise RuntimeError(f"the {n}-rank {platform} battery job exited "
+                               f"{rc}:\n{out[-3000:]}\n{err[-6000:]}")
+        return {r: load_results(work / f"rank{r}.npz")
+                for r in range(n)}, secs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def same_bits(a, b):
+    """Equal shape, dtype and bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def hold_bits(label, got, want):
+    """``got`` and ``want`` (``{rank: {case: array}}``) equal bit for bit,
+    case by case; returns the number of readings, raises naming every
+    case that differs."""
+    bad = []
+    for rank in sorted(want):
+        if set(got[rank]) != set(want[rank]):
+            raise RuntimeError(f"{label}: rank {rank} has the cases "
+                               f"{sorted(set(got[rank]) ^ set(want[rank]))} "
+                               "on one side only")
+        bad += [f"rank {rank} {k}" for k in want[rank]
+                if not same_bits(got[rank][k], want[rank][k])]
+    n = sum(len(v) for v in want.values())
+    log(f"  {label}: {n - len(bad)} of {n} readings bit for bit "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise RuntimeError(f"{label}: {bad}")
+    return n
+
+
+def local_world_halo(block, device):
+    """The same exchange in a local world of four gloo thread ranks
+    (``halo_exchange_2d_batch`` on a 2x2 MeshComm): ``{rank: {case:
+    array}}`` with both labels (a mesh has no framing to choose)."""
+    from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d_batch
+
+    def body(comm):
+        fields = [torch.from_numpy(a).to(device)
+                  for a in proc_halo_inputs(comm.rank(), block)]
+        fields, _ = halo_exchange_2d_batch(
+            fields, comm, periodic=(False, True), width=PROC_GHOST)
+        strips = {k: v.cpu().numpy()
+                  for k, v in ghost_strips(fields, PROC_GHOST).items()}
+        return {f"halo_{label}_{k}": v for label in ("fused", "unfused")
+                for k, v in strips.items()}
+
+    return dict(enumerate(distributed.local_world(
+        4, body, axes=(("y", "x"), (2, 2)), deadline=300.0)))
+
+
+def proc_phase(device, card):
+    """The proc tier on the card: launcher jobs of the port over the
+    native bridge (built in the build phase).  (a) the battery on CUDA
+    tensors staged through host memory, 4 ranks on the one card, equal
+    bit for bit to the same battery on CPU tensors in a second job;
+    (b) the 2x2 halo exchange of h, u, v at the flagship's per-rank
+    block (``PROC_HALO_BLOCK``, ghost 2), fused and unfused, equal bit
+    for bit to the same exchange in a local world of four gloo thread
+    ranks; (c) a planted failure: the launcher exits nonzero within its
+    deadline and names the failing rank; (d) the bench's two proc legs at
+    ``--quick`` sizes.  Every job's seconds are printed."""
+    n = PROC_RANKS
+    native_build.ensure_built()
+    log(f"  bridge build: {native_build.build_seconds():.1f} s (g++; "
+        f"{native_build.library_dir().name})")
+    cuda, cuda_s = proc_battery_job(n, "cuda", PROC_HALO_BLOCK)
+    log(f"  {n}-rank battery on CUDA tensors (+ the halo at "
+        f"{PROC_HALO_BLOCK[0]}x{PROC_HALO_BLOCK[1]}): {cuda_s:.1f} s")
+    cpu, cpu_s = proc_battery_job(n, "cpu", PROC_HALO_BLOCK)
+    log(f"  {n}-rank battery on CPU tensors: {cpu_s:.1f} s")
+    readings = hold_bits("(a) CUDA battery vs CPU battery", cuda, cpu)
+    halo = {r: {k: v for k, v in res.items() if k.startswith("halo_")}
+            for r, res in cuda.items()}
+    readings += hold_bits("(b) proc halo, fused vs unfused",
+                          {r: {k.replace("unfused", "fused"): v
+                               for k, v in h.items() if "unfused" in k}
+                           for r, h in halo.items()},
+                          {r: {k: v for k, v in h.items()
+                               if "_fused_" in k} for r, h in halo.items()})
+    t0 = time.perf_counter()
+    readings += hold_bits("(b) proc halo vs a local world of 4 gloo "
+                          "thread ranks", halo,
+                          local_world_halo(PROC_HALO_BLOCK, device))
+    local_s = time.perf_counter() - t0
+
+    rc, out, err, fail_s = proc_job(n, "cuda", ["fail", "-"],
+                                    PROC_FAIL_TIMEOUT_S)
+    bad = proc_failing_rank(n)
+    named = (f"rank {bad} failed first (RuntimeError: planted failure on "
+             f"rank {bad})" in err)
+    ok = rc not in (0, 124) and named and fail_s < PROC_FAIL_TIMEOUT_S
+    log(f"  (c) planted failure on rank {bad}: launcher exit "
+        f"{rc} after {fail_s:.1f} s (deadline {PROC_FAIL_TIMEOUT_S:g} s), "
+        f"rank named: {named} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"the planted failure was not reported:\n"
+                           f"{err[-4000:]}")
+    legs = port_bench.proc_legs(quick=True)
+    log(f"  (d) bench proc legs (--quick): {json.dumps(legs)} on {card}")
+    for key in port_bench.PROC_KEYS:
+        if not legs.get(key, 0) > 0:
+            raise RuntimeError(f"the bench's proc leg gave no {key}")
+    return {"ranks": n, "bridge_build_s": native_build.build_seconds(),
+            "battery_cuda_s": cuda_s, "battery_cpu_s": cpu_s,
+            "local_world_halo_s": local_s, "fail_s": fail_s,
+            "fail_exit": rc, "readings": readings, "bench": legs}
+
+
 def ptxas_report(log_path):
     """ptxas's report from a build log: one ``(kernel, template
     arguments, registers, spill stores, spill loads)`` per compiled
@@ -1936,17 +2343,24 @@ def ptxas_report(log_path):
     return rows
 
 
-def build_phase(sources=SOURCES):
+def build_phase(sources=SOURCES, bridge=False):
     """Build every kernel source at once (one nvcc each, in threads:
-    the compiles run as subprocesses) and print nvcc's seconds and
-    ptxas's registers and spills per kernel and head dim."""
+    the compiles run as subprocesses), and with ``bridge`` the proc
+    tier's native bridge beside them (one g++), and print nvcc's and
+    g++'s seconds and ptxas's registers and spills per kernel and head
+    dim."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + bridge) as pool:
         futures = [pool.submit(_build.load_library, name) for name in sources]
+        if bridge:
+            futures.append(pool.submit(native_build.ensure_built))
         for f in futures:
             f.result()
-    log(f"  {', '.join(sources)} built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"  {', '.join(sources)}{' and the bridge' if bridge else ''} "
+        f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    if bridge:
+        log(f"  native bridge (dcn.cc, shm.cc, t4j_capi.cc): g++ "
+            f"{native_build.build_seconds():.2f} s")
     report = {}
     for name in sources:
         log(f"  {name}.cu: nvcc {_build.build_seconds(name):.2f} s")
@@ -2042,9 +2456,78 @@ def flash_bounds(shape, dtype, with_lse):
     return flops, nbytes, flops_ms, "operations", route
 
 
-def flash_kernel_phase(device, timed=True):
+def mesh_shape_timings(device, part):
+    """The bf16 kernels at the shapes the transformer's meshes give them
+    (``part`` "fwd": the forward at Ulysses's long leg, with m and l, and
+    at the decode prefill at tp 2, without; "bwd": the backward pair at
+    Ulysses's), each beside one causal scaled_dot_product_attention call
+    (forward, or its backward: dq, dk and dv together), its plain
+    version and its bound; CUDA events, as the timed phases take them.
+    Returns the readings."""
+    out = {}
+    bf16 = torch.bfloat16
+    if part == "fwd":
+        for label, shape, with_lse in (
+                ("ulysses_long", ULYSSES_LONG_SHAPE, True),
+                ("prefill_tp2", PREFILL_TP2_SHAPE, False)):
+            q, k, v = flash_inputs(shape, bf16, device, seed=0)
+            kw = dict(causal=True, scale=1.0 / math.sqrt(shape[5]),
+                      with_lse=with_lse)
+            ms = time_ms(lambda: kflash.flash_fwd(q, k, v, **kw), n=3,
+                         repeats=3)
+            plain_ms = time_ms(lambda: kflash.flash_attention_reference(
+                q, k, v, block_k=kflash.kernel_block_k(bf16), **kw),
+                n=1, repeats=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), n=10, repeats=3)
+            flops, nbytes, bound_ms, bound_by, _ = flash_bounds(
+                shape, bf16, with_lse)
+            out[f"flash_fwd_mma_{label}"] = {
+                "shape": list(shape), "with_lse": with_lse, "ms": ms,
+                "tflops": flops / (ms * 1e-3) / 1e12, "library_ms": lib_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            del q, k, v, qt, kt, vt
+    else:
+        shape = ULYSSES_LONG_SHAPE
+        args, kw = bwd_inputs(shape, bf16, True, 0, 0, device, seed=0)
+        q, k, v, g = (x.transpose(1, 2).contiguous() for x in args[:4])
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), g, retain_graph=True), n=5, repeats=3)
+        del q, k, v, g, o
+        bounds = bwd_bounds(shape, bf16, True)
+        plain = dict(block_k=kbwd.kernel_block_k(bf16), **kw)
+        for name, fn, plain_fn in (
+                ("dkv", kbwd.flash_bwd_dkv, kbwd.flash_bwd_dkv_reference),
+                ("dq", kbwd.flash_bwd_dq, kbwd.flash_bwd_dq_reference)):
+            ms = time_ms(lambda: fn(*args, **kw), n=3, repeats=3, warmup=1)
+            plain_ms = time_ms(lambda: plain_fn(*args, **plain), n=1,
+                               repeats=3, warmup=1)
+            flops, _, bound_ms, bound_by, _ = bounds[name]
+            out[f"{bwd_kernel_name(name, bf16)}_ulysses_long"] = {
+                "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                "tflops": flops / (ms * 1e-3) / 1e12,
+                "library_ms": lib_ms, "library": "backward of "
+                "scaled_dot_product_attention (dq, dk and dv together)",
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        del args
+    for name, r in out.items():
+        log(f"  {name} at {r['shape']} bf16 causal: {r['ms']:.4f} ms per "
+            f"launch ({r['tflops']:.2f} TFLOP/s), plain "
+            f"{r['plain_ms']:.4f} ms, scaled_dot_product_"
+            f"attention{' backward' if part == 'bwd' else ''} "
+            f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}")
+    return out
+
+
+def flash_kernel_phase(device, timed=True, mesh_timings=True):
     """Both forward kernels against their plain version at each kernel's
-    key tile; then (``timed``) the bf16 kernel timed at both transformer
+    key tile; then (``mesh_timings``) :func:`mesh_shape_timings`' forward
+    readings; then (``timed``) the bf16 kernel timed at both transformer
     paths' shapes and the MFU preset's, and the f32 kernel at the f32 decode check's prefill
     shape and at the training path's shape, each beside its bound, its
     plain version and one scaled_dot_product_attention call."""
@@ -2086,6 +2569,8 @@ def flash_kernel_phase(device, timed=True):
     if failed:
         raise RuntimeError(f"the flash forward kernels disagree with their "
                            f"plain version on cases {failed}")
+    if mesh_timings:
+        mesh_shape_timings(device, "fwd")
     if not timed:
         return None
 
@@ -2779,9 +3264,11 @@ def within(err, lim):
     return all(err[key] <= lim[key] for key in lim)
 
 
-def flash_bwd_kernel_phase(device, timed=True):
+def flash_bwd_kernel_phase(device, timed=True, mesh_timings=True):
     """Both backward kernels of each dtype against their plain versions at
-    the kernel's own key tile; then (``timed``) the bf16 pair timed at the
+    the kernel's own key tile; then (``mesh_timings``)
+    :func:`mesh_shape_timings`' backward readings; then (``timed``) the
+    bf16 pair timed at the
     training path's shape and the MFU preset's, and the f32 pair at the f32 decode check's
     shape and at the training path's shape, each beside its bound, its
     plain version and the backward of one scaled_dot_product_attention
@@ -2823,6 +3310,8 @@ def flash_bwd_kernel_phase(device, timed=True):
     if failed:
         raise RuntimeError(f"the flash backward kernels disagree with their "
                            f"plain versions on cases {failed}")
+    if mesh_timings:
+        mesh_shape_timings(device, "bwd")
     if not timed:
         return None
 
@@ -3727,27 +4216,35 @@ def sw_check(device):
     sw_main_checks(inputs, geometry, iy, device)
 
 
-def run_checks(device, parts):
+def run_checks(device, parts, mesh_timings=True):
     """The kernel checks named in ``parts`` (``fwd``: phase 5's cases,
     ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient,
     ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
-    kernel; ``mesh``: phase 10c's transformer across thread ranks),
-    without timings, after building the kernels they need.
+    kernel; ``mesh``: phase 10c's transformer across thread ranks;
+    ``proc``: phase 11's launcher jobs, no kernel), after building the
+    kernels they need.  The phases' own timings are left out; ``fwd``
+    and ``bwd`` time the bf16 kernels at the meshes' shapes
+    (:func:`mesh_shape_timings`) unless ``mesh_timings`` is False
+    (``--no-timings``: the copies of ``--fault-readings``).
     Every check runs and prints its readings even when an earlier one
     failed; returns 1 when any failed."""
     sources = ((("sw_step",) if "sw" in parts else ())
-               + (FLASH_SOURCES if set(parts) - {"sw", "ops"} else ()))
+               + (FLASH_SOURCES if set(parts) - {"sw", "ops", "proc"}
+                  else ()))
     if sources:
         build_phase(sources)
     checks = {
         "ops": lambda: multirank_ops_phase(device),
         "sw": lambda: sw_check(device),
-        "fwd": lambda: flash_kernel_phase(device, timed=False),
-        "bwd": lambda: flash_bwd_kernel_phase(device, timed=False),
+        "fwd": lambda: flash_kernel_phase(device, timed=False,
+                                          mesh_timings=mesh_timings),
+        "bwd": lambda: flash_bwd_kernel_phase(device, timed=False,
+                                              mesh_timings=mesh_timings),
         "grad": lambda: (train_grad_check(device),
                          train_grad_check(device, torch.float32)),
         "mesh": lambda: (mesh_train_phase(device, [], card_line()),
                          mesh_decode_phase(device)),
+        "proc": lambda: proc_phase(device, card_line()),
     }
     failed = []
     for part in parts:
@@ -3904,7 +4401,8 @@ def fault_readings():
         env = {**os.environ, "PYTHONPATH": ""}
         procs = {
             name: subprocess.Popen(
-                [sys.executable, "chip_smoke.py", "--check", parts],
+                [sys.executable, "chip_smoke.py", "--check", parts,
+                 "--no-timings"],
                 cwd=tree, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
             for name, (tree, parts) in trees.items()
@@ -3933,6 +4431,8 @@ def fault_readings():
 
 
 def main(argv):
+    if argv[:1] == ["--proc-rank"]:
+        return proc_rank(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -3946,10 +4446,12 @@ def main(argv):
         return fault_readings()
     if argv == ["--witness-readings"]:
         return witness_readings(device)
-    if len(argv) == 2 and argv[0] == "--check" and set(
+    if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
-                                    "mesh"}:
-        return run_checks(device, argv[1].split(","))
+                                    "mesh", "proc"} and argv[2:] in (
+            [], ["--no-timings"]):
+        return run_checks(device, argv[1].split(","),
+                          mesh_timings=argv[2:] == [])
     if argv[:1] == ["--sw-forms"] and len(argv) > 1:
         return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])
     if len(argv) == 2 and argv[0] == "--nccl-world":
@@ -3966,7 +4468,7 @@ def main(argv):
     t_all = time.perf_counter()
 
     log("phase build")
-    ptxas = build_phase()
+    ptxas = build_phase(bridge=True)
 
     cfg = sw.SWConfig().bench_size()
     comm = MeshComm()
@@ -4049,6 +4551,10 @@ def main(argv):
         f"f32, greedy, {MESH_DECODE_RUN})")
     mesh_decode = mesh_decode_phase(device)
 
+    log(f"phase proc tier (launcher jobs of {PROC_RANKS} ranks on one card "
+        f"over the native bridge; CUDA tensors staged through host memory)")
+    proc = proc_phase(device, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -4059,9 +4565,11 @@ def main(argv):
                     "train_path": train, "train_profile": train_profile,
                     "bench_training": bench_training,
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
+                    "proc": proc,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
-                               for name in SOURCES}}))
+                               for name in SOURCES},
+                    "bridge_gxx_s": native_build.build_seconds()}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

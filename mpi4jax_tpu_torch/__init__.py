@@ -12,18 +12,23 @@ Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``, where the plain PyTorch versions of the kernels
 run instead.  A grid of ranks runs over ``torch.distributed``
 (``parallel/distributed.py``: NCCL across the cards of a host under
-torchrun, gloo on the CPU or in a local world of thread ranks); see
-ROADMAP.md for what is still to be ported.
+torchrun, gloo on the CPU or in a local world of thread ranks), or as
+the OS processes of a launcher job over the native DCN bridge
+(``python -m mpi4jax_tpu_torch.launch -np N prog.py``: ``ProcComm``,
+the proc tier, CUDA tensors staged through host memory); see ROADMAP.md
+for what is still to be ported.
 """
 
 import torch as _torch
 
+from mpi4jax_tpu_torch.native.runtime import WorldResized
 from mpi4jax_tpu_torch.ops import *  # noqa: F401,F403
 from mpi4jax_tpu_torch.ops import __all__ as _ops_all
 from mpi4jax_tpu_torch.parallel import *  # noqa: F401,F403
 from mpi4jax_tpu_torch.parallel import __all__ as _parallel_all
 
-__all__ = [*_ops_all, *_parallel_all, "has_cuda_support", "has_tpu_support"]
+__all__ = [*_ops_all, *_parallel_all, "WorldResized", "has_cuda_support",
+           "has_tpu_support"]
 
 
 def __getattr__(name):

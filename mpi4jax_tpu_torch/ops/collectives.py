@@ -6,7 +6,9 @@ Counterpart of ``mpi4jax_tpu/ops/collectives.py``, with its call surface
 wording.  Each op runs on the comm's process group (``Transport``,
 ``parallel/distributed.py``): the backend's own ``broadcast``,
 ``gather``, ``scatter``, ``reduce``, ``reduce_scatter`` and
-``all_to_all``, gloo and NCCL alike.  A reduction the backend does not
+``all_to_all``, gloo and NCCL alike; on a proc comm, the native
+bridge's calls (``ops/_proc.py``: every built-in operator, ``scan``
+included, is the bridge's).  A reduction the backend does not
 compute (``Transport.native_op``: user operators, LAND/LOR/LXOR, bool,
 sub-32-bit dtypes) moves the rows instead (``gather`` to the root,
 ``alltoall`` for ``reduce_scatter``, ``allgather`` for ``scan``) and
@@ -21,7 +23,8 @@ one rank per process as in MPI (``mpi4jax_tpu/ops/_proc.py``):
 * ``scatter``: the root passes ``(size, *rest)``; another rank passes a
   ``rest``-shaped template or, as on the JAX mesh backend, the full
   ``(size, *rest)`` array, whose values are ignored (a template whose
-  leading dimension is ``comm.size`` is read as the full form); every
+  leading dimension is ``comm.size`` is read as the full form; on a proc
+  comm, as on the JAX proc backend, it is always a template); every
   rank gets ``rest``;
 * ``bcast``: the root's value everywhere.
 
@@ -154,10 +157,46 @@ class _AlltoallFn(torch.autograd.Function):
         return _AlltoallFn.apply(x.movedim(in_dims[0], 1), comm), 1
 
 
+class _AlltoallFusedFn(torch.autograd.Function):
+    """``alltoall_multi`` in one fused frame a peer (a proc comm): each
+    part moves as one :func:`alltoall` would, so the transpose is the
+    fused exchange of the cotangents."""
+
+    @staticmethod
+    def forward(comm, *parts):
+        return tuple(comm.transport().alltoall_fused(list(parts)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.comm = inputs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_AlltoallFusedFn.apply(ctx.comm, *grads))
+
+    @staticmethod
+    def jvp(ctx, _comm, *tangents):
+        return _AlltoallFusedFn.apply(ctx.comm, *tangents)
+
+    @staticmethod
+    def vmap(info, in_dims, comm, *parts):
+        parts = [p.movedim(d, 1) if d is not None
+                 else p.unsqueeze(1).expand(p.shape[0], info.batch_size,
+                                            *p.shape[1:])
+                 for p, d in zip(parts, in_dims[1:])]
+        out = _AlltoallFusedFn.apply(comm, *parts)
+        return out, (1,) * len(out)
+
+
 class _ScanFn(torch.autograd.Function):
     @staticmethod
     def forward(x, op, comm):
-        rows = comm.transport().allgather(x)
+        transport = comm.transport()
+        native = (transport.native_op(op, x.dtype) if transport.has_scan
+                  else None)
+        if native is not None:
+            return transport.scan(x, native)
+        rows = transport.allgather(x)
         return reductions.rank_ordered_fold(rows, op, upto=comm.rank())
 
     @staticmethod
@@ -330,16 +369,28 @@ def alltoall_multi(parts, *, comm=None, token=None, coalesce=None):
     """Several independent alltoalls at once: the results of one
     :func:`alltoall` per part, every part checked before any moves.
 
-    ``coalesce`` is the JAX package's wire-framing knob of its
-    multi-process tier, accepted for call-compatibility.  Returns
-    ``(outs, token)``.
+    On a proc comm with more than one part, each peer gets one fused
+    wire frame with its slice of every part when ``coalesce`` is True,
+    or, with ``coalesce`` unset, when ``coalesce_eligible`` says so for
+    the per-peer payload (``T4J_COALESCE_BYTES``).  Other backends run
+    one :func:`alltoall` a part.  Returns ``(outs, token)``.
     """
-    del coalesce
     comm = check_comm(comm)
     token = as_token(token)
     parts = [torch.as_tensor(p) for p in parts]
     for p in parts:
         _check_rows(p, comm, "alltoall")
+    if comm.backend == "proc" and len(parts) > 1:
+        if isinstance(coalesce, bool):
+            fuse = coalesce
+        else:
+            from mpi4jax_tpu_torch import tuning
+
+            per_peer = sum(p.numel() * p.element_size() // comm.size
+                           for p in parts)
+            fuse = tuning.coalesce_eligible(per_peer, len(parts))
+        if fuse:
+            return list(_AlltoallFusedFn.apply(comm, *parts)), token
     outs = []
     for p in parts:
         y, token = alltoall(p, comm=comm, token=token)
@@ -433,8 +484,12 @@ def scatter(x, root, *, comm=None, token=None):
     if comm.size == 1:
         _check_rows(x, comm, "Scatter")
         return x[0].clone(), token
-    full = x.dim() > 0 and x.shape[0] == comm.size
-    if comm.rank() == root and not full:
+    # a proc comm's other ranks pass a template, always (the JAX proc
+    # backend's contract); a mesh's may pass the root's full form
+    full = (comm.rank() == root if comm.backend == "proc"
+            else x.dim() > 0 and x.shape[0] == comm.size)
+    if comm.rank() == root and (not full or x.dim() == 0
+                                or x.shape[0] != comm.size):
         raise ValueError(
             f"Scatter input must have shape (nproc, ...) with nproc "
             f"== comm.size={comm.size} on root, got shape {tuple(x.shape)}"

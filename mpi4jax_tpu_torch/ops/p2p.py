@@ -28,6 +28,12 @@ in first out.  Messages travel over gloo through host memory in every
 world, an NCCL world included (``parallel/distributed.py``: NCCL has
 neither tags nor a receive from any source), and a send returns once
 its payload is copied, as ``MPI_Send`` may.
+
+On a proc comm (``parallel/proc.py``, the native bridge) ``sendrecv`` and
+``sendrecv_multi`` also take this rank's own int partners, as the JAX
+proc backend does; ``sendrecv`` is one native sendrecv, and each wire
+direction of ``sendrecv_multi`` one fused frame or one frame a part
+(``coalesce``); ``status`` holds the source and tag the wire gave.
 """
 
 import threading
@@ -154,12 +160,13 @@ def _pattern_partners(source, dest, comm, what):
     return partners(dpairs, comm.rank())
 
 
-def move(comm, sendbufs, recvbufs, src, dst):
+def move(comm, sendbufs, recvbufs, src, dst, wire=None):
     """This rank's side of one pattern: ``sendbufs`` go to ``dst``, and
     from ``src`` come tensors shaped like ``recvbufs`` (one batch).
     Returns the received tensors, or None without a source.  A self pair
     (``src == dst == rank``, a periodic shift along a size-1 axis) is a
-    copy."""
+    copy.  ``wire`` holds a proc comm's tags and framing
+    (``ProcTransport.exchange``)."""
     if src is None and dst is None:
         return None
     me = comm.rank()
@@ -169,6 +176,7 @@ def move(comm, sendbufs, recvbufs, src, dst):
     got = transport.exchange(
         [(dst, b) for b in sendbufs] if dst is not None else [],
         [(src, b) for b in recvbufs] if src is not None else [],
+        **(wire or {}),
     )
     return got if src is not None else None
 
@@ -180,39 +188,39 @@ class _SendrecvFn(torch.autograd.Function):
     exchange of the whole batched buffers)."""
 
     @staticmethod
-    def forward(comm, src, dst, n, *bufs):
-        got = move(comm, bufs[:n], bufs[n:], src, dst)
+    def forward(comm, src, dst, n, wire, *bufs):
+        got = move(comm, bufs[:n], bufs[n:], src, dst, wire)
         if got is None:
             return tuple(b.clone() for b in bufs[n:])
         return tuple(got)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.comm, ctx.src, ctx.dst, ctx.n, *bufs = inputs
+        ctx.comm, ctx.src, ctx.dst, ctx.n, ctx.wire, *bufs = inputs
         ctx.send_layout = [(b.shape, b.dtype) for b in bufs[:ctx.n]]
 
     @staticmethod
     def backward(ctx, *grads):
         templates = [torch.empty(s, dtype=d, device=grads[0].device)
                      for s, d in ctx.send_layout]
-        back = move(ctx.comm, grads, templates, ctx.dst, ctx.src)
+        back = move(ctx.comm, grads, templates, ctx.dst, ctx.src, ctx.wire)
         if back is None:
             back = [torch.zeros_like(t) for t in templates]
         to_recv = (list(grads) if ctx.src is None
                    else [torch.zeros_like(g) for g in grads])
-        return (None, None, None, None, *back, *to_recv)
+        return (None, None, None, None, None, *back, *to_recv)
 
     @staticmethod
-    def jvp(ctx, _comm, _src, _dst, _n, *tangents):
+    def jvp(ctx, _comm, _src, _dst, _n, _wire, *tangents):
         return _SendrecvFn.apply(ctx.comm, ctx.src, ctx.dst, ctx.n,
-                                 *tangents)
+                                 ctx.wire, *tangents)
 
     @staticmethod
-    def vmap(info, in_dims, comm, src, dst, n, *bufs):
+    def vmap(info, in_dims, comm, src, dst, n, wire, *bufs):
         bufs = [b.movedim(d, 0) if d is not None
                 else b.expand(info.batch_size, *b.shape)
-                for b, d in zip(bufs, in_dims[4:])]
-        out = _SendrecvFn.apply(comm, src, dst, n, *bufs)
+                for b, d in zip(bufs, in_dims[5:])]
+        out = _SendrecvFn.apply(comm, src, dst, n, wire, *bufs)
         return out, (0,) * len(out)
 
 
@@ -245,12 +253,19 @@ def sendrecv(
         if status is not None:
             status.source, status.tag = 0, sendtag
         return sendbuf.clone(), token
+    if comm.backend == "proc":
+        src = _own_partner(source, comm, "source")
+        dst = _own_partner(dest, comm, "dest")
+        wire = dict(sendtag=sendtag, recvtag=recvtag)
+        (y,) = _SendrecvFn.apply(comm, src, dst, 1, wire, sendbuf, recvbuf)
+        _wire_status(status, comm, src, dst, sendtag)
+        return y, token
     check_same_layout(sendbuf, recvbuf, "sendrecv on a grid communicator")
     src, dst = _pattern_partners(source, dest, comm, "sendrecv")
     if status is not None:
         status.source = ANY_SOURCE if src is None else src
         status.tag = sendtag
-    (y,) = _SendrecvFn.apply(comm, src, dst, 1, sendbuf, recvbuf)
+    (y,) = _SendrecvFn.apply(comm, src, dst, 1, None, sendbuf, recvbuf)
     return y, token
 
 
@@ -270,11 +285,13 @@ def sendrecv_multi(
 ):
     """Exchange several same-pattern messages at once: the same results
     as one :func:`sendrecv` per ``(sendbufs[i], recvbufs[i])`` pair, all
-    parts posted in one batch.  ``coalesce`` is the JAX package's
-    wire-framing knob of its multi-process tier, accepted for
+    parts posted in one batch.  On a proc comm each wire direction is
+    one fused frame when ``coalesce`` is True, or, with ``coalesce``
+    unset, when ``coalesce_eligible`` says so for that direction's
+    parts (``T4J_COALESCE_BYTES``); otherwise one frame a part, the
+    sends first.  Other backends take ``coalesce`` for
     call-compatibility.  Returns ``(outs, token)``; ranks without an
     inbound partner keep their recv buffers."""
-    del coalesce
     comm = check_comm(comm)
     token = as_token(token)
     check_static_int(sendtag, "sendtag")
@@ -290,14 +307,23 @@ def sendrecv_multi(
         if status is not None:
             status.source, status.tag = 0, sendtag
         return [b.clone() for b in sendbufs], token
+    if comm.backend == "proc":
+        src = _own_partner(source, comm, "source")
+        dst = _own_partner(dest, comm, "dest")
+        wire = dict(sendtag=sendtag, recvtag=recvtag, multi=True,
+                    coalesce=coalesce)
+        outs = _SendrecvFn.apply(comm, src, dst, len(sendbufs), wire,
+                                 *sendbufs, *recvbufs)
+        _wire_status(status, comm, src, dst, sendtag)
+        return list(outs), token
     for sb, rb in zip(sendbufs, recvbufs):
         check_same_layout(sb, rb, "sendrecv_multi on a grid communicator")
     src, dst = _pattern_partners(source, dest, comm, "sendrecv_multi")
     if status is not None:
         status.source = ANY_SOURCE if src is None else src
         status.tag = sendtag
-    return list(_SendrecvFn.apply(comm, src, dst, len(sendbufs), *sendbufs,
-                                  *recvbufs)), token
+    return list(_SendrecvFn.apply(comm, src, dst, len(sendbufs), None,
+                                  *sendbufs, *recvbufs)), token
 
 
 # -- send / recv ----------------------------------------------------------
@@ -324,6 +350,19 @@ def _own_partner(spec, comm, role):
     return mine[0]
 
 
+def _wire_status(status, comm, src, dst, sendtag):
+    """A proc comm's status: the source and tag the wire gave the
+    receive, (-1, -1) where this rank received nothing."""
+    if status is None:
+        return
+    if src is None:
+        status.source, status.tag = ANY_SOURCE, ANY_TAG
+    elif src == dst == comm.rank():
+        status.source, status.tag = src, sendtag
+    else:
+        status.source, status.tag = comm.transport().last_status
+
+
 class _OneRankMail(threading.local):
     """Messages a one-rank communicator sent itself, per comm, per
     thread."""
@@ -348,7 +387,7 @@ def send(x, dest, tag=0, *, comm=None, token=None):
         return token
     transport = comm.transport()
     me = comm.rank()
-    if transport is None or peer == me:
+    if transport is None or (peer == me and transport.backend != "proc"):
         box = (_one_rank_mail.boxes.setdefault(comm, [])
                if transport is None else transport.stash)
         box.append((me, tag, x.detach().clone()))
@@ -381,7 +420,7 @@ def recv(x, source=ANY_SOURCE, tag=ANY_TAG, *, comm=None, token=None,
         found = pop_match(_one_rank_mail.boxes.setdefault(comm, []), source,
                           tag)
     else:
-        found = transport.take(source, tag, x.device)
+        found = transport.take(source, tag, x)
     if found is None:
         raise RuntimeError(
             f"recv of rank {comm.rank()} from itself with tag "

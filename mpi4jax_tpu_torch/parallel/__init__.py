@@ -13,6 +13,7 @@ from mpi4jax_tpu_torch.parallel.halo import (
     halo_exchange_2d,
     halo_exchange_2d_batch,
 )
+from mpi4jax_tpu_torch.parallel.proc import ProcComm, ProcGridComm, grid_comm
 from mpi4jax_tpu_torch.parallel.longseq import (
     local_attention,
     ring_attention,
@@ -31,6 +32,9 @@ __all__ = [
     "set_default_comm",
     "halo_exchange_2d",
     "halo_exchange_2d_batch",
+    "ProcComm",
+    "ProcGridComm",
+    "grid_comm",
     "local_attention",
     "ring_attention",
     "ulysses_attention",

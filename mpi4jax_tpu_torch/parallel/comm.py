@@ -8,6 +8,8 @@ hashable description of a group of ranks:
 * :class:`MeshComm` — a Cartesian grid of ranks with named axes, e.g.
   ``("y", "x")``, with the topology helpers the halo exchange needs
   (``sub``, ``split``, ``rank_grid``, ``shift_perm``).
+* ``ProcComm`` / ``ProcGridComm`` (``parallel/proc.py``) — the OS
+  processes of a launcher job over the native bridge.
 
 PyTorch runs one rank per process (or, in a local world, per thread), so
 ``rank()`` is a Python int, not a traced value as on the JAX mesh
@@ -50,7 +52,7 @@ _context_counter = itertools.count(1)
 class Comm:
     """Abstract communicator. Subclasses must be hashable value objects."""
 
-    backend = None  # "mesh" | "self"
+    backend = None  # "mesh" | "self" | "proc"
 
     @property
     def size(self):
@@ -365,12 +367,17 @@ _WORLD_SELF = SelfComm()
 
 
 def get_default_comm():
-    """The ambient communicator used when ops get ``comm=None``: the
-    single-process world unless one was set (per thread, so that each
-    rank of a local world has its own)."""
+    """The ambient communicator used when ops get ``comm=None``: the one
+    set (per thread, so that each rank of a local world has its own),
+    else the proc world once the native bridge is up in this process (a
+    rank of ``python -m mpi4jax_tpu_torch.launch``), else the
+    single-process world."""
     if _default.comm is not None:
         return _default.comm
-    return _WORLD_SELF
+    from mpi4jax_tpu_torch.parallel import proc
+
+    world = proc.world_comm_if_initialized()
+    return world if world is not None else _WORLD_SELF
 
 
 def set_default_comm(comm):

@@ -99,6 +99,8 @@ class Transport:
     host memory and back around each call.
     """
 
+    has_scan = False  # scan gathers the rows and folds them in rank order
+
     def __init__(self, world, members, pg, pg_ranks, mail_pg=None):
         self.world = world
         self.members = members
@@ -295,13 +297,14 @@ class Transport:
         self.pending = [p for p in self.pending
                         if not all(w.is_completed() for w in p[0])]
 
-    def take(self, source, tag, device):
+    def take(self, source, tag, like):
         """The earliest message from ``source`` (a comm rank or
         ANY_SOURCE) with ``tag`` (or ANY_TAG) as ``(source, tag,
-        tensor)``: from the messages already here (this rank's own sends
-        to itself among them), else from the wire, keeping the ones that
-        do not match.  None when only this rank could send it and it has
-        not."""
+        tensor)`` on the device of the template ``like``: from the
+        messages already here (this rank's own sends to itself among
+        them), else from the wire, keeping the ones that do not match.
+        None when only this rank could send it and it has not."""
+        device = like.device
         found = pop_match(self.stash, source, tag)
         if found is not None or source == self.rank:
             return found

@@ -5,8 +5,12 @@ shift over the axis sub-communicator, the x exchange moves full columns
 (ghost rows included) and then the y exchange moves full rows (the
 just-filled x ghosts included), so corners are correct after two
 rounds.  Each direction posts this rank's one send and one receive as a
-single batch (``ops/p2p.py:move``).  A rank with no inbound message in a
-direction (a non-periodic edge) keeps its ghosts.  On one rank a
+single batch (``ops/p2p.py:move``).  On a ``ProcGridComm`` (the proc
+tier) each direction is one ``sendrecv_multi`` of the whole field group
+over ``comm.sub(axis)`` along its ``shift_perm``, as the JAX package's
+proc branch does: one fused wire frame below ``T4J_COALESCE_BYTES``,
+one frame a field above, and no stacking copy.  A rank with no inbound
+message in a direction (a non-periodic edge) keeps its ghosts.  On one rank a
 periodic x exchange is a copy of column slabs, and a non-periodic y
 exchange on a size-1 axis leaves the ghost rows as they are.
 
@@ -19,7 +23,7 @@ would cost more memory traffic than the step's kernels.
 import torch
 
 from mpi4jax_tpu_torch.ops._core import as_token, publishes_token
-from mpi4jax_tpu_torch.ops.p2p import move, partners
+from mpi4jax_tpu_torch.ops.p2p import move, partners, sendrecv_multi
 
 __all__ = ["halo_exchange_2d", "halo_exchange_2d_batch"]
 
@@ -78,6 +82,17 @@ def _exchange(arrs, comm, *, periodic, token, width, stack):
 
     def shift(slabs, templates, axis, disp, per):
         nonlocal token
+        if comm.backend == "proc":
+            # the field group's slabs of this direction in one
+            # sendrecv_multi: one fused wire frame below
+            # T4J_COALESCE_BYTES, one frame a field above; no stacking
+            sub = comm.sub(axis)
+            pairs = sub.shift_perm(axis, disp, periodic=per)
+            if not pairs:
+                return [None] * len(slabs)
+            outs, token = sendrecv_multi(slabs, templates, source=pairs,
+                                         dest=pairs, comm=sub, token=token)
+            return outs
         if stack:
             halo, token = _axis_shift(
                 torch.stack(slabs), torch.stack(templates), comm, axis,

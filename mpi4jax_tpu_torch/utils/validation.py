@@ -57,7 +57,7 @@ def check_comm(comm):
     if not isinstance(comm, Comm):
         raise TypeError(
             f"comm must be an mpi4jax_tpu_torch communicator "
-            f"(MeshComm / SelfComm), got {type(comm).__name__}"
+            f"(MeshComm / SelfComm / ProcComm), got {type(comm).__name__}"
         )
     return comm
 

@@ -149,10 +149,13 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     assert rec["draws"] >= (3 if quick else 10)
     for leg, _ in bench.SKIPPED:
         assert f"[bench] skipped {leg}" in err
-    # only the proc tier and serving wait: one rank runs every
-    # single-card leg, the training legs with their remat policies
-    # included (the transformer's meshes are named only across ranks)
-    assert set(re.findall(r"item (\d+)", err)) == {"5", "9"}
+    # only the rest of the proc tier (async, the second world kinds)
+    # and serving wait: one rank runs every single-card leg, the training
+    # legs with their remat policies included (the transformer's meshes
+    # are named only across ranks); the proc legs need the card
+    assert set(re.findall(r"item (\d+)", err)) == {"7", "9", "19"}
+    assert (f"[bench] skipped {bench.PROC_SKIPPED[0]}: the staged leg "
+            "moves CUDA tensors") in err
     assert rec["devices"] == 1 and rec["mesh"] == [1, 1]
     for leg in ("decode", "decode_kv_bucket", "allreduce_sweep",
                 "vmesh_busbw", *bench.TRAIN_LEGS):
