@@ -199,8 +199,27 @@ Phases, each of which raises on failure (nothing is caught):
    within its deadline and names the failing rank first; (d) the
    bench's two proc legs at ``--quick`` sizes (``bench.proc_legs``: the
    8-rank allreduce busbw at 4 MB and 4 reps, staged and on host
-   memory, and the 8-rank halo latency, coalescing on and off).  Each
+   memory, and the 8-rank halo latency, coalescing on and off); (e) the
+   nonblocking requests (``proc_async``, ``--proc-rank async``: the JAX
+   package's async matrix of iallreduce SUM and MAX at 1, 997 and 65537
+   elements waited out of order, six requests under waitall, an
+   isend/irecv ring, ireduce_scatter, test then wait, the double wait,
+   a dropped operand; ``make_dp_train_step`` on ``StackParams`` (4
+   layers, width 64) and ``MLPParams`` for 3 steps with overlap on and
+   off; error feedback at the bf16 wire dtype) with every request on
+   CUDA tensors, each result equal to its blocking op bit for bit and
+   the two arms of the dp step to each other, and the whole job equal to
+   the same job on CPU tensors: bit for bit but for the dp step's
+   parameters and losses, within ``DP_CARD_RTOL`` (float32 products
+   summed in another order on the card); (f) the bench's overlap leg
+   (``bench.overlap_leg``) with one timed batch: its six keys.  Each
    job's seconds and the legs' numbers are printed.
+12. MLP steps across ranks: ``models/train.py``'s
+   ``make_global_train_step`` and ``make_global_zero_train_step``
+   (momentum 0.9) for 3 steps each on a (dp, tp) = (2, 2) local world of
+   gloo thread ranks on the card, every rank's parameter shards, momentum
+   chunks and losses within ``DP_CARD_RTOL`` of the same world on the
+   CPU, the losses falling; both worlds' seconds are printed.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -221,9 +240,10 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc [--no-timings]
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp [--no-timings]
 
-runs those checks (any of them) on this tree alone (``proc``: phase 11);
+runs those checks (any of them) on this tree alone (``proc``: phase 11,
+``mlp``: phase 12);
 ``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
 unless ``--no-timings`` is given (``--fault-readings`` gives it to its
 copies, which share the card and so could time nothing).
@@ -231,8 +251,9 @@ copies, which share the card and so could time nothing).
     python -m mpi4jax_tpu_torch.launch -np N chip_smoke.py --proc-rank \
         battery OUT_DIR [NY NX]
 
-is a rank of phase 11's jobs (``fail -`` the planted failure): the
-battery's results go to ``OUT_DIR/rank<r>.npz``.
+is a rank of phase 11's jobs (``async OUT_DIR`` the requests of (e),
+``fail -`` the planted failure): the results go to
+``OUT_DIR/rank<r>.npz``.
 
     python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
 
@@ -374,6 +395,20 @@ PROC_GHOST = 2
 PROC_HALO_BLOCK = (1800 + 2 * PROC_GHOST, 900 + 2 * PROC_GHOST)
 PROC_JOB_TIMEOUT_S = 240.0
 PROC_FAIL_TIMEOUT_S = 90.0
+# phase 11 (e): make_dp_train_step's StackParams (layers, width) and
+# steps, and the error-feedback steps
+DP_LAYERS, DP_WIDTH = 4, 64
+DP_STEPS = 3
+EF_STEPS = 2
+# the dp step's, and phase 12's, card-vs-CPU limit: float32 products
+# summed in another order on the card
+DP_CARD_RTOL = 1e-5
+# phase 12: the (dp, tp) mesh, (d_in, hidden, d_out, global batch), the
+# steps of each MLP step and their rate
+MLP_MESH = (2, 2)
+MLP_SIZES = (64, 256, 16, 32)
+MLP_STEPS = 3
+MLP_LR = 5e-2
 
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
@@ -2140,6 +2175,229 @@ def proc_battery(comm, device, halo_block=None):
     return out
 
 
+def async_data(count, rank, salt):
+    """Small integers as float32: a SUM of them is exact in any order,
+    so a nonblocking result must equal the blocking one bit for bit."""
+    rng = np.random.default_rng(1000 * salt + 17 * rank + count)
+    return rng.integers(0, 8, size=count).astype(np.float32)
+
+
+def dp_inputs(rank):
+    """The data-parallel step's inputs as numpy arrays: the parameters
+    (the same on every rank) of a ``StackParams`` of 4 layers of width
+    64 and of an ``MLPParams`` 32 -> 64 -> 8, and rank ``rank``'s
+    batches for each (16 and 4 rows).  The JAX package's proc job takes
+    the same ones in the port's tests."""
+    rng = np.random.default_rng(2024)
+
+    def f32(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    d = DP_WIDTH
+    stack = {"layers": [(f32((d, d), (2.0 / d) ** 0.5), f32((d,), 0.1))
+                        for _ in range(DP_LAYERS)],
+             "w_out": f32((d, d), (2.0 / d) ** 0.5)}
+    mlp = [f32((32, 64), 0.25), f32((64,), 0.1), f32((64, 8), 0.18),
+           f32((8,), 0.1)]
+    mine = np.random.default_rng(100 + rank)
+    return {"stack": stack, "mlp": mlp,
+            "x_stack": mine.standard_normal((16, d)).astype(np.float32),
+            "t_stack": np.zeros((16, d), np.float32),
+            "x_mlp": mine.standard_normal((4, 32)).astype(np.float32),
+            "t_mlp": np.zeros((4, 8), np.float32)}
+
+
+def dp_params(inp, device):
+    """The port's ``(StackParams, MLPParams)`` of ``dp_inputs``."""
+    from mpi4jax_tpu_torch.models import train as ttrain
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    stack = ttrain.StackParams(
+        layers=tuple((t(w), t(b)) for w, b in inp["stack"]["layers"]),
+        w_out=t(inp["stack"]["w_out"]))
+    return stack, ttrain.MLPParams(*(t(a) for a in inp["mlp"]))
+
+
+def proc_async(comm, device):
+    """The nonblocking requests and the bucketed gradient sync on
+    ``device`` (the JAX package's async matrix, ``tests/proc/
+    test_async_ops.py``): ``{case: result on the CPU}``.  Raises where a
+    nonblocking result differs from its blocking op, where the two arms
+    of ``make_dp_train_step`` differ, or where the request discipline
+    does not hold.
+
+    * iallreduce SUM and MAX at 1, 997 and 65537 elements, waited out of
+      order; six requests in flight under ``waitall``; an isend/irecv
+      ring (explicit source, then ANY_SOURCE with its status);
+      ireduce_scatter at a block of 33; ``test`` polled until done, then
+      ``wait``; the double wait; a user operator refused; a submit whose
+      operand is dropped and collected before its wait;
+    * ``make_dp_train_step`` for 3 steps on ``StackParams`` (buckets of
+      16K) and ``MLPParams`` (4K), overlap on and off;
+    * error feedback with the wire dtype set to bf16
+      (``runtime.set_wire_dtype``, ``T4J_WIRE_DTYPE``'s runtime knob) for
+      2 steps: each residual equal to ``send - q`` and each synced bucket
+      to the blocking allreduce of ``q``;
+    * ``assert_requests_drained``."""
+    import gc
+
+    from mpi4jax_tpu_torch.models import train as ttrain
+    from mpi4jax_tpu_torch.native import runtime
+    from mpi4jax_tpu_torch.ops.allreduce import BucketedGradSync, tree_flatten
+
+    n, r = comm.size, comm.rank()
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def keep(name, y):
+        if y.device.type != torch.device(device).type:
+            raise RuntimeError(f"{name}: result on {y.device}")
+        out[name] = y.detach().cpu()
+
+    def same(label, got, want):
+        keep(label, got)
+        if not same_bits(got.cpu().numpy(), want.cpu().numpy()):
+            raise RuntimeError(f"{label}: nonblocking differs from blocking")
+
+    tok = p_ops.create_token()
+    for count in (1, 997, 65537):
+        a, b = t(async_data(count, r, 1)), t(async_data(count, r, 2))
+        ra, tok = p_ops.iallreduce(a, "sum", comm=comm, token=tok)
+        rb, tok = p_ops.iallreduce(b, "max", comm=comm, token=tok)
+        vb, tok = p_ops.wait(rb, token=tok)  # the second request first
+        va, tok = p_ops.wait(ra, token=tok)
+        same(f"iallreduce_sum_{count}", va,
+             p_ops.allreduce(a, "sum", comm=comm)[0])
+        same(f"iallreduce_max_{count}", vb,
+             p_ops.allreduce(b, "max", comm=comm)[0])
+    reqs = []
+    for k in range(6):
+        req, tok = p_ops.iallreduce(t(async_data(4096, r, 10 + k)), "sum",
+                                    comm=comm, token=tok)
+        reqs.append(req)
+    vals, tok = p_ops.waitall(iter(reqs), token=tok)
+    for k, v in enumerate(vals):
+        want = sum(async_data(4096, q, 10 + k) for q in range(n))
+        same(f"waitall_{k}", v, torch.from_numpy(want))
+    right, left = (r + 1) % n, (r - 1) % n
+    rr, tok = p_ops.irecv(t(np.zeros(64, np.float32)), source=left, tag=5,
+                          comm=comm, token=tok)
+    if runtime.async_pending() != 1 or runtime.async_inflight() > 1:
+        raise RuntimeError(f"an irecv parked: {runtime.async_pending()} "
+                           f"pending, {runtime.async_inflight()} in flight")
+    rs, tok = p_ops.isend(t(np.full(64, r, np.float32)), right, tag=5,
+                          comm=comm, token=tok)
+    (got, none), tok = p_ops.waitall([rr, rs], token=tok)
+    if none is not None:
+        raise RuntimeError("the isend's wait returned a value")
+    same("ring_irecv", got, torch.full((64,), float(left)))
+    rr, tok = p_ops.irecv(t(np.zeros((3, 5), np.int32)), comm=comm, tag=6,
+                          token=tok)
+    rs, tok = p_ops.isend(t(np.full((3, 5), 10 * r, np.int32)), right,
+                          tag=6, comm=comm, token=tok)
+    st = p_ops.Status()
+    got, tok = p_ops.wait(rr, token=tok, status=st)
+    p_ops.wait(rs, token=tok)
+    same("ring_irecv_any", got, torch.full((3, 5), 10 * left,
+                                           dtype=torch.int32))
+    if (st.source, st.tag) != (left, 6):
+        raise RuntimeError(f"irecv status {(st.source, st.tag)}, want "
+                           f"{(left, 6)}")
+    x = t(np.stack([async_data(33, r, 50 + row) for row in range(n)]))
+    rrs, tok = p_ops.ireduce_scatter(x, "sum", comm=comm, token=tok)
+    same("ireduce_scatter", p_ops.wait(rrs, token=tok)[0],
+         p_ops.reduce_scatter(x, "sum", comm=comm)[0])
+    y = t(async_data(512, r, 99))
+    ry, tok = p_ops.iallreduce(y, "sum", comm=comm, token=tok)
+    deadline = time.monotonic() + 30
+    while not bool(p_ops.test(ry, token=tok)[0]):
+        if time.monotonic() > deadline:
+            raise RuntimeError("test never completed")
+    same("test_then_wait", p_ops.wait(ry, token=tok)[0],
+         p_ops.allreduce(y, "sum", comm=comm)[0])
+    try:
+        p_ops.wait(ry, token=tok)
+        raise RuntimeError("the double wait did not raise")
+    except RuntimeError as e:
+        if "already-consumed" not in str(e):
+            raise
+    try:
+        p_ops.iallreduce(y, proc_user_ops()["max2"], comm=comm)
+        raise RuntimeError("a user operator was submitted")
+    except NotImplementedError:
+        pass
+    # the registry, not the caller, keeps the operand alive
+    rg, tok = p_ops.iallreduce(t(async_data(65537, r, 77)), "sum",
+                               comm=comm, token=tok)
+    gc.collect()
+    junk = [t(np.full(65537, -1.0, np.float32)) for _ in range(8)]
+    del junk
+    want = sum(async_data(65537, q, 77) for q in range(n))
+    same("dropped_operand", p_ops.wait(rg, token=tok)[0],
+         torch.from_numpy(want))
+
+    inp = dp_inputs(r)
+    stack, mlp = dp_params(inp, device)
+    for name, params, batch, bucket in (
+            ("stack", stack, (t(inp["x_stack"]), t(inp["t_stack"])), 1 << 14),
+            ("mlp", mlp, (t(inp["x_mlp"]), t(inp["t_mlp"])), 1 << 12)):
+        arms = {}
+        for arm in ("on", "off"):
+            step = ttrain.make_dp_train_step(comm, overlap=arm == "on",
+                                             bucket_bytes=bucket)
+            p = params
+            for _ in range(DP_STEPS):
+                p, loss = step(p, batch)
+            leaves = tree_flatten(p)[0]
+            arms[arm] = leaves + [loss]
+            for k, leaf in enumerate(leaves):
+                keep(f"dp_{name}_{arm}_{k}", leaf)
+            keep(f"dp_{name}_{arm}_loss", loss)
+        if not all(torch.equal(a, b) for a, b in zip(*arms.values())):
+            raise RuntimeError(f"make_dp_train_step on {name}: overlap on "
+                               "and off differ")
+
+    p_ops.barrier(comm=comm)
+    runtime.set_wire_dtype("bf16")
+    if runtime.wire_dtype_info()["wire_dtype"] != "bf16":
+        raise RuntimeError("the wire dtype did not switch to bf16")
+    sync = BucketedGradSync(comm, bucket_bytes=1 << 10, average=False)
+    rng = np.random.default_rng(300 + r)
+    res = {}
+    for k in range(EF_STEPS):
+        grads = ttrain.MLPParams(*(t(rng.standard_normal(a.shape)
+                                     .astype(np.float32)) for a in inp["mlp"]))
+        synced, _, new_res = sync(grads, residuals=res)
+        leaves = list(grads)
+        got = list(synced)
+        for bi, bucket in enumerate(sync._buckets(leaves)):
+            send = torch.cat([leaves[i].reshape(-1) for i in bucket["idx"]])
+            if bi in res:
+                send = send + res[bi]
+            q = send.to(torch.bfloat16).float()
+            if not torch.equal(new_res[bi], send - q):
+                raise RuntimeError(f"step {k} bucket {bi}: the residual is "
+                                   "not send - q")
+            same(f"ef_{k}_{bi}",
+                 torch.cat([got[i].reshape(-1) for i in bucket["idx"]]),
+                 p_ops.allreduce(q, "sum", comm=comm)[0])
+            keep(f"ef_{k}_{bi}_residual", new_res[bi])
+        if tuple(new_res["_world"]) != (0, n):
+            raise RuntimeError(f"residual stamp {new_res['_world']}")
+        res = new_res
+    p_ops.barrier(comm=comm)
+    runtime.set_wire_dtype("off")
+    p_ops.assert_requests_drained()
+    if runtime.async_inflight():
+        raise RuntimeError(f"{runtime.async_inflight()} requests in flight "
+                           "after every wait")
+    return out
+
+
 def save_results(results, path):
     """``{case: CPU tensor}`` to an ``.npz`` (bfloat16 as its int16
     bits)."""
@@ -2155,7 +2413,8 @@ def load_results(path):
 def proc_rank(argv):
     """A rank of a launcher job (``--proc-rank KIND OUT_DIR [NY NX]``):
     ``battery`` writes ``proc_battery``'s results (with the halo at an
-    NY x NX block) to ``OUT_DIR/rank<r>.npz``; ``fail`` is the planted
+    NY x NX block) to ``OUT_DIR/rank<r>.npz``, ``async`` those of
+    ``proc_async``; ``fail`` is the planted
     failure: rank ``proc_failing_rank(n)`` raises once every rank has
     passed a barrier, while the others wait in an allreduce."""
     from mpi4jax_tpu_torch import get_default_comm
@@ -2171,6 +2430,10 @@ def proc_rank(argv):
     if kind == "battery":
         block = tuple(int(a) for a in rest) if rest else None
         save_results(proc_battery(comm, device, block),
+                     pathlib.Path(out_dir) / f"rank{comm.rank()}.npz")
+        return 0
+    if kind == "async":
+        save_results(proc_async(comm, device),
                      pathlib.Path(out_dir) / f"rank{comm.rank()}.npz")
         return 0
     if kind == "fail":
@@ -2196,17 +2459,18 @@ def proc_job(n, platform, rank_args, timeout_s):
         platform=platform, timeout=timeout_s)
 
 
-def proc_battery_job(n, platform, block=None, timeout_s=None):
-    """``proc_battery`` in an ``n``-rank launcher job; ``{rank: results}``
-    (numpy) and the job's seconds.  A failed job raises with its
-    output."""
+def proc_battery_job(n, platform, block=None, timeout_s=None,
+                     kind="battery"):
+    """``proc_battery`` (``kind="async"``: ``proc_async``) in an
+    ``n``-rank launcher job; ``{rank: results}`` (numpy) and the job's
+    seconds.  A failed job raises with its output."""
     timeout_s = PROC_JOB_TIMEOUT_S if timeout_s is None else timeout_s
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_proc_"))
     try:
         rc, out, err, secs = proc_job(
-            n, platform, ["battery", work, *(block or ())], timeout_s)
+            n, platform, [kind, work, *(block or ())], timeout_s)
         if rc != 0:
-            raise RuntimeError(f"the {n}-rank {platform} battery job exited "
+            raise RuntimeError(f"the {n}-rank {platform} {kind} job exited "
                                f"{rc}:\n{out[-3000:]}\n{err[-6000:]}")
         return {r: load_results(work / f"rank{r}.npz")
                 for r in range(n)}, secs
@@ -2313,10 +2577,126 @@ def proc_phase(device, card):
     for key in port_bench.PROC_KEYS:
         if not legs.get(key, 0) > 0:
             raise RuntimeError(f"the bench's proc leg gave no {key}")
+
+    on_card, async_cuda_s = proc_battery_job(n, "cuda", kind="async")
+    log(f"  (e) {n}-rank async job on CUDA tensors: {async_cuda_s:.1f} s")
+    on_cpu, async_cpu_s = proc_battery_job(n, "cpu", kind="async")
+    log(f"  (e) {n}-rank async job on CPU tensors: {async_cpu_s:.1f} s")
+
+    def exact(res):
+        return {r: {k: v for k, v in x.items() if not k.startswith("dp_")}
+                for r, x in res.items()}
+
+    readings += hold_bits("(e) requests and error feedback, CUDA job vs CPU "
+                          "job", exact(on_card), exact(on_cpu))
+    worst = 0.0
+    for r in on_cpu:
+        for k, want in on_cpu[r].items():
+            if k.startswith("dp_"):
+                scale = max(float(np.abs(want).max()), 1e-30)
+                worst = max(worst, float(np.abs(
+                    on_card[r][k].astype(np.float64) - want).max()) / scale)
+    ok = worst <= DP_CARD_RTOL
+    log(f"  (e) make_dp_train_step (overlap on and off equal in each job), "
+        f"CUDA job vs CPU job: largest difference {worst:.3e} of the "
+        f"largest value (limit {DP_CARD_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("(e) the dp step on the card differs from the "
+                           "CPU's")
+    overlap = port_bench.overlap_leg(batches=1)
+    log(f"  (f) bench overlap leg (1 timed batch): {json.dumps(overlap)} on "
+        f"{card}")
+    for key in port_bench.OVERLAP_KEYS:
+        if not overlap[key] > 0:
+            raise RuntimeError(f"the bench's overlap leg gave no {key}")
     return {"ranks": n, "bridge_build_s": native_build.build_seconds(),
             "battery_cuda_s": cuda_s, "battery_cpu_s": cpu_s,
             "local_world_halo_s": local_s, "fail_s": fail_s,
-            "fail_exit": rc, "readings": readings, "bench": legs}
+            "fail_exit": rc, "readings": readings, "bench": legs,
+            "async_cuda_s": async_cuda_s, "async_cpu_s": async_cpu_s,
+            "dp_card_vs_cpu": worst, "overlap": overlap}
+
+
+def mlp_mesh_world(device):
+    """``make_global_train_step`` and the ZeRO step
+    (``make_global_zero_train_step``, momentum 0.9) for ``MLP_STEPS``
+    steps each on a ``MLP_MESH`` (dp, tp) local world of gloo thread
+    ranks on ``device``, from one seeded set of full parameters and one
+    global batch: ``{rank: {case: array}}`` with every rank's parameter
+    shards, ZeRO momentum chunks and losses."""
+    from mpi4jax_tpu_torch.models import train as ttrain
+
+    d_in, d_hid, d_out, batch = MLP_SIZES
+    rng = np.random.default_rng(4242)
+    full = [rng.standard_normal((d_in, d_hid)) * (2.0 / d_in) ** 0.5,
+            rng.standard_normal(d_hid) * 0.1,
+            rng.standard_normal((d_hid, d_out)) * (2.0 / d_hid) ** 0.5,
+            rng.standard_normal(d_out) * 0.1]
+    x = rng.standard_normal((batch, d_in))
+    y = x @ rng.standard_normal((d_in, d_out))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    def body(comm):
+        cdp, ctp = comm.sub("dp"), comm.sub("tp")
+        params = ttrain.shard_params(ttrain.MLPParams(*map(t, full)), ctp)
+        out = {}
+        plain = ttrain.make_global_train_step(cdp, ctp, lr=MLP_LR)
+        zero, init = ttrain.make_global_zero_train_step(cdp, ctp, lr=MLP_LR,
+                                                        momentum=0.9)
+        p, zp, v = params, params, init(params)
+        for k in range(MLP_STEPS):
+            p, loss = plain(p, (t(x), t(y)))
+            zp, v, zloss = zero(zp, v, (t(x), t(y)))
+            out[f"plain_loss_{k}"] = loss
+            out[f"zero_loss_{k}"] = zloss
+        for name, a, b, c in zip(ttrain.MLPParams._fields, p, zp, v):
+            out[f"plain_{name}"], out[f"zero_{name}"] = a, b
+            out[f"zero_momentum_{name}"] = c
+        return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+    return dict(enumerate(distributed.local_world(
+        int(np.prod(MLP_MESH)), body, axes=(("dp", "tp"), MLP_MESH),
+        deadline=300.0)))
+
+
+def mlp_mesh_phase(device, card):
+    """Phase 12: the MLP's tensor-parallel and ZeRO steps
+    (``models/train.py``) on a (2, 2) local world of gloo thread ranks on
+    the card, every rank's parameters, momentum and losses within
+    ``DP_CARD_RTOL`` of the same world on the CPU (float32 products
+    summed in another order on the card); each world's seconds."""
+    t0 = time.perf_counter()
+    card_run = mlp_mesh_world(device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_run = mlp_mesh_world(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    worst, bad = 0.0, []
+    for r, want in cpu_run.items():
+        for k, w in want.items():
+            got = card_run[r][k]
+            if not np.isfinite(got).all() or got.shape != w.shape:
+                bad.append(f"rank {r} {k}")
+                continue
+            scale = max(float(np.abs(w).max()), 1e-30)
+            err = float(np.abs(got.astype(np.float64) - w).max()) / scale
+            worst = max(worst, err)
+            if err > DP_CARD_RTOL:
+                bad.append(f"rank {r} {k} {err:.3e}")
+    falls = all(cpu_run[r][f"{s}_loss_{MLP_STEPS - 1}"][0]
+                < cpu_run[r][f"{s}_loss_0"][0]
+                for r in cpu_run for s in ("plain", "zero"))
+    log(f"  {MLP_MESH} world, d_in {MLP_SIZES[0]}, hidden {MLP_SIZES[1]}, "
+        f"d_out {MLP_SIZES[2]}, batch {MLP_SIZES[3]}, {MLP_STEPS} steps of "
+        f"each: card {card_s:.1f} s, CPU {cpu_s:.1f} s; largest difference "
+        f"card vs CPU {worst:.3e} of the largest value (limit "
+        f"{DP_CARD_RTOL:g}), losses fall: {falls} "
+        f"{'ok' if not bad and falls else 'FAIL'} on {card}")
+    if bad or not falls:
+        raise RuntimeError(f"phase 12: {bad or 'the losses do not fall'}")
+    return {"card_s": card_s, "cpu_s": cpu_s, "card_vs_cpu": worst}
 
 
 def ptxas_report(log_path):
@@ -4221,7 +4601,8 @@ def run_checks(device, parts, mesh_timings=True):
     ``bwd``: phase 8's, ``grad``: the training path's 2-layer gradient,
     ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
     kernel; ``mesh``: phase 10c's transformer across thread ranks;
-    ``proc``: phase 11's launcher jobs, no kernel), after building the
+    ``proc``: phase 11's launcher jobs, no kernel; ``mlp``: phase 12's
+    MLP steps, no kernel), after building the
     kernels they need.  The phases' own timings are left out; ``fwd``
     and ``bwd`` time the bf16 kernels at the meshes' shapes
     (:func:`mesh_shape_timings`) unless ``mesh_timings`` is False
@@ -4229,7 +4610,7 @@ def run_checks(device, parts, mesh_timings=True):
     Every check runs and prints its readings even when an earlier one
     failed; returns 1 when any failed."""
     sources = ((("sw_step",) if "sw" in parts else ())
-               + (FLASH_SOURCES if set(parts) - {"sw", "ops", "proc"}
+               + (FLASH_SOURCES if set(parts) - {"sw", "ops", "proc", "mlp"}
                   else ()))
     if sources:
         build_phase(sources)
@@ -4245,6 +4626,7 @@ def run_checks(device, parts, mesh_timings=True):
         "mesh": lambda: (mesh_train_phase(device, [], card_line()),
                          mesh_decode_phase(device)),
         "proc": lambda: proc_phase(device, card_line()),
+        "mlp": lambda: mlp_mesh_phase(device, card_line()),
     }
     failed = []
     for part in parts:
@@ -4448,7 +4830,7 @@ def main(argv):
         return witness_readings(device)
     if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
-                                    "mesh", "proc"} and argv[2:] in (
+                                    "mesh", "proc", "mlp"} and argv[2:] in (
             [], ["--no-timings"]):
         return run_checks(device, argv[1].split(","),
                           mesh_timings=argv[2:] == [])
@@ -4555,6 +4937,12 @@ def main(argv):
         f"over the native bridge; CUDA tensors staged through host memory)")
     proc = proc_phase(device, card)
 
+    log(f"phase MLP steps across ranks (models/train.py: "
+        f"make_global_train_step and the ZeRO step on a {MLP_MESH} (dp, tp) "
+        f"local world of gloo thread ranks on one card, against the same "
+        f"world on the CPU)")
+    mlp_mesh = mlp_mesh_phase(device, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -4565,7 +4953,7 @@ def main(argv):
                     "train_path": train, "train_profile": train_profile,
                     "bench_training": bench_training,
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
-                    "proc": proc,
+                    "proc": proc, "mlp_mesh": mlp_mesh,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES},

@@ -15,8 +15,10 @@ run instead.  A grid of ranks runs over ``torch.distributed``
 torchrun, gloo on the CPU or in a local world of thread ranks), or as
 the OS processes of a launcher job over the native DCN bridge
 (``python -m mpi4jax_tpu_torch.launch -np N prog.py``: ``ProcComm``,
-the proc tier, CUDA tensors staged through host memory); see ROADMAP.md
-for what is still to be ported.
+the proc tier, CUDA tensors staged through host memory), where the
+nonblocking requests (``iallreduce``, ``isend``, ``wait`` ...) and the
+bucketed gradient sync (``BucketedGradSync``) overlap communication with
+the program's compute; see ROADMAP.md for what is still to be ported.
 """
 
 import torch as _torch

@@ -96,9 +96,15 @@ The run, as in the root bench:
    setting), with the in-run copy ceiling; and the width-1 halo exchange
    of 3 fields at base 32, coalescing on and off
    (``halo_p50_ms_proc8_w1_coalesce_on``, ``_off``,
-   ``halo_coalesce_speedup_proc8``).  With ``--device cpu`` they are
-   named skipped (the staged leg needs the card), and under ``torchrun``
-   too (one launcher job is its own world).
+   ``halo_coalesce_speedup_proc8``); and, but for ``--quick``, the
+   overlap leg (:func:`overlap_leg`): ``make_dp_train_step`` on a
+   6-layer ``StackParams`` of width 1024, batch 16 a rank, overlap on and
+   off in interleaved pairs, on the card with its buckets staged
+   (``train_step_ms_proc8_overlap_on``, ``_off``,
+   ``overlap_speedup_proc8``) and on CPU tensors (the same with
+   ``_host``).  With ``--device cpu`` they are named skipped (the staged
+   leg needs the card), and under ``torchrun`` too (one launcher job is
+   its own world).
 
 Across ranks every decision (the schedule, the calls a batch, the second
 wind) is taken on the slowest rank's time (a MAX allreduce), so all
@@ -150,7 +156,7 @@ from mpi4jax_tpu_torch.utils.runtime import (
 __all__ = ["run_bench", "estimate", "hbm_copy_bandwidth",
            "nominal_hbm_gbps", "allreduce_bandwidth", "local_world_busbw",
            "busbw_factor", "matmul_roofline_tflops", "training_legs",
-           "proc_legs", "main"]
+           "proc_legs", "overlap_leg", "main"]
 
 BASELINE_CELL_UPDATES_PER_SEC = 4.5e8  # 1x P100, BASELINE.md
 
@@ -179,8 +185,6 @@ SKIPPED = (
      "io_uring, the autotune pair, two-tier and weak scaling",
      "they wait for ROADMAP Queue 1 item 19 (a second world kind inside "
      "one job, or emulated links)"),
-    ("the proc overlap step",
-     "the async engine waits for ROADMAP Queue 1 item 7"),
     ("the serving legs (SLO, autoscale)",
      "serving waits for ROADMAP Queue 1 item 9"),
 )
@@ -202,8 +206,16 @@ PROC_KEYS = tuple(k.format(n=PROC_RANKS) for k in (
     "allreduce_busbw_proc{n}_shm_gbps", "allreduce_busbw_proc{n}_shm_host_gbps",
     "halo_p50_ms_proc{n}_w1_coalesce_on", "halo_p50_ms_proc{n}_w1_coalesce_off",
     "halo_coalesce_speedup_proc{n}"))
-PROC_SKIPPED = ("the proc busbw and halo legs",
+PROC_SKIPPED = ("the proc busbw, halo and overlap legs",
                 "one launcher job is its own world")
+# the root bench's proc overlap leg (bench.py proc_overlap_step): a
+# launcher job of PROC_RANKS ranks running benchmarks/transformer.py
+# --overlap pairs at run_overlap's defaults, buckets of T4J_BUCKET_BYTES
+OVERLAP = dict(layers=6, d_model=1024, batch=16, reps=3, batches=3)
+OVERLAP_KEYS = tuple(k.format(n=PROC_RANKS) for k in (
+    "train_step_ms_proc{n}_overlap_on", "train_step_ms_proc{n}_overlap_off",
+    "overlap_speedup_proc{n}", "train_step_ms_proc{n}_host_overlap_on",
+    "train_step_ms_proc{n}_host_overlap_off", "overlap_speedup_proc{n}_host"))
 
 # the root bench's allreduce legs (bench.py allreduce_bandwidth and
 # virtual_mesh_busbw): MB per rank, chained calls per batch, and the
@@ -339,12 +351,12 @@ def local_world_busbw(mb=VMESH_MB, ranks=VMESH_RANKS, reps=ALLREDUCE_REPS):
         deadline=600.0))
 
 
-def _proc_job(script_args):
+def _proc_job(script_args, script="proc_busbw.py"):
     """One launcher job of ``PROC_RANKS`` ranks running the port's
-    ``benchmarks/proc_busbw.py``; its JSON records (rank 0's) and its
+    ``benchmarks/<script>``; its JSON records (rank 0's) and its
     seconds.  A failed job raises with its output."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "benchmarks", "proc_busbw.py")
+                          "benchmarks", script)
     rc, out, err, secs = launch.run_job(
         PROC_RANKS, [script, *script_args], timeout=PROC_TIMEOUT_S)
     if rc != 0:
@@ -407,6 +419,32 @@ def proc_legs(quick=False, say=log):
                     if k.startswith("halo_")))
     keys["proc_busbw_job_s"] = round(busbw_s, 3)
     keys["proc_halo_job_s"] = round(halo_s, 3)
+    return keys
+
+
+def overlap_leg(batches=OVERLAP["batches"], say=log):
+    """The root bench's proc overlap leg: one launcher job of
+    ``PROC_RANKS`` ranks on the one card running
+    ``benchmarks/transformer.py --overlap pairs`` (``make_dp_train_step``
+    on a 6-layer ``StackParams`` of width 1024, batch 16 a rank, 3 steps
+    a timed batch, ``batches`` batches, overlap on and off interleaved):
+    the step on the card with its buckets staged through pinned host
+    memory, and on CPU tensors, each arm's ms a step on and off and its
+    speedup (``OVERLAP_KEYS``), with the job's seconds."""
+    o = OVERLAP
+    records, secs = _proc_job(
+        ["--overlap", "pairs", "--layers", o["layers"], "--d-model",
+         o["d_model"], "--batch", o["batch"], "--reps", o["reps"],
+         "--batches", batches], script="transformer.py")
+    keys = {rec["metric"]: rec["value"] for rec in records}
+    missing = set(OVERLAP_KEYS) - set(keys)
+    if missing:
+        raise RuntimeError(f"the overlap job gave no {sorted(missing)}")
+    say(f"[bench] proc overlap step, {PROC_RANKS} ranks, {o['layers']} "
+        f"layers, d_model {o['d_model']}, batch {o['batch']}, buckets of "
+        f"{records[0]['bucket_bytes']} bytes ({secs:.1f} s): "
+        + ", ".join(f"{k} {keys[k]}" for k in OVERLAP_KEYS))
+    keys["proc_overlap_job_s"] = round(secs, 3)
     return keys
 
 
@@ -740,6 +778,10 @@ def main(argv=None):
             log(f"[bench] skipped {PROC_SKIPPED[0]}: {PROC_SKIPPED[1]}")
     elif torch.device(device).type == "cuda":
         rec.update(proc_legs(args.quick))
+        if args.quick:
+            log("[bench] skipped the proc overlap step: quick mode")
+        else:
+            rec.update(overlap_leg())
     else:
         log(f"[bench] skipped {PROC_SKIPPED[0]}: the staged leg moves "
             "CUDA tensors (run on the card)")

@@ -7,10 +7,13 @@ equivalent.
 The port's counterpart of ``mpi4jax_tpu/launch.py``.  It builds the
 native bridge once (``native/build.py``), then starts N worker processes
 with the bridge's bootstrap environment (``T4J_RANK``, ``T4J_SIZE``,
-``T4J_COORD`` on a free local port, ``T4J_JOB``).  Each worker joins the
-bridge (``native/runtime.py:ensure_initialized``) before it runs the
-program with ``runpy``, so ``mpi4jax_tpu_torch.get_default_comm()`` is
-the world ``ProcComm`` there.  A worker that dies sends the abort
+``T4J_COORD`` on a free local port, ``T4J_JOB``).  Each worker waits
+until every worker has started (a file each in the launcher's
+``T4J_READY_DIR``: the bridge's bootstrap deadline then leaves out the
+ranks' import skew), joins the bridge
+(``native/runtime.py:ensure_initialized``) and runs the program with
+``runpy``, so ``mpi4jax_tpu_torch.get_default_comm()`` is the world
+``ProcComm`` there.  A worker that dies sends the abort
 broadcast first, so its peers' blocked ops raise instead of hanging.
 
 ``--platform cuda`` (the default) puts rank r on card ``r % cards``
@@ -92,8 +95,27 @@ def run_job(n, prog_args, *, platform="cuda", timeout):
             time.perf_counter() - t0)
 
 
+def _rendezvous():
+    """Wait until every worker of the job has started (imported torch),
+    so that the bridge's bootstrap, bounded by ``T4J_CONNECT_TIMEOUT``,
+    does not also have to absorb the ranks' start-up skew: on a loaded
+    host one rank's imports may take longer than that.  Each worker
+    marks itself in the launcher's ``T4J_READY_DIR`` and polls for the
+    others; the job's deadline and its fail-fast teardown bound the
+    wait.  Nothing to wait for outside the launcher."""
+    ready = os.environ.get("T4J_READY_DIR")
+    if not ready:
+        return
+    open(os.path.join(ready, os.environ["T4J_RANK"]), "w").close()
+    size = int(os.environ["T4J_SIZE"])
+    while len(os.listdir(ready)) < size:
+        time.sleep(0.02)
+
+
 def child_main(argv):
-    """A worker: pin the platform, join the bridge, run the program."""
+    """A worker: pin the platform, wait for the other workers, join the
+    bridge, run the program.  A failure from the bridge's bootstrap on
+    is reported as the rank's first failure."""
     prog, *prog_args = argv
     if os.environ.get("T4J_PLATFORM", "cuda") == "cuda":
         import torch
@@ -106,11 +128,12 @@ def child_main(argv):
         torch.cuda.set_device(rank_device())
     from mpi4jax_tpu_torch.native import runtime
 
-    runtime.ensure_initialized()
+    _rendezvous()
     sys.argv = [prog, *prog_args]
     import runpy
 
     try:
+        runtime.ensure_initialized()
         runpy.run_path(prog, run_name="__main__")
     except BaseException as e:
         code = e.code if isinstance(e, SystemExit) else None
@@ -182,16 +205,19 @@ def _first_failure(path):
 
 def _run_job(args):
     with tempfile.TemporaryDirectory(prefix="t4j-launch-") as tmp:
-        return _run_workers(args, os.path.join(tmp, "first_failure"))
+        ready = os.path.join(tmp, "ready")
+        os.mkdir(ready)
+        return _run_workers(args, os.path.join(tmp, "first_failure"), ready)
 
 
-def _run_workers(args, failure_file):
+def _run_workers(args, failure_file, ready_dir):
     n = args.nprocs
     coord = f"127.0.0.1:{_free_port()}"
     job = uuid.uuid4().hex[:12]  # names the job's shared-memory segments
     env = dict(os.environ)
     env.update(T4J_SIZE=str(n), T4J_COORD=coord, T4J_JOB=job,
-               T4J_PLATFORM=args.platform, T4J_FIRST_FAILURE=failure_file)
+               T4J_PLATFORM=args.platform, T4J_FIRST_FAILURE=failure_file,
+               T4J_READY_DIR=ready_dir)
     if args.platform == "cpu":
         env["CUDA_VISIBLE_DEVICES"] = ""
     procs = []

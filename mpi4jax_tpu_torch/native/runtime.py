@@ -14,14 +14,19 @@ host buffers that way).  Every call returns a status; a nonzero one
 raises :class:`BridgeError` with the bridge's own rank, peer and op
 context.
 
-The async engine (``t4j_i*``, ``wait``, ``test``) comes with ROADMAP
-Queue 1 item 7; telemetry and the flight recorder with item 10; the
-wire info surfaces and the resize API with item 19.
+The async engine (``host_i*``, :func:`host_wait`, :func:`host_test`)
+takes the same raw pointers: a registry holds each request's input and
+output tensors until its wait, since the bridge's progress thread reads
+and writes them after the submit returns.  Requests never waited are
+reported on stderr at :func:`finalize`.  Telemetry and the flight
+recorder come with ROADMAP Queue 1 item 10; the wire info surfaces and
+the resize API with item 19.
 """
 
 import atexit
 import ctypes
 import os
+import sys
 
 import torch
 
@@ -68,6 +73,17 @@ __all__ = [
     "host_sendrecv",
     "host_sendrecv_fused",
     "host_alltoall_fused",
+    "host_iallreduce",
+    "host_ireduce_scatter",
+    "host_isend",
+    "host_irecv",
+    "host_wait",
+    "host_test",
+    "async_inflight",
+    "async_pending",
+    "async_assert_drained",
+    "wire_dtype_info",
+    "annotate_step",
 ]
 
 
@@ -160,11 +176,23 @@ SIGNATURES = {
     "t4j_c_sendrecv_fused": ([_i32, _vpp, _u64p, _i32, _vpp, _u64p, _i32,
                               _i32, _i32, _i32, _i32, _i32p, _i32p], _i32),
     "t4j_c_alltoall_fused": ([_i32, _vpp, _vpp, _u64p, _i32], _i32),
+    "t4j_wire_dtype_info": ([_i32p, _u64p, _u64p], _i32),
+    "t4j_annotate_step": ([_i64, _i32], None),
+    # the async engine: a submit returns a request id, 0 on failure
+    "t4j_iallreduce": ([_i32, _vp, _vp, _u64, _i32, _i32], _u64),
+    "t4j_ireduce_scatter": ([_i32, _vp, _vp, _u64, _i32, _i32], _u64),
+    "t4j_isend": ([_i32, _vp, _u64, _i32, _i32], _u64),
+    "t4j_irecv": ([_i32, _vp, _u64, _i32, _i32], _u64),
+    "t4j_wait": ([_u64, _i32p, _i32p], _i32),
+    "t4j_test": ([_u64, _i32p, _i32p, _i32p], _i32),
+    "t4j_async_inflight": ([], _i32),
+    "t4j_async_pending": ([], _i32),
 }
 
 _ELASTIC_MODES = {"off": 0, "shrink": 1, "rejoin": 2}
 _HIER_MODES = {"auto": 0, "on": 1, "off": 2}
 WIRE_DTYPE_CODES = {"off": 0, "bf16": 1, "fp8": 2}
+WIRE_DTYPE_NAMES = {v: k for k, v in WIRE_DTYPE_CODES.items()}
 WIRE_BACKEND_CODES = {"sendmsg": 0, "uring": 1, "auto": 2}
 
 
@@ -284,6 +312,35 @@ def _code(mode, codes, what):
 def set_wire_dtype(mode=None):
     """Compressed-collective wire dtype: off, bf16 or fp8 (or 0/1/2)."""
     _load().t4j_set_wire_dtype(_code(mode, WIRE_DTYPE_CODES, "wire dtype"))
+
+
+def wire_dtype_info():
+    """The compressed-collective state: ``{"wire_dtype",
+    "wire_logical_bytes", "wire_bytes"}`` (the byte counters count the
+    compressed send path alone); None when the library was never
+    loaded."""
+    lib = _state["lib"]
+    if lib is None:
+        return None
+    mode, logical, wire = (ctypes.c_int32(0), ctypes.c_uint64(0),
+                           ctypes.c_uint64(0))
+    lib.t4j_wire_dtype_info(ctypes.byref(mode), ctypes.byref(logical),
+                            ctypes.byref(wire))
+    return {"wire_dtype": WIRE_DTYPE_NAMES.get(int(mode.value), "off"),
+            "wire_logical_bytes": int(logical.value),
+            "wire_bytes": int(wire.value)}
+
+
+def annotate_step(index, phase):
+    """A step boundary into the bridge's native ring (``phase`` 1 begin,
+    2 end; ``index`` the caller's step number).  False, and nothing
+    done, when the library was never loaded; never loads or builds it.
+    The public surface is ``ops/step.py``."""
+    lib = _state["lib"]
+    if lib is None:
+        return False
+    lib.t4j_annotate_step(int(index), int(phase))
+    return True
 
 
 def set_wire_backend(mode=None):
@@ -476,6 +533,15 @@ def finalize():
     and its teardown.  Runs at exit; idempotent."""
     lib = _state["lib"]
     if lib and lib.t4j_initialized():
+        if _async_reqs:
+            # loud on stderr, not raised: finalize runs from atexit, where
+            # an exception would hide the job's real outcome
+            kinds = ", ".join(rec["kind"]
+                              for rec in list(_async_reqs.values())[:8])
+            print(f"t4j: {len(_async_reqs)} async request(s) never waited "
+                  f"at finalize ({kinds}) — request leak; every "
+                  "iallreduce/ireduce_scatter/isend/irecv must be completed "
+                  "by wait/waitall", file=sys.stderr, flush=True)
         lib.t4j_finalize()
     _state["comm_cache"].clear()
 
@@ -735,3 +801,107 @@ def host_alltoall_fused(handle, parts, outs=None):
         handle, _ptr_array(parts), _ptr_array(outs),
         _u64_array([_nbytes(p) // n for p in parts]), len(parts)))
     return outs
+
+
+# -- the async engine -------------------------------------------------------
+#
+# A submit hands the progress engine raw pointers, so the tensors behind
+# them must outlive the request: the registry holds each request's input
+# and output until the wait (or a failed test) consumes it.
+
+_async_reqs = {}  # request id -> {"kind", "out", "keep"}
+
+
+def _async_submit(kind, rid, out, keep):
+    if not rid:
+        raise BridgeError(last_error()
+                          or f"native {kind} submit failed (no detail)")
+    _async_reqs[int(rid)] = {"kind": kind, "out": out, "keep": keep}
+    return int(rid)
+
+
+def host_iallreduce(handle, x, opcode, out=None):
+    """Submit a nonblocking allreduce; returns the request id.
+    :func:`host_wait` returns the result (in ``out`` when given)."""
+    x = _host(x)
+    out = _out(out, x.shape, x)
+    rid = _lib().t4j_iallreduce(handle, x.data_ptr(), out.data_ptr(),
+                                x.numel(), dtype_code(x.dtype), opcode)
+    return _async_submit("iallreduce", rid, out, (x,))
+
+
+def host_ireduce_scatter(handle, x, opcode, out=None):
+    """Submit a nonblocking reduce-scatter of ``x`` ``(comm_size,
+    *rest)``; the wait returns row ``rank`` reduced."""
+    x = _host(x)
+    out = _out(out, x.shape[1:], x)
+    rid = _lib().t4j_ireduce_scatter(handle, x.data_ptr(), out.data_ptr(),
+                                     out.numel(), dtype_code(x.dtype),
+                                     opcode)
+    return _async_submit("ireduce_scatter", rid, out, (x,))
+
+
+def host_isend(handle, x, dest, tag):
+    x = _host(x)
+    rid = _lib().t4j_isend(handle, x.data_ptr(), _nbytes(x), int(dest),
+                           int(tag))
+    return _async_submit("isend", rid, None, (x,))
+
+
+def host_irecv(handle, out, source, tag):
+    """Submit a nonblocking receive into ``out`` (a contiguous CPU
+    tensor); it parks in the engine until a matching message comes."""
+    out = _out(out, out.shape, out)
+    rid = _lib().t4j_irecv(handle, out.data_ptr(), _nbytes(out), int(source),
+                           int(tag))
+    return _async_submit("irecv", rid, out, ())
+
+
+def host_wait(rid):
+    """Block until request ``rid`` completes, and consume it.  Returns
+    ``(out, source, tag)``: the result tensor (None for an isend) and,
+    for an irecv, the envelope the wire gave (-1 otherwise).  A failed
+    op, or a second wait, raises :class:`BridgeError`."""
+    rec = _async_reqs.pop(int(rid), None)
+    src, tag = ctypes.c_int32(-1), ctypes.c_int32(-1)
+    _check(_lib().t4j_wait(int(rid), ctypes.byref(src), ctypes.byref(tag)))
+    return (None if rec is None else rec["out"]), src.value, tag.value
+
+
+def host_test(rid):
+    """True when request ``rid`` is complete.  It is not consumed: the
+    wait fetches the result.  A failed op raises here, consuming it."""
+    done = ctypes.c_int32(0)
+    status = _lib().t4j_test(int(rid), ctypes.byref(done), None, None)
+    if status:
+        _async_reqs.pop(int(rid), None)
+        _check(status)
+    return bool(done.value)
+
+
+def async_inflight():
+    """Requests submitted and not yet complete (0 before the load)."""
+    lib = _state["lib"]
+    return int(lib.t4j_async_inflight()) if lib is not None else 0
+
+
+def async_pending():
+    """Requests this process submitted and never waited: the engine's
+    count once the bridge is up, else the registry's."""
+    lib = _state["lib"]
+    if lib is not None and lib.t4j_initialized():
+        return int(lib.t4j_async_pending())
+    return len(_async_reqs)
+
+
+def async_assert_drained():
+    """Raise :class:`BridgeError` if a request was submitted and never
+    waited."""
+    n = async_pending()
+    if n:
+        kinds = ", ".join(f"{rec['kind']} (req {rid})"
+                          for rid, rec in list(_async_reqs.items())[:8])
+        raise BridgeError(
+            f"{n} async request(s) never waited: {kinds} — every "
+            "iallreduce/ireduce_scatter/isend/irecv must be completed by "
+            "wait/waitall exactly once")

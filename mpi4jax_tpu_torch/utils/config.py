@@ -20,7 +20,9 @@ fails at launch, never falls back in silence.
 * ``T4J_RETRY_MAX`` (3), ``T4J_BACKOFF_BASE`` (0.05 s),
   ``T4J_BACKOFF_MAX`` (2 s), ``T4J_REPLAY_BYTES`` (32M);
 * ``T4J_ELASTIC`` (off|shrink|rejoin), ``T4J_MIN_WORLD`` (1),
-  ``T4J_RESIZE_TIMEOUT`` (30 s).
+  ``T4J_RESIZE_TIMEOUT`` (30 s);
+* ``T4J_BUCKET_BYTES`` (4M), the gradient buckets of
+  ``BucketedGradSync`` and ``models/train.py:make_dp_train_step``.
 
 Byte counts take a K/M/G suffix.  The serving, autoscale and telemetry
 knobs come with the modules that read them (ROADMAP Queue 1 items 9 and
@@ -39,7 +41,7 @@ __all__ = [
     "WIRE_DTYPES", "wire_dtype", "WIRE_BACKENDS", "wire_backend",
     "hier_mode", "leader_ring_min_bytes",
     "retry_max", "backoff_base", "backoff_max", "replay_bytes",
-    "elastic_mode", "min_world", "resize_timeout",
+    "elastic_mode", "min_world", "resize_timeout", "bucket_bytes",
 ]
 
 _TRUE = {"1", "true", "on", "yes"}
@@ -331,3 +333,23 @@ def resize_timeout():
         "T4J_RESIZE_TIMEOUT", 30.0,
         " (the membership agreement cannot wait forever for a dead "
         "rank's reports)")
+
+
+# -- gradient buckets -------------------------------------------------------
+
+
+def bucket_bytes():
+    """Gradient-bucket size of ``BucketedGradSync`` in bytes (default
+    4M; >= 1).  Gradients in backward order are packed into buckets of
+    about this size, and each bucket's ``iallreduce`` is submitted as
+    soon as it is full, so its wire phase overlaps the rest of the
+    backward.  Smaller buckets start overlapping earlier but pay more
+    per-op latency."""
+    v = byte_count(os.environ.get("T4J_BUCKET_BYTES"), 4 << 20,
+                   name="T4J_BUCKET_BYTES")
+    if v < 1:
+        raise ValueError(
+            "T4J_BUCKET_BYTES must be >= 1 (a gradient bucket cannot "
+            "be empty)"
+        )
+    return v

@@ -24,7 +24,9 @@ the CPU, at a tiny size:
   ``autotune_attn_impl`` off the card;
 * ``make_multistep(donate=False)`` leaves the states that earlier calls
   returned intact, and ``donate=True`` chains;
-* without ``--device cpu`` and without CUDA the bench raises.
+* without ``--device cpu`` and without CUDA the bench raises;
+* the proc overlap leg's keys from its job's records (the job itself
+  runs in ``tests/test_torch_proc.py``), and its absence raising.
 
 No process is spawned and no port opened: the bench calls nvidia-smi
 only for a CUDA device.
@@ -149,11 +151,11 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     assert rec["draws"] >= (3 if quick else 10)
     for leg, _ in bench.SKIPPED:
         assert f"[bench] skipped {leg}" in err
-    # only the rest of the proc tier (async, the second world kinds)
-    # and serving wait: one rank runs every single-card leg, the training
+    # only the rest of the proc tier (the second world kinds) and
+    # serving wait: one rank runs every single-card leg, the training
     # legs with their remat policies included (the transformer's meshes
     # are named only across ranks); the proc legs need the card
-    assert set(re.findall(r"item (\d+)", err)) == {"7", "9", "19"}
+    assert set(re.findall(r"item (\d+)", err)) == {"9", "19"}
     assert (f"[bench] skipped {bench.PROC_SKIPPED[0]}: the staged leg "
             "moves CUDA tensors") in err
     assert rec["devices"] == 1 and rec["mesh"] == [1, 1]
@@ -355,3 +357,30 @@ def test_multistep_donate(ghost):
         s = chained(s)
     for a, b in zip(s, second):
         assert torch.equal(a, b)
+
+
+def test_overlap_leg_keys_from_the_jobs_records(monkeypatch):
+    seen = {}
+
+    def job(args, script="proc_busbw.py"):
+        seen["args"], seen["script"] = [str(a) for a in args], script
+        return [{"metric": k, "value": i + 1.5, "bucket_bytes": 4194304}
+                for i, k in enumerate(bench.OVERLAP_KEYS)], 12.25
+
+    monkeypatch.setattr(bench, "_proc_job", job)
+    keys = bench.overlap_leg(batches=1, say=lambda msg: None)
+    assert seen["script"] == "transformer.py"
+    assert seen["args"] == ["--overlap", "pairs", "--layers", "6",
+                            "--d-model", "1024", "--batch", "16", "--reps",
+                            "3", "--batches", "1"]
+    assert keys == {**{k: i + 1.5 for i, k in enumerate(bench.OVERLAP_KEYS)},
+                    "proc_overlap_job_s": 12.25}
+    assert set(bench.OVERLAP_KEYS) == {
+        "train_step_ms_proc8_overlap_on", "train_step_ms_proc8_overlap_off",
+        "overlap_speedup_proc8", "train_step_ms_proc8_host_overlap_on",
+        "train_step_ms_proc8_host_overlap_off",
+        "overlap_speedup_proc8_host"}
+    monkeypatch.setattr(bench, "_proc_job",
+                        lambda args, script: (job(args, script)[0][:3], 1.0))
+    with pytest.raises(RuntimeError, match="overlap job gave no"):
+        bench.overlap_leg(batches=1, say=lambda msg: None)

@@ -306,12 +306,7 @@ def test_runtime_helpers_match_jax():
 
 # names of the JAX package's surface the port has not ported yet, by the
 # ROADMAP.md Queue 1 item that ports them
-NOT_PORTED = {
-    7: {"BucketedGradSync", "Request", "iallreduce", "ireduce_scatter",
-        "isend", "irecv", "wait", "waitall", "test",
-        "assert_requests_drained", "annotate_step", "step_scope",
-        "current_step", "end_step"},
-}
+NOT_PORTED = {}
 
 
 def test_public_names_match_jax():

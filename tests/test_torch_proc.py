@@ -16,9 +16,17 @@ seeded inputs, over the same native bridge.
 * a planted failure: the launcher exits nonzero within its deadline and
   names the failing rank first;
 * the bench's proc legs (``benchmarks/proc_busbw.py``: the busbw with its
-  in-run ceiling, the halo latency on and off) at a tiny size.
+  in-run ceiling, the halo latency on and off; ``benchmarks/
+  transformer.py``: the dp step with overlap on and off) at a tiny size;
+* the nonblocking requests (``chip_smoke.py --proc-rank async``: the JAX
+  package's async matrix, a submit whose operand is dropped and
+  collected before its wait, ``make_dp_train_step`` with overlap on and
+  off, error feedback with the wire dtype at bf16) at 4 ranks, every
+  result equal to the port's blocking op bit for bit, and the dp step's
+  parameters within 1e-5 relative of a JAX proc job on the same seeds;
+* a request never waited is reported on stderr at finalize.
 
-Six jobs of at most 4 ranks, each with its own deadline (the launcher's
+Nine jobs of at most 4 ranks, each with its own deadline (the launcher's
 ``--timeout``, and the process group killed 30 s later); the ranks run
 one thread each on small payloads.
 """
@@ -326,9 +334,12 @@ def test_halo_fused_unfused_and_jax():
 
 def test_planted_failure_is_named_within_the_deadline():
     n = 4
+    # the file's job deadline: the job's four torch imports stretch with
+    # the host's load (about 10 s alone, 27 s beside 32 busy processes on
+    # 8 cores)
     rc, out, err = run_job("mpi4jax_tpu_torch.launch", n,
                            [ROOT / "chip_smoke.py", "--proc-rank", "fail",
-                            "-"], timeout=90)
+                            "-"], timeout=JOB_TIMEOUT_S)
     bad = SMOKE.proc_failing_rank(n)
     assert rc not in (0, 124), err
     # named by its error, however the ranks' exits are ordered
@@ -345,6 +356,10 @@ def test_bench_proc_legs_tiny():
         proc_busbw.main(["--mb", "0.5", "--reps", "2"])
         proc_busbw.main(["--op", "halo", "--widths", "1", "--reps", "10",
                          "--halo-base", "8", "--fields", "3"])
+        from mpi4jax_tpu_torch.benchmarks import transformer
+        transformer.main(["--overlap", "pairs", "--layers", "2",
+                          "--d-model", "32", "--batch", "4", "--reps", "1",
+                          "--batches", "1"])
     """)
     with tempfile.TemporaryDirectory() as d:
         path = pathlib.Path(d) / "legs.py"
@@ -362,3 +377,189 @@ def test_bench_proc_legs_tiny():
     assert recs["halo_p50_ms_proc2_w1off"]["value"] > 0
     assert recs["halo_coalesce_speedup_proc2_w1"]["value"] > 0
     assert "skipped p50_ms and p99_ms" in err and "item 10" in err
+    # the overlap leg: the host arm alone off the card
+    for side in ("on", "off"):
+        rec = recs[f"train_step_ms_proc2_host_overlap_{side}"]
+        assert rec["value"] > 0 and rec["arm"] == "host"
+        assert rec["layers"] == 2 and rec["interleaved_pairs"]
+    assert recs["overlap_speedup_proc2_host"]["value"] > 0
+    assert not any(k.startswith("train_step_ms_proc2_overlap") for k in recs)
+
+
+JAX_DP_WORKER = """
+import sys
+
+import numpy as np
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+
+import mpi4jax_tpu as m
+from mpi4jax_tpu.models import train
+
+DP_LAYERS, DP_WIDTH, DP_STEPS = {layers!r}, {width!r}, {steps!r}
+{dp_inputs}
+comm = m.get_default_comm()
+assert comm.backend == "proc"
+r = comm.rank()
+inp = dp_inputs(r)
+stack = train.StackParams(
+    layers=tuple((jnp.asarray(w), jnp.asarray(b))
+                 for w, b in inp["stack"]["layers"]),
+    w_out=jnp.asarray(inp["stack"]["w_out"]))
+mlp = train.MLPParams(*map(jnp.asarray, inp["mlp"]))
+out = {{}}
+for name, params, batch, bucket in (
+        ("stack", stack, (inp["x_stack"], inp["t_stack"]), 1 << 14),
+        ("mlp", mlp, (inp["x_mlp"], inp["t_mlp"]), 1 << 12)):
+    step = jax.jit(train.make_dp_train_step(comm, overlap=True,
+                                            bucket_bytes=bucket))
+    p = params
+    for _ in range(DP_STEPS):
+        p, loss = step(p, tuple(map(jnp.asarray, batch)))
+    for k, leaf in enumerate(jax.tree_util.tree_leaves(p)):
+        out[f"dp_{{name}}_on_{{k}}"] = np.asarray(leaf)
+    out[f"dp_{{name}}_on_loss"] = np.asarray(loss)
+m.assert_requests_drained()
+np.savez(f"{{sys.argv[1]}}/rank{{r}}.npz", **out)
+"""
+
+ASYNC_RANKS = 4
+_async = {}
+
+
+def async_jobs():
+    """The port's async job and the JAX package's dp-step job at 4 ranks
+    (run once per module): ``(port, jax)``, ``{rank: {case: array}}``."""
+    if not _async:
+        n = ASYNC_RANKS
+        with tempfile.TemporaryDirectory() as port_dir, \
+                tempfile.TemporaryDirectory() as jax_dir:
+            rc, out, err = run_job(
+                "mpi4jax_tpu_torch.launch", n,
+                [ROOT / "chip_smoke.py", "--proc-rank", "async", port_dir])
+            assert rc == 0, (out, err[-6000:])
+            worker = pathlib.Path(jax_dir) / "jax_dp.py"
+            worker.write_text(textwrap.dedent(JAX_DP_WORKER.format(
+                layers=SMOKE.DP_LAYERS, width=SMOKE.DP_WIDTH,
+                steps=SMOKE.DP_STEPS,
+                dp_inputs=inspect.getsource(SMOKE.dp_inputs))))
+            rc, out, err = run_job("mpi4jax_tpu.launch", n,
+                                   [worker, jax_dir], platform=False)
+            assert rc == 0, (out, err[-6000:])
+            _async["jobs"] = (_load(port_dir, n), _load(jax_dir, n))
+    return _async["jobs"]
+
+
+def test_async_matrix_equals_the_blocking_sums():
+    # the job raised on any nonblocking result unequal to its blocking
+    # op; here the exact sums of the small integers, recomputed
+    port, _ = async_jobs()
+    n = ASYNC_RANKS
+    data = SMOKE.async_data
+    for r in range(n):
+        got = port[r]
+        for count in (1, 997, 65537):
+            assert SMOKE.same_bits(got[f"iallreduce_sum_{count}"], sum(
+                data(count, q, 1) for q in range(n)))
+            assert SMOKE.same_bits(got[f"iallreduce_max_{count}"], np.max(
+                [data(count, q, 2) for q in range(n)], axis=0))
+        for k in range(6):
+            assert SMOKE.same_bits(got[f"waitall_{k}"], sum(
+                data(4096, q, 10 + k) for q in range(n)))
+        left = (r - 1) % n
+        assert (got["ring_irecv"] == left).all()
+        assert (got["ring_irecv_any"] == 10 * left).all()
+        assert got["ring_irecv_any"].dtype == np.int32
+        assert SMOKE.same_bits(got["ireduce_scatter"], sum(
+            data(33, q, 50 + r) for q in range(n)))
+        assert SMOKE.same_bits(got["test_then_wait"], sum(
+            data(512, q, 99) for q in range(n)))
+        assert SMOKE.same_bits(got["dropped_operand"], sum(
+            data(65537, q, 77) for q in range(n)))
+
+
+def test_dp_step_arms_equal_and_match_a_jax_proc_job():
+    port, jax_ = async_jobs()
+    for r in range(ASYNC_RANKS):
+        for name in ("stack", "mlp"):
+            keys = sorted(k for k in jax_[r] if k.startswith(f"dp_{name}_"))
+            assert len(keys) == (2 * SMOKE.DP_LAYERS + 2 if name == "stack"
+                                 else 5)
+            for k in keys:
+                off = k.replace("_on_", "_off_")
+                assert SMOKE.same_bits(port[r][k], port[r][off]), (r, k)
+                want = jax_[r][k].astype(np.float64)
+                got = port[r][k].astype(np.float64)
+                scale = max(np.abs(want).max(), 1e-30)
+                assert np.abs(got - want).max() <= 1e-5 * scale, (r, k)
+            # every rank holds the same synced parameters and mean loss
+            for k in keys:
+                assert SMOKE.same_bits(port[r][k], port[0][k]), (r, k)
+
+
+def test_error_feedback_residual_is_send_minus_q():
+    from mpi4jax_tpu_torch.ops.allreduce import BucketedGradSync
+    from mpi4jax_tpu_torch.parallel.comm import SelfComm
+
+    port, _ = async_jobs()
+    n = ASYNC_RANKS
+    # the job's bucket layout (a self comm lays buckets out alike)
+    sync = BucketedGradSync(SelfComm(), bucket_bytes=1 << 10, average=False)
+    for r in range(n):
+        shapes = [a.shape for a in SMOKE.dp_inputs(r)["mlp"]]
+        rng = np.random.default_rng(300 + r)
+        res = {}
+        for k in range(SMOKE.EF_STEPS):
+            leaves = [torch.from_numpy(rng.standard_normal(s).astype(
+                np.float32)) for s in shapes]
+            buckets = sync._buckets(leaves)
+            assert len(buckets) == 4
+            new = {}
+            for bi, bucket in enumerate(buckets):
+                send = torch.cat([leaves[i].reshape(-1)
+                                  for i in bucket["idx"]])
+                if bi in res:
+                    send = send + res[bi]
+                q = send.bfloat16().float()
+                got = port[r][f"ef_{k}_{bi}_residual"]
+                assert SMOKE.same_bits(got, (send - q).numpy()), (r, k, bi)
+                assert np.abs(got).max() <= 2.0 ** -8 * np.abs(
+                    send.numpy()).max()
+                new[bi] = torch.from_numpy(got)
+                # the synced bucket: the sum over ranks of the q's, which
+                # the job held to the blocking allreduce bit for bit
+                assert port[r][f"ef_{k}_{bi}"].shape == send.shape
+            res = new
+
+
+LEAK_PROG = """
+import torch
+
+import mpi4jax_tpu_torch as mt
+from mpi4jax_tpu_torch.native import runtime
+
+comm = mt.get_default_comm()
+assert comm.backend == "proc"
+req, _ = mt.iallreduce(torch.ones(256), comm=comm)
+try:
+    mt.assert_requests_drained()
+    raise SystemExit("assert_requests_drained did not raise")
+except runtime.BridgeError as e:
+    assert "never waited" in str(e), e
+print("LEAK-DETECTED-OK", flush=True)
+# exits without the wait: finalize reports the leak on stderr
+"""
+
+
+def test_request_never_waited_is_reported_at_finalize():
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "leak.py"
+        path.write_text(LEAK_PROG)
+        rc, out, err = run_job("mpi4jax_tpu_torch.launch", 2, [path],
+                               timeout=120)
+    assert rc == 0, err[-4000:]
+    assert out.count("LEAK-DETECTED-OK") == 2
+    assert err.count("async request(s) never waited at finalize "
+                     "(iallreduce)") == 2

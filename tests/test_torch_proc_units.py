@@ -8,7 +8,9 @@ spawned:
 * ``ProcGridComm``'s ``coords_of``, ``shift_perm`` and ``sub`` on grids
   (2, 2), (2, 4), (1, 8) and (3, 2), periodic and not, from every rank,
   and ``ProcComm.split`` with ragged groups;
-* the launcher's ``_describe_exit`` and ``_job_exit_code``;
+* the launcher's ``_describe_exit`` and ``_job_exit_code``, its
+  start-up rendezvous, and a bootstrap failure claiming the job's
+  first-failure file;
 * the port's bridge, built with g++ from ``dcn.cc``, ``shm.cc`` and the
   port's C shim: every symbol the port's runtime binds is in it, with
   the JAX package's ctypes signature, and no XLA handler is.
@@ -319,3 +321,44 @@ def test_bindings_match_jax_signatures(bridge, monkeypatch):
             assert list(jfn.argtypes) == list(argtypes), name
         if restype is not None and jfn.restype is not ctypes.c_int:
             assert jfn.restype == restype, name
+
+
+def test_launcher_rendezvous_waits_for_every_worker(tmp_path, monkeypatch):
+    import threading
+    import time
+
+    monkeypatch.setenv("T4J_READY_DIR", str(tmp_path))
+    monkeypatch.setenv("T4J_SIZE", "3")
+    monkeypatch.setenv("T4J_RANK", "0")
+
+    def late(rank, delay):
+        time.sleep(delay)
+        (tmp_path / str(rank)).touch()
+
+    for rank, delay in ((1, 0.1), (2, 0.3)):
+        threading.Thread(target=late, args=(rank, delay)).start()
+    t0 = time.monotonic()
+    tlaunch._rendezvous()
+    assert time.monotonic() - t0 >= 0.3
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["0", "1", "2"]
+    monkeypatch.delenv("T4J_READY_DIR")
+    tlaunch._rendezvous()  # outside the launcher: nothing to wait for
+
+
+def test_a_bootstrap_failure_is_named_first(tmp_path, monkeypatch):
+    import sys
+
+    first = tmp_path / "first_failure"
+    monkeypatch.setenv("T4J_PLATFORM", "cpu")
+    monkeypatch.setenv("T4J_RANK", "3")
+    monkeypatch.setenv("T4J_FIRST_FAILURE", str(first))
+    monkeypatch.delenv("T4J_READY_DIR", raising=False)
+
+    def refuse():
+        raise truntime.BridgeError("r3 | t4j: bootstrap refused")
+
+    monkeypatch.setattr(truntime, "ensure_initialized", refuse)
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    with pytest.raises(truntime.BridgeError, match="bootstrap refused"):
+        tlaunch.child_main([str(tmp_path / "never_run.py")])
+    assert first.read_text() == "3\nBridgeError: r3 | t4j: bootstrap refused"

@@ -5,7 +5,8 @@ run here in a 2x2 local world, where the device is the CPU itself, and
 its holds raise on a shape that differs, naming the rank.  The
 multi-rank transformer phase's training check at a tiny width: each
 scheme within its limit of the one-rank step, the planted fault far
-outside it."""
+outside it.  Phase 12 (the MLP's tp and ZeRO steps on a (2, 2) world) at
+a tiny width, the CPU world standing in for the card's."""
 
 import importlib.util
 import pathlib
@@ -110,3 +111,16 @@ def test_mesh_schemes_hold_to_one_rank(smoke, monkeypatch, name, sequence,
     # the patches are gone
     assert smoke.tfm.ring_attention is longseq.ring_attention
     assert smoke.tfm.allreduce is allreduce
+
+
+def test_mlp_mesh_phase_runs_and_holds(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "MLP_SIZES", (8, 16, 4, 8))
+    got = smoke.mlp_mesh_phase(torch.device("cpu"), "the CPU")
+    assert got["card_vs_cpu"] == 0.0  # the same world twice
+    run = smoke.mlp_mesh_world(torch.device("cpu"))
+    # each rank: its shards (tp 2 halves w1's columns), its momentum
+    # chunks (dp 2 halves each shard), its losses
+    assert run[0]["plain_w1"].shape == (8, 8)
+    assert run[3]["zero_momentum_w1"].shape == (1, 32)
+    assert run[1]["zero_momentum_b2"].shape == (1, 2)
+    assert run[2]["plain_loss_0"].shape == (1,)
