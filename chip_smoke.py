@@ -220,6 +220,34 @@ Phases, each of which raises on failure (nothing is caught):
    gloo thread ranks on the card, every rank's parameter shards, momentum
    chunks and losses within ``DP_CARD_RTOL`` of the same world on the
    CPU, the losses falling; both worlds' seconds are printed.
+13. MoE transformer (``models/moe_transformer.py``, ``parallel/moe.py``):
+   (a) the bench's moe mode's model (``MOE_CFG``: vocab 32768, d_model
+   512, 8 layers, 8 heads of 64, d_ff 2048, 4 experts) at batch 8, seq
+   1024 on one card through ``make_global_train_step``, in f32 then
+   bf16: one warm-up step, then ``MOE_TIMED_STEPS`` timed steps with
+   every launch count set to 0 just before each and read just after:
+   per step and layer one launch of each flash kernel of the route
+   ``flash_supported`` picks for the attention's operands (printed; the
+   phase fails if it picks none), the losses finite, the returned
+   parameters changed and the step's inputs unchanged; step ms,
+   tokens/s, model TFLOP/s on the active parameters and the peak memory
+   beside the card's name and power limit, and one more step under
+   torch.profiler: device ms by kernel class and the idle share.  (b) at 2 layers in f32, one
+   step at lr 1 on the kernel path, on the plain path (the flash kernels'
+   plain versions as the attention function) and on ``reference_loss``'s
+   gradient: each pair's routes equal, its loss and every updated leaf
+   within ``MOE_CHECK_LIMIT``.  (c) four gloo thread ranks on the card on
+   (dp, tp, sp) = (1, 2, 2) with 8 experts, 2 layers, both routings: one
+   f32 step at lr 1, gathered, against the one-rank ``reference_loss``
+   step on the same global batch, and a planted fault (a gradient sync
+   that sums the expert leaves over sp) that must fail it; then
+   ``topk_moe`` with 2 experts a rank (``alltoall_multi``) on CUDA
+   tensors against the same world on CPU tensors.  (d) the bench's moe
+   mode itself (``transformer_train.run(mode="moe")``) on the model of
+   (a), f32 then bf16, at one timed batch: every launch count set to 0
+   just before the timed batch and read just after, each flash kernel of
+   (a)'s route once a layer a timed step, and its record's numbers
+   positive and finite.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -240,10 +268,10 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp [--no-timings]
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe [--no-timings]
 
 runs those checks (any of them) on this tree alone (``proc``: phase 11,
-``mlp``: phase 12);
+``mlp``: phase 12, ``moe``: phase 13);
 ``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
 unless ``--no-timings`` is given (``--fault-readings`` gives it to its
 copies, which share the card and so could time nothing).
@@ -301,6 +329,7 @@ seeds of four cases (``WITNESS_CASES``): the evidence for the bf16
 limits' measure.
 """
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -331,10 +360,12 @@ from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
 from mpi4jax_tpu_torch.kernels import _build, sw_step
 from mpi4jax_tpu_torch.kernels import flash as kflash
 from mpi4jax_tpu_torch.kernels import flash_bwd as kbwd
+from mpi4jax_tpu_torch.models import moe_transformer as moe
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.native import build as native_build
 from mpi4jax_tpu_torch.parallel import distributed
+from mpi4jax_tpu_torch.parallel import moe as pmoe
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
 from mpi4jax_tpu_torch.parallel.longseq import zigzag_shard
@@ -409,6 +440,35 @@ MLP_MESH = (2, 2)
 MLP_SIZES = (64, 256, 16, 32)
 MLP_STEPS = 3
 MLP_LR = 5e-2
+# phase 13: the model of the bench's moe mode (benchmarks/transformer.py
+# run's defaults, 4 experts a sp rank; transformer_train.run(mode="moe"))
+# at batch 8, seq 1024 on one card, its SGD rate and timed steps
+MOE_CFG = moe.MoEConfig(vocab=32768, d_model=512, layers=8, heads=8,
+                        kv_heads=8, head_dim=64, experts=4, d_ff=2048)
+MOE_RUN = dict(batch=8, seq=1024)
+# its attention's shape (B, Tq, Tk, Hq, Hkv, D): one more case of the
+# flash kernels' checks, in bf16 and f32 (the bench's small preset
+# gives the dense model the same shape)
+MOE_SHAPE = (MOE_RUN["batch"], MOE_RUN["seq"], MOE_RUN["seq"],
+             MOE_CFG.heads, MOE_CFG.kv_heads, MOE_CFG.head_dim)
+MOE_LR = 1e-3
+MOE_TIMED_STEPS = 3
+# (b): the kernel path, the plain path and reference_loss's gradient at 2
+# layers in f32, one step at lr 1 (the update is the gradient): the
+# loss's relative difference and per leaf max|difference| over
+# max|update|, each pair within this limit (MESH_TRAIN_LIMIT's measure
+# and value; the f32 kernels differ from their plain versions by about
+# 1e-6 of the largest value, F32_GRAD_LIMIT)
+MOE_CHECK_LAYERS = 2
+MOE_CHECK_LR = 1.0
+MOE_CHECK_LIMIT = 1e-3
+# (c): four thread ranks on the JAX bench's mesh (1, 2, 2), 8 experts (4
+# a sp rank, as the bench's moe mode), 2 layers, batch 2, seq 1024 a sp
+# rank; and topk_moe on a 1-D world of 4 ranks, 2 experts a rank
+MOE_MESH = (1, 2, 2)
+MOE_MESH_CFG = MOE_CFG._replace(layers=2, experts=8)
+MOE_MESH_BATCH, MOE_MESH_SEQ = 2, 1024
+MOE_A2A = dict(ranks=4, experts=8, k=2, tokens=1024, d_model=512)
 
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
@@ -2699,6 +2759,456 @@ def mlp_mesh_phase(device, card):
     return {"card_s": card_s, "cpu_s": cpu_s, "card_vs_cpu": worst}
 
 
+# -- phase 13: the MoE transformer ---------------------------------------
+
+
+def moe_data(cfg, device, seed, dtype=torch.float32,
+             batch=MOE_RUN["batch"], seq=MOE_RUN["seq"]):
+    """MoE parameters of ``dtype`` and a batch of tokens with their
+    next-token targets, from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = moe.init_params(cfg, generator=gen, dtype=dtype, device=device)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=device)
+    return params, (tokens, torch.roll(tokens, -1, dims=1))
+
+
+def moe_names():
+    return ["embed", *moe.MoEBlockParams._fields, "ln_f", "head"]
+
+
+def moe_flash_launches(cfg, dtype, device, batch, seq):
+    """The flash launches per layer of one MoE training step (no remat):
+    one of each kernel of the route ``flash_supported`` picks for the
+    attention's operands, or none if it picks the dense path."""
+    q = torch.empty((batch, seq, cfg.heads, cfg.head_dim), dtype=dtype,
+                    device=device)
+    k = torch.empty((batch, seq, cfg.kv_heads, cfg.head_dim), dtype=dtype,
+                    device=device)
+    want = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    if kflash.flash_supported(q, k, k):
+        suffix = "_mma" if dtype == torch.bfloat16 else ""
+        for part in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            want[part + suffix] = 1
+    return want
+
+
+def moe_with_attention(cfg, attn_impl):
+    """``cfg`` with an ``attn_impl`` field (the MoE config has none: the
+    dense scaffold reads it with its default, ``"auto"``)."""
+    fields = cfg._asdict()
+    with_attn = collections.namedtuple("MoEConfigWithAttention",
+                                       [*fields, "attn_impl"])
+    return with_attn(**fields, attn_impl=attn_impl)
+
+
+def moe_path(device, dtype, card):
+    """Phase 13 (a) in one dtype: the bench's moe model on one card
+    through ``make_global_train_step``, one warm-up step and
+    ``MOE_TIMED_STEPS`` timed ones, every launch count set to 0 just
+    before each and read just after."""
+    cfg = MOE_CFG
+    batch_size, seq = MOE_RUN["batch"], MOE_RUN["seq"]
+    name = str(dtype)[6:]
+    one = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    params, batch = moe_data(cfg, device, seed=0, dtype=dtype)
+    step = moe.make_global_train_step(*mesh_comms(one), cfg, lr=MOE_LR,
+                                      device=device)
+    per_layer = moe_flash_launches(cfg, dtype, device, batch_size, seq)
+    want = {k: cfg.layers * n for k, n in per_layer.items()}
+    route = [k for k, n in per_layer.items() if n]
+    log(f"  {name}: flash_supported picks {route or 'no flash kernel'} "
+        f"for the attention's [{batch_size}, {seq}, {cfg.heads}, "
+        f"{cfg.head_dim}] operands")
+    if not route:
+        raise RuntimeError(f"the {name} MoE step's attention takes no "
+                           f"flash kernel")
+    torch.cuda.reset_peak_memory_stats(device)
+    (params, loss), warm_s = synced_seconds(lambda: step(params, batch))
+    losses = [loss.item()]
+    inputs = params
+    saved = [t.clone() for t in tfm._leaves(inputs)]
+    walls, per_step = [], []
+    for _ in range(MOE_TIMED_STEPS):
+        reset_launch_counts()
+        (params, loss), wall = synced_seconds(lambda: step(params, batch))
+        counts = launch_counts()
+        per_step.append({k: counts[k] for k in want})
+        walls.append(wall)
+        losses.append(loss.item())
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    failed = [f"step {i}: {c}" for i, c in enumerate(per_step) if c != want]
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"losses not finite: {losses}")
+    if not all(torch.equal(a, b) for a, b in zip(tfm._leaves(inputs),
+                                                 saved)):
+        failed.append("the step changed its input parameters")
+    changed = [(new != old).float().mean().item()
+               for new, old in zip(tfm._leaves(params), saved)]
+    if not any(changed):
+        failed.append("the steps changed no parameter")
+    del inputs, saved
+    n_params, n_active = moe.active_params(cfg)
+    best = min(walls)
+    # one more step under torch.profiler: device time by kernel class
+    per_kernel, span = device_trace(lambda: step(params, batch))
+    trace = None
+    if per_kernel:
+        split = device_split(per_kernel)
+        busy = sum(split.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+        trace = {"busy_ms": busy, "span_ms": span, "split_ms": split,
+                 "launches": sum(c for _, c in per_kernel.values()),
+                 "idle_share": 1 - busy / (best * 1e3),
+                 "top": [(kname[:90], ms, c) for kname, (ms, c) in top]}
+        log(f"  {name}: one traced step: device busy {busy:.4f} ms in "
+            f"{trace['launches']} launches over a {span:.4f} ms timeline; "
+            f"idle share {trace['idle_share']:.4f} of the untraced best "
+            f"step; by class { {k: round(v, 4) for k, v in split.items()} }")
+        for kname, (ms, c) in top:
+            log(f"    {ms:.4f} ms, {c} launches: {kname[:90]}")
+    else:
+        log(f"  {name}: the profiler recorded no device activity: the "
+            f"split is not measured")
+    tokens = batch_size * seq
+    model_tflops = 6.0 * n_active * tokens / best / 1e12
+    log(f"  {name}: {n_params / 1e6:.2f} M parameters, {n_active / 1e6:.2f} "
+        f"M active, {cfg.experts} experts; warm-up {warm_s:.3f} s; "
+        f"launches per timed step {per_step[0]} (want {want}); losses "
+        f"{losses}; share of elements changed per leaf "
+        f"{[round(c, 4) for c in changed]}; inputs unchanged")
+    log(f"  {name}: step {best * 1e3:.4f} ms (best of {MOE_TIMED_STEPS}; "
+        f"all {[round(w * 1e3, 4) for w in walls]}), {tokens / best:.2f} "
+        f"tokens/s, {model_tflops:.4f} model TFLOP/s on active parameters "
+        f"(6·N_active·tokens); peak memory {peak_gb:.4f} GB; on {card}"
+        + (f" FAIL {failed}" if failed else ""))
+    if failed:
+        raise RuntimeError(f"the {name} MoE path: {failed}")
+    return {"step_ms": best * 1e3, "step_ms_all": [w * 1e3 for w in walls],
+            "tokens_per_s": tokens / best, "model_tflops_per_sec":
+            model_tflops, "params_m": n_params / 1e6,
+            "params_active_m": n_active / 1e6, "peak_memory_gb": peak_gb,
+            "losses": losses, "warmup_s": warm_s, "trace": trace,
+            "launches": {k: sum(c[k] for c in per_step) for k in want},
+            "launches_per_step": per_step[0]}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The ``(E, cap)`` routing indices of every ``_route`` call inside
+    (the MoE layer's, the oracle's), in order."""
+    routes = []
+    plain = moe._route
+
+    def recording(xt, wr, cfg):
+        out = plain(xt, wr, cfg)
+        routes.append(out[1].detach().clone())
+        return out
+
+    moe._route = recording
+    try:
+        yield routes
+    finally:
+        moe._route = plain
+
+
+def moe_reference_step(params, batch, cfg, dp, sp, lr):
+    """One SGD step on ``reference_loss`` (routed per (dp, sp) block, as
+    the mesh routes), on one rank: ``(loss [1], new leaves, routes)``."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in tfm._leaves(params)]
+    with recorded_routes() as routes:
+        loss = moe.reference_loss(tfm._from_leaves(leaves, params), *batch,
+                                  cfg, dp, sp)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        new = [p - lr * g for p, g in zip(leaves, grads)]
+    return loss.detach().reshape(1), new, routes
+
+
+def moe_readings(loss, leaves, ref_loss, ref_leaves, p0):
+    """The loss's relative difference and, per leaf, max|difference| of
+    the updated parameters over max|reference update|."""
+    out = {"loss": abs(float(loss[0]) - float(ref_loss[0]))
+           / abs(float(ref_loss[0]))}
+    for name, got, want, start in zip(moe_names(), leaves, ref_leaves, p0):
+        got, want = got.detach().float(), want.detach().float()
+        scale = float((want - start.float()).abs().max())
+        out[name] = float((got - want).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def moe_check(device):
+    """Phase 13 (b): at ``MOE_CHECK_LAYERS`` layers of the moe model in
+    f32, one step at lr 1 on the kernel path (the flash kernels, once a
+    layer each), on the plain path (their plain versions as the
+    attention function) and on ``reference_loss``'s gradient at dp = sp
+    = 1: each pair's routes the same (every expert takes the same tokens
+    in every layer), and its loss and every updated leaf within
+    ``MOE_CHECK_LIMIT``."""
+    cfg = MOE_CFG._replace(layers=MOE_CHECK_LAYERS)
+    one = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    params, batch = moe_data(cfg, device, seed=1)
+    p0 = tfm._leaves(params)
+    runs = {}
+    for label, attn in (("kernel", cfg),
+                        ("plain", moe_with_attention(
+                            cfg, plain_train_attention))):
+        step = moe.make_global_train_step(*mesh_comms(one), attn,
+                                          lr=MOE_CHECK_LR, device=device)
+        reset_launch_counts()
+        with recorded_routes() as routes:
+            new, loss = step(params, batch)
+        counts = launch_counts()
+        runs[label] = (loss, tfm._leaves(new), routes)
+        if label == "kernel":
+            want = {k: cfg.layers * n for k, n in moe_flash_launches(
+                cfg, torch.float32, device, *batch[0].shape).items()}
+            got = {k: counts[k] for k in want}
+    runs["reference"] = moe_reference_step(params, batch, cfg, 1, 1,
+                                           MOE_CHECK_LR)
+    failed = [] if got == want else [f"kernel path launches {got}, want "
+                                     f"{want}"]
+    out = {"launches": got}
+    for a, b in (("kernel", "plain"), ("kernel", "reference"),
+                 ("plain", "reference")):
+        # the same tokens for each expert in every layer (their order in
+        # the expert's slots moves nothing: near-equal probabilities may
+        # swap it)
+        same = len(runs[a][2]) == len(runs[b][2]) and all(
+            torch.equal(x.sort(-1).values, y.sort(-1).values)
+            for x, y in zip(runs[a][2], runs[b][2]))
+        read = moe_readings(runs[a][0], runs[a][1], runs[b][0], runs[b][1],
+                            p0)
+        worst = max(read.values())
+        ok = same and worst <= MOE_CHECK_LIMIT
+        log(f"  {cfg.layers}-layer f32 step, {a} against {b}: routes "
+            f"{'equal' if same else 'DIFFER (a flipped near-tie)'}; "
+            f"largest reading {worst:.3e} (limit {MOE_CHECK_LIMIT:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"    readings: { {k: f'{v:.2e}' for k, v in read.items()} }")
+        out[f"{a}_vs_{b}"] = {"routes_equal": same, "worst": worst,
+                              "readings": read}
+        if not ok:
+            failed.append(f"{a} vs {b}")
+    log(f"  kernel path launches {got} (want {want})")
+    if failed:
+        raise RuntimeError(f"the MoE step held on the card: {failed}")
+    return out
+
+
+def moe_step_summing_experts_over_sp(comm_dp, comm_tp, comm_sp, cfg, lr,
+                                     device):
+    """A planted fault: the MoE step whose gradient sync takes the
+    expert leaves for replicated ones and sums them over sp too (so
+    each rank adds its sp peers' experts' gradients into its own)."""
+    specs = moe.param_specs("tp", "sp")
+    whole = tfm.P(None, None, None, None)
+    specs = specs._replace(blocks=specs.blocks._replace(w1e=whole,
+                                                        w2e=whole))
+    return tfm.make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr,
+                                      mlp=moe._moe_mlp, specs=specs,
+                                      device=device)
+
+
+def moe_mesh_run(params, batch, cfg, device, lr, fault=False):
+    """One MoE step on four thread ranks of the ``MOE_MESH`` local world
+    on the card from the full ``params`` (every rank cuts its shards):
+    ``(loss, gathered leaves, slowest rank's ms)`` of rank 0, held equal
+    on every rank unless the fault is planted."""
+    make_step = (moe_step_summing_experts_over_sp if fault
+                 else moe.make_global_train_step)
+
+    def body(comm):
+        comm_dp, comm_tp, comm_sp = mesh_comms(comm)
+        shards = moe.shard_params(params, comm_tp, comm_sp)
+        step = make_step(comm_dp, comm_tp, comm_sp, cfg, lr=lr,
+                         device=device)
+        (shards, loss), wall = synced_seconds(lambda: step(shards, batch))
+        full = moe.gather_params(shards, comm_tp, comm_sp)
+        return loss, tfm._leaves(full), wall
+
+    runs = distributed.local_world(
+        math.prod(MOE_MESH), body, axes=(("dp", "tp", "sp"), MOE_MESH),
+        deadline=600.0)
+    loss, full, _ = runs[0]
+    for rank, (l, f, _) in enumerate(runs[1:] if not fault else [], 1):
+        differ = [name for name, a, b in zip(["loss", *moe_names()],
+                                             [l, *f], [loss, *full])
+                  if not torch.equal(a, b)]
+        if differ:
+            raise RuntimeError(f"rank {rank} of the MoE mesh holds another "
+                               f"{differ} than rank 0")
+    return loss, full, max(w for *_, w in runs) * 1e3
+
+
+def topk_moe_world(device):
+    """``topk_moe`` on a 1-D local world of ``MOE_A2A["ranks"]`` gloo
+    thread ranks on ``device``, 2 experts a rank (so through
+    ``alltoall_multi`` with two parts), each expert scaling its tokens:
+    every rank's output and the gradients of ``sum(y²)`` for its tokens
+    and scores, on the CPU, from inputs made on the CPU."""
+    n, t, d = MOE_A2A["ranks"], MOE_A2A["tokens"], MOE_A2A["d_model"]
+    experts, k = MOE_A2A["experts"], MOE_A2A["k"]
+    m = experts // n
+    gen = torch.Generator().manual_seed(13)
+    xs = torch.randn((n, t, d), generator=gen)
+    scores = torch.softmax(torch.randn((n, t, experts), generator=gen), -1)
+    scales = 1.0 + torch.arange(experts, dtype=torch.float32)
+
+    def body(comm):
+        r = comm.rank()
+        x = xs[r].to(device).requires_grad_(True)
+        sc = scores[r].to(device).requires_grad_(True)
+        own = scales[r * m:(r + 1) * m].to(device)
+        y, _ = pmoe.topk_moe(x, sc, lambda v: v * own[:, None, None], comm,
+                             k=k)
+        dx, dsc = torch.autograd.grad((y * y).sum(), (x, sc))
+        return [a.detach().cpu() for a in (y, dx, dsc)]
+
+    return distributed.local_world(n, body, axes=(("ep",), (n,)),
+                                   deadline=300.0)
+
+
+def moe_mesh_phase(device, card):
+    """Phase 13 (c): the MoE step on the ``MOE_MESH`` local world of four
+    gloo thread ranks on the card (``MOE_MESH_CFG``: 8 experts, 2 a sp
+    rank), both routings: one f32 step at lr 1 gathered against the
+    one-rank ``reference_loss`` step on the same global batch (routed
+    per (dp, sp) block), within ``MOE_CHECK_LIMIT``, and the planted
+    fault (the expert leaves summed over sp) read beside it, which must
+    exceed it; then ``topk_moe`` through ``alltoall_multi`` on CUDA
+    tensors against the same world on CPU tensors, within
+    ``MULTIRANK_FLOAT_TOL`` of the largest value."""
+    cfg = MOE_MESH_CFG
+    dp, _, sp = MOE_MESH
+    b, s = MOE_MESH_BATCH * dp, MOE_MESH_SEQ * sp
+    record, failed = {}, []
+    for routing in ("expert_choice", "topk"):
+        rcfg = cfg._replace(routing=routing)
+        params, batch = moe_data(rcfg, device, seed=5, batch=b, seq=s)
+        p0 = tfm._leaves(params)
+        ref_loss, ref_new, _ = moe_reference_step(params, batch, rcfg, dp,
+                                                  sp, MESH_CHECK_LR)
+        for label, fault in (("mesh", False), ("fault_experts_over_sp",
+                                               True)):
+            loss, full, ms = moe_mesh_run(params, batch, rcfg, device,
+                                          MESH_CHECK_LR, fault)
+            read = moe_readings(loss, full, ref_loss, ref_new, p0)
+            worst = max(read.values())
+            ok = worst <= MOE_CHECK_LIMIT
+            log(f"  {routing}, {label}: loss {float(loss[0]):.6f} (one rank "
+                f"{float(ref_loss[0]):.6f}), the slowest rank {ms:.1f} ms; "
+                f"largest reading {worst:.3e} (limit {MOE_CHECK_LIMIT:g}) "
+                + ("planted fault: " + ("FAIL (passed)" if ok else "caught")
+                   if fault else ("ok" if ok else "FAIL")))
+            log(f"    readings: { {k: f'{v:.2e}' for k, v in read.items()} }")
+            record[f"{routing}_{label}"] = {"readings": read,
+                                            "worst": worst, "ms": ms}
+            if ok == fault:
+                failed.append(f"{routing} {label}")
+        del params, p0, ref_new
+    t0 = time.perf_counter()
+    card_run = topk_moe_world(device)
+    cpu_run = topk_moe_world(torch.device("cpu"))
+    worst = 0.0
+    for r, (got, want) in enumerate(zip(card_run, cpu_run)):
+        for name, g, w in zip(("y", "dx", "dscores"), got, want):
+            err = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+            worst = max(worst, err)
+            if not (err <= MULTIRANK_FLOAT_TOL and torch.isfinite(g).all()):
+                failed.append(f"topk_moe rank {r} {name} {err:.3e}")
+    log(f"  topk_moe on {MOE_A2A['ranks']} ranks, {MOE_A2A['experts']} "
+        f"experts (2 a rank: alltoall_multi of 2 parts), k {MOE_A2A['k']}, "
+        f"{MOE_A2A['tokens']} tokens of {MOE_A2A['d_model']} a rank: CUDA "
+        f"against CPU, largest difference {worst:.3e} of the largest value "
+        f"(limit {MULTIRANK_FLOAT_TOL:g}), both worlds "
+        f"{time.perf_counter() - t0:.1f} s; on {card}")
+    record["topk_moe_card_vs_cpu"] = worst
+    if failed:
+        raise RuntimeError(f"the MoE mesh checks failed: {failed}")
+    return record
+
+
+def moe_bench(device, card):
+    """Phase 13 (d): the bench's moe mode (``transformer_train.run``
+    with ``mode="moe"``) on ``MOE_CFG`` at ``MOE_RUN``'s batch and seq,
+    f32 then bf16, at 1 timed batch.  Every launch count is set to 0
+    just before the timed batch and read just after, and must be the
+    per-layer launches of :func:`moe_flash_launches` times the layers
+    and the timed steps; the record's metric is the moe one, without a
+    ``remat`` key, its active parameters ``moe.active_params``', and its
+    numbers positive and finite.  Returns the records and the counts."""
+    cfg = MOE_CFG
+    batch_size, seq = MOE_RUN["batch"], MOE_RUN["seq"]
+    out = {}
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        counted = {}
+
+        @contextlib.contextmanager
+        def timed(steps):
+            reset_launch_counts()
+            yield
+            counted.update(steps=steps, counts=launch_counts())
+
+        rec = transformer_train.run(
+            batch=batch_size, seq=seq, layers=cfg.layers,
+            d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+            d_ff=cfg.d_ff, vocab=cfg.vocab, bf16=dtype == torch.bfloat16,
+            batches=1, mode="moe", device=device, timed=timed)
+        per_layer = moe_flash_launches(cfg, dtype, device, batch_size, seq)
+        want = {k: cfg.layers * n * counted["steps"]
+                for k, n in per_layer.items()}
+        got = {k: counted["counts"][k] for k in want}
+        numbers = {k: rec[k] for k in ("value", "step_ms",
+                                       "model_tflops_per_sec", "loss")}
+        log(f"  {name}: the bench's moe mode: {json.dumps(rec)}; launches "
+            f"over its {counted['steps']} timed steps {got}, expected "
+            f"{want}; on {card}")
+        if got != want:
+            failed.append(f"{name} launched {got}, expected {want}")
+        if not all(math.isfinite(x) and x > 0 for x in numbers.values()):
+            failed.append(f"{name}: a reading is not a positive finite "
+                          f"number: {numbers}")
+        if (rec["metric"] != "transformer_moe_train_tokens_per_sec"
+                or "remat" in rec or rec["mesh"] != [1, 1, 1]
+                or rec["params_active_m"]
+                != moe.active_params(cfg)[1] / 1e6):
+            failed.append(f"{name}: the record is not the moe mode's on "
+                          f"one card: {rec}")
+        out[name] = dict(rec, launches=got)
+    if failed:
+        raise RuntimeError(f"the bench's moe mode: {failed}")
+    return out
+
+
+def moe_phase(device, kernels, card):
+    """Phase 13: (a) the bench's moe model on one card in f32 and bf16,
+    (b) held on the card at 2 layers, (c) across four thread ranks, (d)
+    the bench's moe mode on the model of (a)."""
+    t0 = time.perf_counter()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out[str(dtype)[6:]] = moe_path(device, dtype, card)
+        torch.cuda.empty_cache()
+    for kern in kernels:
+        for name in ("float32", "bfloat16"):
+            n = out[name]["launches"].get(kern["name"])
+            if n is not None:
+                kern[f"launches_moe_{name}"] = n
+    out["check"] = moe_check(device)
+    torch.cuda.empty_cache()
+    out["mesh"] = moe_mesh_phase(device, card)
+    torch.cuda.empty_cache()
+    out["bench"] = moe_bench(device, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_report(log_path):
     """ptxas's report from a build log: one ``(kernel, template
     arguments, registers, spill stores, spill loads)`` per compiled
@@ -2773,7 +3283,8 @@ def causal_pairs(tq, tk, q_offset, k_offset):
 def flash_check_cases():
     """The forward kernels' check cases: the f32 kernel's and the bf16
     kernel's on the same shapes, both transformer paths' shapes in bf16,
-    and the training path's shape in f32 (its default dtype)."""
+    the training path's shape in f32 (its default dtype), and the MoE
+    path's in both."""
     b, t, h, d = (LONG["batch"], LONG["prompt"], DECODE_CFG.heads,
                   DECODE_CFG.head_dim)
     tb, tt = TRAIN["batch"], TRAIN["seq"]
@@ -2805,6 +3316,8 @@ def flash_check_cases():
                   0, 0))
     cases.append(("prefill_tp2", PREFILL_TP2_SHAPE, torch.bfloat16, True, 0,
                   0))
+    cases.append(("moe_path", MOE_SHAPE, torch.bfloat16, True, 0, 0))
+    cases.append(("moe_path_f32", MOE_SHAPE, torch.float32, True, 0, 0))
     return cases
 
 
@@ -3454,8 +3967,8 @@ def bwd_bounds(shape, dtype, causal):
 def bwd_check_cases():
     """The backward kernels' check cases: the training path's shape in
     each dtype, and padding, q/k offsets, fully masked rows,
-    grouped-query heads and D 32 and 64 (f32: flash_bwd.cu, bf16:
-    flash_bwd_mma.cu)."""
+    grouped-query heads and D 32 and 64, and the MoE path's shape in
+    each dtype (f32: flash_bwd.cu, bf16: flash_bwd_mma.cu)."""
     b, t = TRAIN["batch"], TRAIN["seq"]
     h, d = TRAIN_CFG.heads, TRAIN_CFG.head_dim
     cases = [
@@ -3480,6 +3993,8 @@ def bwd_check_cases():
         ("path_f32", (b, t, t, h, h, d), torch.float32, True, 0, 0),
         ("large_train", LARGE_SHAPE, torch.bfloat16, True, 0, 0),
         ("ulysses_long", ULYSSES_LONG_SHAPE, torch.bfloat16, True, 0, 0),
+        ("moe_path", MOE_SHAPE, torch.bfloat16, True, 0, 0),
+        ("moe_path_f32", MOE_SHAPE, torch.float32, True, 0, 0),
     ]
     return cases
 
@@ -3840,8 +4355,11 @@ def train_path_phase(device, bwd_kernels, flash_kernel, card):
     dp, tp, sp = world.sub("dp"), world.sub("tp"), world.sub("sp")
     params, batch = train_data(cfg, device)
     n_params = sum(t.numel() for t in tfm._leaves(params))
+    # donated, as the bench's step: the peak memory holds one copy of
+    # the parameters
     step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=TRAIN_LR,
-                                      remat=TRAIN["remat"], device=device)
+                                      remat=TRAIN["remat"], donate=True,
+                                      device=device)
     before = [t.detach().clone() for t in tfm._leaves(params)]
     torch.cuda.reset_peak_memory_stats(device)
     (params, loss), warm_s = synced_seconds(lambda: step(params, batch))
@@ -4488,7 +5006,7 @@ def nccl_train_phase(comm, device, rank):
         params = tfm.shard_params(params, comm_tp)
         step = tfm.make_global_train_step(
             comm_dp, comm_tp, comm_sp, cfg, lr=TRAIN_LR, sequence=sequence,
-            remat=TRAIN["remat"], device=device)
+            remat=TRAIN["remat"], donate=True, device=device)
         step(params, batch)  # warm
         torch.cuda.synchronize()
         if rank == 0:
@@ -4552,7 +5070,7 @@ def train_profile_phase(device, train):
     params, batch = train_data(TRAIN_CFG, device)
     step = tfm.make_global_train_step(
         world.sub("dp"), world.sub("tp"), world.sub("sp"), TRAIN_CFG,
-        lr=TRAIN_LR, remat=TRAIN["remat"], device=device)
+        lr=TRAIN_LR, remat=TRAIN["remat"], donate=True, device=device)
     step(params, batch)  # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -4602,7 +5120,7 @@ def run_checks(device, parts, mesh_timings=True):
     ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
     kernel; ``mesh``: phase 10c's transformer across thread ranks;
     ``proc``: phase 11's launcher jobs, no kernel; ``mlp``: phase 12's
-    MLP steps, no kernel), after building the
+    MLP steps, no kernel; ``moe``: phase 13), after building the
     kernels they need.  The phases' own timings are left out; ``fwd``
     and ``bwd`` time the bf16 kernels at the meshes' shapes
     (:func:`mesh_shape_timings`) unless ``mesh_timings`` is False
@@ -4627,6 +5145,7 @@ def run_checks(device, parts, mesh_timings=True):
                          mesh_decode_phase(device)),
         "proc": lambda: proc_phase(device, card_line()),
         "mlp": lambda: mlp_mesh_phase(device, card_line()),
+        "moe": lambda: moe_phase(device, [], card_line()),
     }
     failed = []
     for part in parts:
@@ -4830,7 +5349,7 @@ def main(argv):
         return witness_readings(device)
     if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
-                                    "mesh", "proc", "mlp"} and argv[2:] in (
+                                    "mesh", "proc", "mlp", "moe"} and argv[2:] in (
             [], ["--no-timings"]):
         return run_checks(device, argv[1].split(","),
                           mesh_timings=argv[2:] == [])
@@ -4943,6 +5462,13 @@ def main(argv):
         f"world on the CPU)")
     mlp_mesh = mlp_mesh_phase(device, card)
 
+    log(f"phase MoE transformer (the bench's moe model, {MOE_CFG.layers} "
+        f"layers, {MOE_CFG.experts} experts, batch {MOE_RUN['batch']}, seq "
+        f"{MOE_RUN['seq']}, f32 then bf16; held at {MOE_CHECK_LAYERS} "
+        f"layers; across four thread ranks on {MOE_MESH} with "
+        f"{MOE_MESH_CFG.experts} experts; the bench's moe mode)")
+    moe_record = moe_phase(device, kernels, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -4953,7 +5479,7 @@ def main(argv):
                     "train_path": train, "train_profile": train_profile,
                     "bench_training": bench_training,
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
-                    "proc": proc, "mlp_mesh": mlp_mesh,
+                    "proc": proc, "mlp_mesh": mlp_mesh, "moe": moe_record,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES},

@@ -1,7 +1,9 @@
 """Training-step throughput of the transformer, on PyTorch.
 
-The counterpart of ``benchmarks/transformer.py:run`` in dense mode:
-tokens per second through ``make_global_train_step`` on one rank, or
+The counterpart of ``benchmarks/transformer.py:run`` in its dense and
+moe modes: tokens per second through ``make_global_train_step`` (of
+``models/transformer.py``, or with ``--mode moe`` of
+``models/moe_transformer.py``: 4 experts a sp rank) on one rank, or
 on the ``(dp, tp, sp)`` mesh that run builds from the rank count
 (:func:`train_mesh_shape`) when ``run`` is given the world's comm (as
 the bench passes it under ``torchrun``), with the same JSON record
@@ -22,6 +24,13 @@ Usage:
     # its attention picked by timing flash against the dense path
     python -m mpi4jax_tpu_torch.examples.transformer_train --size large \
         --bf16 --attn-impl autotune
+
+    # the MoE model at the bench's default width (vocab 32768, d_model
+    # 512, 8 layers, 8 heads of 64, d_ff 2048, 4 experts), batch 8, seq
+    # 1024, f32; under torchrun on four cards: (1, 2, 2), 8 experts
+    python -m mpi4jax_tpu_torch.examples.transformer_train --mode moe
+    torchrun --nproc-per-node 4 -m \\
+        mpi4jax_tpu_torch.examples.transformer_train --mode moe
 
     # the plain PyTorch path on the CPU, small
     python -m mpi4jax_tpu_torch.examples.transformer_train --device cpu \\
@@ -44,6 +53,7 @@ import contextlib
 import inspect
 import json
 import math
+import os
 import sys
 import time
 
@@ -176,13 +186,27 @@ def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
 
 
 def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
-        d_ff=2048, vocab=32768, bf16=False, batches=8, remat=False,
-        attn_impl="auto", ce_chunk=0, sequence="ring", device="cuda",
-        timed=None, comm=None):
+        d_ff=2048, vocab=32768, bf16=False, batches=8, mode="dense",
+        remat=False, attn_impl="auto", ce_chunk=0, sequence="ring",
+        device="cuda", timed=None, comm=None):
     """Train-step throughput record (``run``'s keys, and the device it
     ran on).  ``remat``, ``ce_chunk`` and ``sequence`` are the training
     step's (see ``make_global_train_step``); the record names the first
-    two as ``run``'s does, and the peak device memory on the card.
+    two as ``run``'s does, and the peak device memory on the card.  The
+    dense step is made with ``donate=True`` (the parameters updated in
+    place, as the JAX bench donates them), so the peak memory holds one
+    copy of them.
+
+    ``mode="moe"`` times the MoE model (``models/moe_transformer.py``)
+    of the same width with ``4 · sp`` experts, as the JAX bench's moe
+    mode: its step as that mode makes it (no remat, the attention
+    ``"auto"``, which takes the flash kernels on the card; ``remat`` and
+    ``attn_impl`` are not used, and the record has no ``remat`` key),
+    ``ce_chunk`` refused, the metric
+    ``transformer_moe_train_tokens_per_sec``, and the model FLOPs from
+    the active parameters (each token meets one expert's FFN of the
+    ``E``: ``n − expert + expert / E``).
+
     ``timed(steps)``, given, is a context entered around the timed
     batches, ``steps`` training steps in all (``chip_smoke.py`` counts
     the kernels' launches in it).
@@ -193,6 +217,7 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     decision and reading is the slowest rank's (a MAX allreduce); the
     record, the same on every rank, names the mesh, and the peak memory
     is the largest rank's, each rank's in ``peak_memory_gb_ranks``."""
+    from mpi4jax_tpu_torch.models import moe_transformer as moe
     from mpi4jax_tpu_torch.models import transformer as tfm
     from mpi4jax_tpu_torch.utils.runtime import (
         drain,
@@ -200,32 +225,63 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         slowest,
     )
 
+    if mode not in ("dense", "moe"):
+        raise ValueError(f"mode must be 'dense' or 'moe', got {mode!r}")
+    if ce_chunk and mode != "dense":
+        # a silent fallback to the streaming loss would mislabel the
+        # record (benchmarks/transformer.py refuses it too)
+        raise ValueError(f"ce_chunk is dense-mode only (got mode={mode!r})")
+    if sequence != "ring" and mode != "dense":
+        raise ValueError(
+            f"the MoE step's attention is the ring (got sequence="
+            f"{sequence!r})")
     device = resolve_device(device)
     n = 1 if comm is None else comm.size
     shape = train_mesh_shape(n)
     world = mesh_comm(comm, ("dp", "tp", "sp"), shape)
     dp, tp, sp = world.sub("dp"), world.sub("tp"), world.sub("sp")
     dtype = torch.bfloat16 if bf16 else torch.float32
-    cfg = tfm.TransformerConfig(
-        vocab=vocab, d_model=d_model, layers=layers, heads=heads,
-        kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
-        attn_impl=attn_impl, ce_chunk=ce_chunk,
-    )
     # every rank draws the same full weights and global batch, and
-    # keeps its tp shards; the step takes its (dp, sp) block
+    # keeps its shards; the step takes its (dp, sp) block
     gen = torch.Generator(device=device).manual_seed(0)
-    params = tfm.init_params(cfg, generator=gen, dtype=dtype, device=device)
-    if tp.size > 1:
-        params = tfm.shard_params(params, tp)
-    step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
-                                      sequence=sequence, remat=remat,
-                                      device=device)
+    if mode == "moe":
+        attn_impl = "auto"
+        cfg = moe.MoEConfig(
+            vocab=vocab, d_model=d_model, layers=layers, heads=heads,
+            kv_heads=kv_heads, head_dim=d_model // heads,
+            experts=4 * sp.size, d_ff=d_ff,
+        )
+        params = moe.init_params(cfg, generator=gen, dtype=dtype,
+                                 device=device)
+        if tp.size * sp.size > 1:
+            params = moe.shard_params(params, tp, sp)
+        step = moe.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
+                                          device=device)
+    else:
+        cfg = tfm.TransformerConfig(
+            vocab=vocab, d_model=d_model, layers=layers, heads=heads,
+            kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
+            attn_impl=attn_impl, ce_chunk=ce_chunk,
+        )
+        params = tfm.init_params(cfg, generator=gen, dtype=dtype,
+                                 device=device)
+        if tp.size > 1:
+            params = tfm.shard_params(params, tp)
+        step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
+                                          sequence=sequence, remat=remat,
+                                          donate=True, device=device)
     b, s = batch * dp.size, seq * sp.size
     tokens = torch.randint(0, vocab, (b, s), generator=gen, device=device)
     data = (tokens, torch.roll(tokens, -1, dims=1))
 
-    n_params = sum(math.prod(shp) for shp in tfm._leaves(
-        tfm._param_shapes(cfg)))
+    # model FLOPs count the active parameters: a token meets one
+    # expert's FFN of the E (benchmarks/transformer.py's rule)
+    if mode == "moe":
+        n_params, n_active = moe.active_params(cfg)
+    else:
+        n_params = sum(math.prod(shp)
+                       for shp in tfm._leaves(tfm._param_shapes(cfg)))
+        n_active = n_params
     tokens_per_step = b * s
 
     on_card = device.type == "cuda"
@@ -252,16 +308,18 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     if not torch.isfinite(loss).all():
         raise RuntimeError(f"the training loss diverged: {loss}")
 
-    model_tflops = 6.0 * n_params * tokens_per_step / best / 1e12
+    model_tflops = 6.0 * n_active * tokens_per_step / best / 1e12
     incl_attn_tflops = (model_tflops
                         + attention_flops(cfg, b, s) / best / 1e12)
     rec = {
-        "metric": "transformer_train_tokens_per_sec",
+        "metric": ("transformer_moe_train_tokens_per_sec" if mode == "moe"
+                   else "transformer_train_tokens_per_sec"),
         "value": tokens_per_step / best,
         "unit": "tokens/s",
         "devices": n,
         "mesh": list(shape),
         "params_m": n_params / 1e6,
+        "params_active_m": n_active / 1e6,
         "layers": layers,
         "dtype": "bf16" if bf16 else "f32",
         "batch": batch,
@@ -269,7 +327,8 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         "step_ms": best * 1e3,
         "model_tflops_per_sec": model_tflops,
         "model_tflops_incl_attn": incl_attn_tflops,
-        "remat": list(remat) if isinstance(remat, (tuple, list)) else remat,
+        **({"remat": list(remat) if isinstance(remat, (tuple, list))
+            else remat} if mode == "dense" else {}),
         **({"ce_chunk": ce_chunk} if ce_chunk else {}),
         "attn_impl": attn_impl,
         **({"sequence": sequence} if sp.size > 1 else {}),
@@ -309,6 +368,8 @@ def preset_run(preset, attn_impl="auto", **overrides):
               if value is not None)
     if attn_impl not in ("auto", "autotune") or "attn_impl" not in preset:
         kw["attn_impl"] = attn_impl
+    if kw["mode"] == "moe":
+        kw["attn_impl"] = "auto"  # the MoE step's own attention
     if kw["attn_impl"] == "autotune":
         kw["attn_impl"] = autotune_attn_impl(
             batch=kw["batch"], seq=kw["seq"], heads=kw["heads"],
@@ -362,6 +423,9 @@ def main(argv=None):
                    "against the dense attention and keeps the faster")
     p.add_argument("--batches", type=int, default=8,
                    help="timed batches (the best is taken)")
+    p.add_argument("--mode", choices=("dense", "moe"), default="dense",
+                   help="the dense transformer or the MoE model (4 "
+                   "experts a sp rank; no remat, attention 'auto')")
     p.add_argument(
         "--device", default="cuda",
         help="'cuda' (default; the hand-written kernels) or 'cpu' (their "
@@ -371,13 +435,24 @@ def main(argv=None):
     preset = SIZES[args.size] if args.size else {}
     remat = (remat_policy(args.remat_policy, p.error) if args.remat_policy
              else preset.get("remat", False) or args.remat)
+    comm, device = None, args.device
+    if "RANK" in os.environ:
+        # a torchrun job: every rank runs the step on run's mesh
+        from mpi4jax_tpu_torch.parallel import distributed
+
+        device = distributed.initialize(device)
+        comm = distributed.world_comm()
     rec = preset_run(
         preset, attn_impl=args.attn_impl, remat=remat, vocab=args.vocab,
-        bf16=args.bf16, batches=args.batches, device=args.device,
+        bf16=args.bf16, batches=args.batches, device=device,
+        mode=args.mode, comm=comm,
         **{key: getattr(args, key) for key in (
             "batch", "seq", "layers", "d_model", "heads", "kv_heads",
             "d_ff")})
-    print(json.dumps(rec))
+    if comm is None or comm.rank() == 0:
+        print(json.dumps(rec), flush=True)
+    if comm is not None:
+        distributed.finalize()
     return rec
 
 

@@ -30,8 +30,9 @@ one-rank ``MeshComm``'s, every collective an identity.
 
 Where the JAX package returns new arrays, the decoder here writes its
 static KV cache in place (zeroed at the start of every call, each
-position written once), and the training step updates the parameters
-in place.
+position written once).  The training step returns new parameters and
+leaves the caller's intact, as JAX's does, unless it was made with
+``donate=True``: then it updates them in place.
 """
 
 import contextlib
@@ -78,6 +79,8 @@ __all__ = [
     "CHECKPOINT_NAMES",
     "checkpoint_tag",
     "TP_SHARDED",
+    "P",
+    "param_specs",
     "shard_params",
     "gather_params",
     "config_from_jax",
@@ -156,67 +159,129 @@ class TransformerParams(NamedTuple):
     head: torch.Tensor   # (d, V)
 
 
-# The axis each leaf is sharded on over tp (``param_specs`` of the JAX
-# package, as data: the projections' head/ff dims), None where it is
-# replicated, and which leaves are sharded at all.
-_TP_AXIS = TransformerParams(
-    embed=None,
-    blocks=BlockParams(ln1=None, wq=2, wk=2, wv=2, wo=1, ln2=None, w1=2,
-                       w2=1),
-    ln_f=None,
-    head=None,
-)
+class P(tuple):
+    """A leaf's layout, the JAX package's ``PartitionSpec`` as a tuple:
+    per dimension the name of the mesh axis it is cut over, or None
+    where it is whole.  ``P(None, None, "tp")`` cuts the last of three
+    dimensions over the ``"tp"`` ranks."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def dim(self, axis):
+        """The dimension cut over ``axis``, or None."""
+        return self.index(axis) if axis in self else None
+
+
+def param_specs(tp_ax):
+    """Each leaf's layout (:class:`P`): the tp shards live on the
+    projections' head/ff dims; the rest is replicated."""
+    blocks = BlockParams(
+        ln1=P(None, None),
+        wq=P(None, None, tp_ax),
+        wk=P(None, None, tp_ax),
+        wv=P(None, None, tp_ax),
+        wo=P(None, tp_ax, None),
+        ln2=P(None, None),
+        w1=P(None, None, tp_ax),
+        w2=P(None, tp_ax, None),
+    )
+    return TransformerParams(
+        embed=P(None, None),
+        blocks=blocks,
+        ln_f=P(None),
+        head=P(None, None),
+    )
+
+
+# which leaves are sharded over tp at all
 TP_SHARDED = TransformerParams(
     embed=False,
-    blocks=BlockParams(*(a is not None for a in _TP_AXIS.blocks)),
+    blocks=BlockParams(*("tp" in s for s in param_specs("tp").blocks)),
     ln_f=False,
     head=False,
 )
 
 
 def _leaves(p):
-    """A TransformerParams' leaves in the JAX package's tree order."""
+    """A parameter tree's leaves in the JAX package's tree order:
+    ``embed``, the block fields, ``ln_f``, ``head`` (the dense model's
+    or the MoE model's)."""
     return [p.embed, *p.blocks, p.ln_f, p.head]
 
 
-def _from_leaves(leaves):
-    return TransformerParams(embed=leaves[0], blocks=BlockParams(*leaves[1:9]),
-                             ln_f=leaves[9], head=leaves[10])
+def _from_leaves(leaves, like=None):
+    """The tree of :func:`_leaves` back, of ``like``'s types (a
+    ``TransformerParams`` by default)."""
+    params_t, blocks_t = ((TransformerParams, BlockParams) if like is None
+                          else (type(like), type(like.blocks)))
+    n = len(blocks_t._fields)
+    return params_t(embed=leaves[0], blocks=blocks_t(*leaves[1:1 + n]),
+                    ln_f=leaves[1 + n], head=leaves[2 + n])
+
+
+def _axis_name(comm, default):
+    """The mesh axis a 1-D comm runs over (a proc comm has none: the
+    ``default`` then names it)."""
+    axes = getattr(comm, "axes", ())
+    return axes[0] if len(axes) == 1 else default
+
+
+def _cut(params, specs, comms):
+    """This rank's shards of full ``params`` by ``specs``: each leaf
+    cut on the dimension its spec names for each comm's axis, at the
+    comm's rank; the rest copied whole (so the caller's tensors are
+    never the step's)."""
+
+    def cut(t, spec):
+        t = t.detach()
+        for comm, ax in comms:
+            dim = spec.dim(ax)
+            if dim is not None and comm.size > 1:
+                n = t.shape[dim] // comm.size
+                t = t.narrow(dim, comm.rank() * n, n)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return _from_leaves([cut(t, s) for t, s in zip(_leaves(params),
+                                                  _leaves(specs))], params)
+
+
+@torch.no_grad()
+def _join(params, specs, comms):
+    """The inverse of :func:`_cut`, a collective over each comm: each
+    rank gets the full parameters."""
+    from mpi4jax_tpu_torch.ops.collectives import allgather
+
+    def join(t, spec):
+        out = t.detach()
+        for comm, ax in reversed(comms):
+            dim = spec.dim(ax)
+            if dim is not None and comm.size > 1:
+                rows, _ = allgather(out, comm=comm)
+                out = torch.cat(rows.unbind(0), dim=dim)
+        return out.clone() if out.data_ptr() == t.data_ptr() else out
+
+    return _from_leaves([join(t, s) for t, s in zip(_leaves(params),
+                                                   _leaves(specs))], params)
 
 
 def shard_params(params, comm_tp):
     """This rank's tp shards of full parameters (every rank passes the
     same ``params``): ``wq``, ``wk``, ``wv`` and ``w1`` cut on their last
     axis, ``wo`` and ``w2`` on axis 1 of the ``(L, F, d)`` stack, the
-    rest replicated (copies, so the step's in-place update never writes
-    the caller's tensors).  One rank: copies of every leaf."""
-    tp, r = comm_tp.size, comm_tp.rank()
-
-    def cut(t, axis):
-        if axis is None:
-            return t.detach().clone()
-        n = t.shape[axis] // tp
-        return t.detach().narrow(axis, r * n, n).contiguous().clone()
-
-    return _from_leaves([cut(t, a) for t, a in zip(_leaves(params),
-                                                    _leaves(_TP_AXIS))])
+    rest replicated (:func:`param_specs`; copies, so a donated step's
+    in-place update never writes the caller's tensors).  One rank:
+    copies of every leaf."""
+    ax = _axis_name(comm_tp, "tp")
+    return _cut(params, param_specs(ax), [(comm_tp, ax)])
 
 
-@torch.no_grad()
 def gather_params(params, comm_tp):
     """The full parameters from every tp rank's shards (each rank gets
     them all): the inverse of :func:`shard_params`, a collective over
     ``comm_tp``."""
-    from mpi4jax_tpu_torch.ops.collectives import allgather
-
-    def join(t, axis):
-        if axis is None or comm_tp.size == 1:
-            return t.detach().clone()
-        rows, _ = allgather(t.detach(), comm=comm_tp)
-        return torch.cat(rows.unbind(0), dim=axis)
-
-    return _from_leaves([join(t, a) for t, a in zip(_leaves(params),
-                                                     _leaves(_TP_AXIS))])
+    ax = _axis_name(comm_tp, "tp")
+    return _join(params, param_specs(ax), [(comm_tp, ax)])
 
 
 def _param_shapes(cfg):
@@ -273,8 +338,9 @@ def _check_tp_divisibility(cfg, tp):
 
 
 def _layer(blocks, i):
-    """Layer ``i``'s slice of the stacked block parameters."""
-    return BlockParams(*(t[i] for t in blocks))
+    """Layer ``i``'s slice of the stacked block parameters (of the
+    blocks' own type: the dense model's or the MoE model's)."""
+    return type(blocks)(*(t[i] for t in blocks))
 
 
 def _rmsnorm(x, g, eps):
@@ -462,7 +528,10 @@ def _forward_sharded(params, tokens, cfg, comm_tp, comm_sp, mlp=None,
     dh = cfg.head_dim
     hq_l, hk_l = cfg.heads // tp, cfg.kv_heads // tp
     b, s = tokens.shape
-    attend = _sequence_attention(sequence, cfg.attn_impl)
+    # the MoE config has neither attn_impl nor ce_chunk: read both as
+    # the JAX scaffold does, with their defaults
+    attend = _sequence_attention(sequence,
+                                 getattr(cfg, "attn_impl", "auto"))
     context_fn = _recompute_layers(remat)
 
     def layer(x, aux, bp):
@@ -542,8 +611,8 @@ def _ce_chunked(x, head, targets, chunk):
 
 
 def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
-                           mlp=None, sequence="ring", remat=False,
-                           device="cuda"):
+                           mlp=None, specs=None, sequence="ring",
+                           remat=False, donate=False, device="cuda"):
     """The training step over a ``(dp, tp, sp)`` mesh of ranks: forward,
     backward and one SGD update.
 
@@ -554,9 +623,19 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
     the shift crosses sp blocks), the same on every rank, of which the
     step takes this rank's ``(dp, sp)`` block.  ``loss`` is f32 of shape
     ``[1]``, the mean over the whole batch, the same on every rank.  The
-    parameters are updated in place and returned.
+    new parameters are new tensors and the caller's stay as they were,
+    as in the JAX step; with ``donate=True`` the step updates the
+    caller's tensors in place and returns them (the training-loop idiom
+    ``params, loss = step(params, batch)``, without a second copy of the
+    parameters at the update).  Both give the same numbers.
 
-    ``mlp`` substitutes the MLP sublayer, ``sequence`` picks the
+    ``mlp`` and ``specs`` substitute the MLP sublayer and the
+    parameters' layout (a tree of :class:`P` like
+    :func:`param_specs`'s; the MoE model passes its own).  A leaf cut
+    over the sp comm's axis (the MoE model's experts) is this sp rank's
+    own: its gradient already holds every sp rank's tokens (they reach
+    it through the dispatch's transpose), so it is summed over dp only;
+    every other leaf over dp and sp.  ``sequence`` picks the
     context-parallel scheme ("ring" or "ulysses"), ``remat`` recomputes
     each layer in the backward, all of it (``True``) or all but the
     products a policy saves (``"dots"``, ``"names"``, a tuple of
@@ -585,17 +664,28 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
                 )
     _recompute_layers(remat)
     device = resolve_device(device)
-    ce_chunk = cfg.ce_chunk
-    data_comms = [c for c in (comm_dp, comm_sp) if c.size > 1]
+    ce_chunk = getattr(cfg, "ce_chunk", 0)
+    tp_ax, sp_ax = _axis_name(comm_tp, "tp"), _axis_name(comm_sp, "sp")
+    specs = param_specs(tp_ax) if specs is None else specs
+    for spec in _leaves(specs):
+        unknown = set(spec) - {None, tp_ax, sp_ax}
+        if unknown:
+            raise ValueError(
+                f"specs cut a leaf over {sorted(unknown)}; the step's "
+                f"axes are tp {tp_ax!r} and sp {sp_ax!r}"
+            )
+    # per leaf: cut over sp (an expert leaf), so summed over dp only
+    expert = [spec.dim(sp_ax) is not None for spec in _leaves(specs)]
+    dp_comms = [c for c in (comm_dp,) if c.size > 1]
+    data_comms = dp_comms + [c for c in (comm_sp,) if c.size > 1]
     dp_rank, sp_rank = comm_dp.rank(), comm_sp.rank()
 
-    def data_sum(x):
-        """``x`` summed over the (dp, sp) ranks (over dp, then sp)."""
-        for comm in data_comms:
+    def summed(x, comms):
+        for comm in comms:
             x, _ = allreduce(x, reductions.SUM, comm=comm)
         return x
 
-    def sync_grad(g):
+    def sync_grad(g, is_expert):
         # Autograd sums nothing across ranks on its own: each rank holds
         # the gradient of its own block's loss (the ring's and Ulysses's
         # cotangents from the other sp ranks' losses included, by the
@@ -603,9 +693,12 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
         # replicated leaf's gradient the full tp sum on every tp rank,
         # and a tp shard's is its own.  So every leaf is summed over the
         # (dp, sp) ranks and divided by n_data, the mean of the blocks'
-        # losses.  (JAX's shard_map AD also sums replicated leaves over
-        # tp and so divides those by n_data * tp.)
-        g = data_sum(g)
+        # losses; but an expert leaf only over dp: its sp ranks hold
+        # other experts, and its gradient from every sp rank's tokens
+        # came home through the alltoall's transpose.  (JAX's shard_map
+        # AD also sums replicated leaves over tp and so divides those by
+        # n_data * tp.)
+        g = summed(g, dp_comms if is_expert else data_comms)
         return g if n_data == 1.0 else g.div_(n_data)
 
     def local_block(t, like):
@@ -639,19 +732,27 @@ def make_global_train_step(comm_dp, comm_tp, comm_sp, cfg, lr=1e-1, *,
             )
         tokens, targets = (local_block(t, params.embed) for t in batch)
         leaves = _leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_fn(params, tokens, targets)
-        grads = torch.autograd.grad(loss, leaves)
-        # SGD, p <- p - lr * g, in place: each parameter is overwritten
-        # (the JAX step returns new arrays; here the parameters' memory
-        # is reused and the gradient's buffer holds lr * g)
+        if len(leaves) != len(expert):
+            raise ValueError(
+                f"params have {len(leaves)} leaves, specs {len(expert)}")
+        # the forward runs on detached views: the caller's tensors keep
+        # their flags, and without donate their values
+        views = [p.detach().requires_grad_(True) for p in leaves]
+        loss = loss_fn(_from_leaves(views, params), tokens, targets)
+        grads = torch.autograd.grad(loss, views)
+        del views
+        # SGD, p <- p - lr * g (the gradient's buffer holds lr * g): new
+        # tensors, or with donate the caller's overwritten in place
         with torch.no_grad():
-            for p, g in zip(leaves, grads):
-                p.sub_(sync_grad(g).mul_(lr))
+            new = []
+            for p, g, is_expert in zip(leaves, grads, expert):
+                update = sync_grad(g, is_expert).mul_(lr)
+                new.append(p.sub_(update) if donate else p - update)
+            del grads
+            params = _from_leaves(new, params)
             # the mean of the (dp, sp) blocks' losses (JAX: the psum over
             # every rank / (n_data * tp)); one rank: the identity
-            loss = data_sum(loss.detach().reshape(1)) / n_data
+            loss = summed(loss.detach().reshape(1), data_comms) / n_data
         return params, loss
 
     return step

@@ -14,6 +14,13 @@ from mpi4jax_tpu_torch.parallel.halo import (
     halo_exchange_2d_batch,
 )
 from mpi4jax_tpu_torch.parallel.proc import ProcComm, ProcGridComm, grid_comm
+from mpi4jax_tpu_torch.parallel import moe
+from mpi4jax_tpu_torch.parallel.moe import (
+    expert_combine,
+    expert_dispatch,
+    topk_moe,
+    topk_route,
+)
 from mpi4jax_tpu_torch.parallel.longseq import (
     local_attention,
     ring_attention,
@@ -24,6 +31,7 @@ from mpi4jax_tpu_torch.parallel.longseq import (
 )
 
 __all__ = [
+    "moe",
     "Comm",
     "MeshComm",
     "SelfComm",
@@ -41,4 +49,8 @@ __all__ = [
     "zigzag_indices",
     "zigzag_shard",
     "zigzag_unshard",
+    "expert_dispatch",
+    "expert_combine",
+    "topk_moe",
+    "topk_route",
 ]

@@ -6,7 +6,11 @@ its holds raise on a shape that differs, naming the rank.  The
 multi-rank transformer phase's training check at a tiny width: each
 scheme within its limit of the one-rank step, the planted fault far
 outside it.  Phase 12 (the MLP's tp and ZeRO steps on a (2, 2) world) at
-a tiny width, the CPU world standing in for the card's."""
+a tiny width, the CPU world standing in for the card's.  Phase 13's
+checks at a tiny width: the MoE step's kernel path, plain path and
+``reference_loss`` step agree, and across four thread ranks the sound
+step holds to the one-rank step while the planted expert sync over sp
+is caught, for both routings."""
 
 import importlib.util
 import pathlib
@@ -124,3 +128,53 @@ def test_mlp_mesh_phase_runs_and_holds(smoke, monkeypatch):
     assert run[3]["zero_momentum_w1"].shape == (1, 32)
     assert run[1]["zero_momentum_b2"].shape == (1, 2)
     assert run[2]["plain_loss_0"].shape == (1,)
+
+
+TINY_MOE = dict(vocab=64, d_model=32, layers=2, heads=8, kv_heads=8,
+                head_dim=4, experts=4, d_ff=64)
+
+
+def test_moe_phase_checks_hold_and_catch_the_fault(smoke, monkeypatch):
+    # phase 13 (b) and (c) at a tiny width on the CPU: the plain and the
+    # "kernel" path (both plain here) and the oracle within the limit,
+    # the sound mesh step within it, the planted sync of the expert
+    # leaves over sp far outside it (it raises only if a reading lands
+    # on the wrong side), and topk_moe's world equal to itself
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = smoke.moe.MoEConfig(**TINY_MOE)
+    monkeypatch.setattr(smoke, "MOE_CFG", cfg)
+    monkeypatch.setattr(smoke, "MOE_RUN", dict(batch=2, seq=16))
+    monkeypatch.setattr(smoke, "MOE_MESH_CFG", cfg._replace(experts=8))
+    monkeypatch.setattr(smoke, "MOE_MESH_SEQ", 16)
+    monkeypatch.setattr(smoke, "MOE_A2A", dict(ranks=4, experts=8, k=2,
+                                               tokens=32, d_model=8))
+    check = smoke.moe_check(torch.device("cpu"))
+    assert set(check["launches"].values()) == {0}  # no kernel on the CPU
+    for pair in ("kernel_vs_plain", "kernel_vs_reference",
+                 "plain_vs_reference"):
+        assert check[pair]["routes_equal"]
+        assert check[pair]["worst"] < 1e-4 < smoke.MOE_CHECK_LIMIT
+    mesh = smoke.moe_mesh_phase(torch.device("cpu"), "the CPU")
+    for routing in ("expert_choice", "topk"):
+        assert mesh[f"{routing}_mesh"]["worst"] < 1e-4
+        fault = mesh[f"{routing}_fault_experts_over_sp"]["readings"]
+        assert min(fault["w1e"], fault["w2e"]) > 100 * smoke.MOE_CHECK_LIMIT
+        assert fault["loss"] < 1e-4  # the fault is in the update alone
+    assert mesh["topk_moe_card_vs_cpu"] == 0.0
+    # the routes' recorder is gone
+    assert smoke.moe._route.__name__ == "_route"
+
+
+def test_moe_bench_leg_counts_and_records(smoke, monkeypatch):
+    # phase 13 (d) at a tiny width on the CPU: the bench's moe mode runs,
+    # its record is the moe one and no kernel launches off the card
+    cfg = smoke.moe.MoEConfig(**TINY_MOE)
+    monkeypatch.setattr(smoke, "MOE_CFG", cfg)
+    monkeypatch.setattr(smoke, "MOE_RUN", dict(batch=2, seq=16))
+    got = smoke.moe_bench(torch.device("cpu"), "the CPU")
+    for name in ("float32", "bfloat16"):
+        rec = got[name]
+        assert rec["metric"] == "transformer_moe_train_tokens_per_sec"
+        assert rec["dtype"] == ("f32" if name == "float32" else "bf16")
+        assert set(rec["launches"].values()) == {0}
+        assert rec["params_active_m"] < rec["params_m"]
