@@ -248,6 +248,24 @@ Phases, each of which raises on failure (nothing is caught):
    just before the timed batch and read just after, each flash kernel of
    (a)'s route once a layer a timed step, and its record's numbers
    positive and finite.
+14. pipeline (``models/pipeline.py``, ``models/pp_transformer.py``): (a)
+   the bench's pp mode (``transformer_train.run(mode="pp")``) at its
+   defaults (``PP_CFG``: the dense model of the moe model's width, 8
+   layers; batch 8, seq 1024, 4 microbatches, GPipe, one stage on one
+   card) in f32 then bf16, one timed batch, every launch count set to 0
+   just before it and read just after: no flash launch (the stage's
+   attention is the dense path, as in JAX); step ms, tokens/s and the
+   peak memory, the record the pp mode's, and one more step under
+   torch.profiler (device ms by kernel class).  (b) four gloo thread
+   ranks on the card on (dp, pp) = (1, 4), 2 layers a stage, f32: one
+   step of each schedule at lr 1, gathered, against the one-rank dense
+   step on the same batch within ``MESH_TRAIN_LIMIT``, every rank's
+   exchanges (``M + S - 1`` handoffs and as many transposes for GPipe,
+   ``2(M + 2(S - 1))`` for 1F1B) and the same bits of ``embed``,
+   ``ln_f`` and ``head`` on every rank; a planted fault (the replicated
+   leaves not summed over pp) must exceed the limit.  (c) the one-card
+   step in bf16 at 8 microbatches: each schedule's peak memory from
+   ``max_memory_allocated``, 1F1B's below GPipe's.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -268,10 +286,10 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe [--no-timings]
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe,pp [--no-timings]
 
 runs those checks (any of them) on this tree alone (``proc``: phase 11,
-``mlp``: phase 12, ``moe``: phase 13);
+``mlp``: phase 12, ``moe``: phase 13, ``pp``: phase 14);
 ``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
 unless ``--no-timings`` is given (``--fault-readings`` gives it to its
 copies, which share the card and so could time nothing).
@@ -317,9 +335,17 @@ bf16, remat="names") on (dp, tp, sp) = (1, 2, 2) through
 ``transformer_train.preset_run`` for the ring and for Ulysses: step ms
 (the slowest rank's), tokens/s in all and a card, each rank's peak
 memory; and one step of each traced on rank 0 (device ms by kernel
-class: flash, cuBLAS GEMMs, NCCL, the rest).  Each rank ends its world
-with ``distributed.finalize()``.  It raises with fewer than four
-cards.
+class: flash, cuBLAS GEMMs, NCCL, the rest); then the bench's pp mode
+(``PP_CFG``, GPipe, 4 microbatches) on (dp, pp) = (1, 4) in f32 and
+bf16: every rank must return the same record (step ms, tokens/s in all
+and a card, each rank's peak memory), and one f32 step traced on rank
+0.  Each rank ends its world with ``distributed.finalize()``.  It
+raises with fewer than four cards.
+
+    python3 chip_smoke.py --nccl-world 4 pp
+
+runs the bench's pp mode across the four cards alone (no kernel is
+built: none runs on that path).
 
     python3 chip_smoke.py --witness-readings
 
@@ -344,6 +370,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -361,9 +388,11 @@ from mpi4jax_tpu_torch.kernels import _build, sw_step
 from mpi4jax_tpu_torch.kernels import flash as kflash
 from mpi4jax_tpu_torch.kernels import flash_bwd as kbwd
 from mpi4jax_tpu_torch.models import moe_transformer as moe
+from mpi4jax_tpu_torch.models import pp_transformer as ppt
 from mpi4jax_tpu_torch.models import shallow_water as sw
 from mpi4jax_tpu_torch.models import transformer as tfm
 from mpi4jax_tpu_torch.native import build as native_build
+from mpi4jax_tpu_torch.ops import p2p as p_p2p
 from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel import moe as pmoe
 from mpi4jax_tpu_torch.parallel.comm import MeshComm
@@ -469,6 +498,20 @@ MOE_MESH = (1, 2, 2)
 MOE_MESH_CFG = MOE_CFG._replace(layers=2, experts=8)
 MOE_MESH_BATCH, MOE_MESH_SEQ = 2, 1024
 MOE_A2A = dict(ranks=4, experts=8, k=2, tokens=1024, d_model=512)
+# phase 14: the bench's pp mode (benchmarks/transformer.py run's
+# defaults: the dense model of MOE_CFG's width, 8 layers, batch 8, seq
+# 1024, 4 microbatches, GPipe); its stages attend on the dense path
+PP_CFG = tfm.TransformerConfig(vocab=32768, d_model=512, layers=8, heads=8,
+                               kv_heads=8, head_dim=64, d_ff=2048,
+                               attn_impl="xla")
+PP_RUN = dict(batch=8, seq=1024, micro=4)
+# (b): four gloo thread ranks on the JAX bench's (dp, pp) mesh, 2 layers
+# a stage, f32, one step at MESH_CHECK_LR of each schedule against the
+# one-rank dense step, within MESH_TRAIN_LIMIT (mesh_readings)
+PP_MESH = (1, 4)
+# (c): GPipe against 1F1B in memory, one card, bf16, one sequence a
+# microbatch
+PP_MEMORY_MICRO = 8
 
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
@@ -1866,24 +1909,28 @@ def spawn_world(n, worker_args, cards, timeout_s):
     return [p.returncode for p in procs], outs
 
 
-def nccl_world(n):
+def nccl_world(n, only_pp=False):
     """The 2x2 solver check over NCCL, one process per card: make_multistep
     as a CUDA graph that holds the NCCL exchanges, then the 64 MB
     allreduce's bus bandwidth, the quick bench, and the transformer: the
-    decoder on (dp, tp) = (2, 2) with graphs that hold NCCL, and the
-    long preset as written on (dp, tp, sp) = (1, 2, 2), ring and
-    Ulysses.  Needs ``n`` = 4 cards."""
+    decoder on (dp, tp) = (2, 2) with graphs that hold NCCL, the long
+    preset as written on (dp, tp, sp) = (1, 2, 2), ring and Ulysses, and
+    the bench's pp mode on (dp, pp) = (1, 4) (``nccl_pp_phase``; alone
+    with ``only_pp``, which builds no kernel: none runs on that path).
+    Needs ``n`` = 4 cards."""
     have = torch.cuda.device_count()
     if n != MULTIRANK_GRID[0] * MULTIRANK_GRID[1] or have < n:
         raise RuntimeError(f"--nccl-world {n} needs a 2x2 grid on 4 cards; "
                            f"this host has {have}")
     for line in card_lines():
         log(f"card: {line}")
-    log("phase build")
-    build_phase()
+    if not only_pp:
+        log("phase build")
+        build_phase()
     log(f"phase NCCL world: {n} processes, one per card")
-    codes, outs = spawn_world(n, ["--nccl-rank"], list(range(n)),
-                              NCCL_RANK_TIMEOUT_S + 60.0)
+    codes, outs = spawn_world(n, ["--nccl-rank"] + (["pp"] if only_pp
+                                                    else []),
+                              list(range(n)), NCCL_RANK_TIMEOUT_S + 60.0)
     records = []
     for rank, (code, out) in enumerate(zip(codes, outs)):
         for line in out.splitlines():
@@ -1893,6 +1940,28 @@ def nccl_world(n):
     if any(codes) or len(records) != n:
         raise RuntimeError(f"the NCCL world failed: exit codes {codes}")
     log(json.dumps({"nccl_world": records}))
+    # the bench's pp mode across the four cards: every rank returns the
+    # same record (its times the slowest rank's)
+    pps = [{k: r["pp"][k] for k in ("float32", "bfloat16")}
+           for r in records]
+    for name, rec in pps[0].items():
+        log(f"the bench's pp mode on {rec['mesh']} over NCCL ({name}): "
+            f"{rec['step_ms']:.4f} ms a step (the slowest rank's), "
+            f"{rec['value']:.2f} tokens/s, {rec['tokens_per_s_per_card']:.2f}"
+            f" a card, peak memory per rank {rec['peak_memory_gb_ranks']} "
+            f"GB, loss {rec['loss']:.6f}")
+    same_pp = all(p == pps[0] for p in pps[1:])
+    trace = records[0]["pp"].get("trace_rank0_float32")
+    log(f"the bench's pp mode across {n} cards: every rank returned the "
+        f"same record: {'ok' if same_pp else 'FAIL'}; one f32 step traced "
+        f"on rank 0: " + (f"busy {trace['busy_ms']:.1f} ms of "
+                          f"{trace['span_ms']:.1f}, "
+                          f"{ {k: round(v, 2) for k, v in trace['split_ms'].items()} }"
+                          if trace else "not measured"))
+    if not same_pp:
+        raise RuntimeError("the ranks' pp records differ")
+    if only_pp:
+        return 0
     # the bench across the four cards: one schedule and one record on
     # every rank (its decisions are taken on the slowest rank's time),
     # finite, with its allreduce over the four
@@ -1947,12 +2016,13 @@ def nccl_world(n):
     return 0
 
 
-def nccl_rank():
+def nccl_rank(only_pp=False):
     """One rank of ``--nccl-world``: before NCCL starts, the one-rank
     reference on its card (its graphs capture with no NCCL thread
     about) and the op cases in a CPU local world of the grid's shape;
     then the same op cases on the card over NCCL, held to the CPU's,
-    the world's solver and the bus bandwidth."""
+    the world's solver and the bus bandwidth, the bench, the
+    transformer, and the bench's pp mode (alone with ``only_pp``)."""
     import faulthandler
 
     # a rank that hangs prints where every thread is, then ends
@@ -1960,6 +2030,14 @@ def nccl_rank():
     rank = int(os.environ["RANK"])
     device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     torch.cuda.set_device(device)
+    if only_pp:
+        distributed.initialize("cuda")
+        comm = distributed.world_comm()
+        print(json.dumps({"rank": rank,
+                          "pp": nccl_pp_phase(comm, device, rank)}),
+              flush=True)
+        distributed.finalize()
+        return 0
     cfg = sw.SWConfig().bench_size()
     k, t1 = MULTIRANK_CHUNK, (MULTIRANK_STEPS - 0.5) * cfg.dt
     ref = multirank_reference(cfg, device, k, t1)
@@ -2025,6 +2103,7 @@ def nccl_rank():
     # its graphs holding NCCL, then the long preset on (1, 2, 2)
     decode_rec = nccl_decode_phase(comm, device, rank, decode_want)
     train_rec = nccl_train_phase(comm, device, rank)
+    pp_rec = nccl_pp_phase(comm, device, rank)
     rec = {"rank": rank, "steps": steps, "launches": counts,
            "h_max_abs_err": err, "mean_h": mean_h, "step_ms": step_ms,
            "cell_updates_per_s_per_card": cfg.ny * cfg.nx / comm.size
@@ -2036,7 +2115,8 @@ def nccl_rank():
            "allreduce_devices": comm.size,
            "allreduce_mb": port_bench.ALLREDUCE_MB,
            "bench": bench_rec,
-           "transformer": {"decode": decode_rec, "train": train_rec}}
+           "transformer": {"decode": decode_rec, "train": train_rec},
+           "pp": pp_rec}
     print(json.dumps(rec), flush=True)
     # the world ends through distributed.finalize (the solver's graph,
     # which holds NCCL work, reset before the groups go); a rank that
@@ -3206,6 +3286,288 @@ def moe_phase(device, kernels, card):
     out["bench"] = moe_bench(device, card)
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 14: the pipeline -----------------------------------------------
+
+
+@contextlib.contextmanager
+def exchange_counter():
+    """The exchanges made inside (``ops/p2p.py``'s ``move``: a sendrecv's
+    forward or its transpose), counted by ``(axes, rank)`` of the comm
+    each ran on."""
+    counts = collections.Counter()
+    lock = threading.Lock()
+    plain = p_p2p.move
+
+    def counting(comm, *args, **kwargs):
+        with lock:
+            counts[comm.axes, comm.rank()] += 1
+        return plain(comm, *args, **kwargs)
+
+    p_p2p.move = counting
+    try:
+        yield counts
+    finally:
+        p_p2p.move = plain
+
+
+def pp_exchanges(schedule, n_micro, stages):
+    """The exchanges every rank makes in one pp step: GPipe one handoff a
+    tick (``M + S - 1`` ticks) and its transpose, 1F1B two plain
+    exchanges a tick (``M + 2(S - 1)`` ticks)."""
+    if stages == 1:
+        return 0
+    if schedule == "gpipe":
+        return 2 * (n_micro + stages - 1)
+    return 2 * (n_micro + 2 * (stages - 1))
+
+
+@contextlib.contextmanager
+def sync_skipping_pp():
+    """A planted fault: the pp step's gradient sync leaves the replicated
+    leaves (``embed``, ``ln_f``, ``head``) unsummed over pp, so each
+    stage keeps its own share of their gradient (stage 0's head never
+    trains)."""
+    plain = ppt._sync_grads
+    one = MeshComm(axes=("pp",), axis_sizes=(1,))
+    ppt._sync_grads = lambda grads, comm_dp, comm_pp: plain(grads, comm_dp,
+                                                            one)
+    try:
+        yield
+    finally:
+        ppt._sync_grads = plain
+
+
+def pp_identity(owns):
+    """Per replicated leaf, whether every rank's (``owns``: each rank's
+    ``{name: tensor}``) holds the same bits as rank 0's."""
+    return {name: all(torch.equal(own[name], owns[0][name])
+                      for own in owns[1:]) for name in owns[0]}
+
+
+def pp_mesh_run(params, batch, cfg, schedule, device, lr, fault=None):
+    """One pp step on four thread ranks of the ``PP_MESH`` local world
+    from the full ``params`` (each rank cuts its stage): ``(loss, rank
+    0's gathered parameters, the slowest rank's ms, each rank's
+    exchanges, pp_identity of the replicated leaves)``."""
+    dp, pp = PP_MESH
+
+    def body(comm):
+        comm_dp, comm_pp = comm.sub("dp"), comm.sub("pp")
+        stage = ppt.shard_params(params, comm_pp)
+        step = ppt.make_global_train_step(
+            comm_dp, comm_pp, cfg, PP_RUN["micro"], lr=lr,
+            schedule=schedule, device=device)
+        (new, loss), wall = synced_seconds(lambda: step(stage, batch))
+        own = {name: getattr(new, name) for name in ("embed", "ln_f",
+                                                     "head")}
+        return loss, ppt.gather_params(new, comm_pp), wall, own
+
+    with exchange_counter() as counts, (fault or contextlib.nullcontext)():
+        runs = distributed.local_world(
+            dp * pp, body, axes=(("dp", "pp"), PP_MESH), deadline=600.0)
+    loss, full, _, _ = runs[0]
+    exchanges = [counts[("pp",), r] for r in range(pp)]
+    return (loss, full, max(r[2] for r in runs) * 1e3, exchanges,
+            pp_identity([r[3] for r in runs]))
+
+
+def pp_mesh_phase(device, card):
+    """Phase 14 (b): the pp step on four gloo thread ranks of the card on
+    ``PP_MESH``, ``PP_CFG`` in f32 (2 layers a stage), ``PP_RUN``'s batch
+    in 4 microbatches: one step at ``MESH_CHECK_LR`` of each schedule
+    against the one-rank dense step (``"xla"`` attention) on the same
+    batch, the loss and every gathered leaf within ``MESH_TRAIN_LIMIT``
+    (``mesh_readings``), every rank's exchanges ``pp_exchanges`` and its
+    ``embed``, ``ln_f`` and ``head`` the same bits as every other's; the
+    planted fault (``sync_skipping_pp``) read beside them, which must
+    exceed the limit."""
+    cfg = PP_CFG
+    dp, pp = PP_MESH
+    b, s = PP_RUN["batch"] * dp, PP_RUN["seq"]
+    params, batch = train_data(cfg, device, seed=6, dtype=torch.float32,
+                               batch=b, seq=s)
+    p0 = tfm._leaves(params)
+    one = MeshComm(axes=("dp", "tp", "sp"), axis_sizes=(1, 1, 1))
+    ref_step = tfm.make_global_train_step(*mesh_comms(one), cfg,
+                                          lr=MESH_CHECK_LR, device=device)
+    (ref_full, ref_loss), ref_s = synced_seconds(
+        lambda: ref_step(params, batch))
+    log(f"  one rank, the dense step (attention xla, f32): loss "
+        f"{float(ref_loss[0]):.6f}, {ref_s * 1e3:.1f} ms")
+    record, failed = {"one_rank_ms": ref_s * 1e3}, []
+    for name, schedule, fault in (
+            ("gpipe", "gpipe", None), ("1f1b", "1f1b", None),
+            ("fault_replicated_not_summed_over_pp", "gpipe",
+             sync_skipping_pp)):
+        loss, full, ms, exchanges, identity = pp_mesh_run(
+            params, batch, cfg, schedule, device, MESH_CHECK_LR, fault)
+        read = mesh_readings(loss, full, ref_loss, ref_full, p0)
+        worst = max(read.values())
+        ok = worst <= MESH_TRAIN_LIMIT
+        want = pp_exchanges(schedule, PP_RUN["micro"], pp)
+        sound = ok and set(exchanges) == {want} and all(identity.values())
+        log(f"  {name} (f32): loss {float(loss[0]):.6f}, the slowest rank "
+            f"{ms:.1f} ms; largest reading {worst:.3e} (limit "
+            f"{MESH_TRAIN_LIMIT:g}); exchanges per rank {exchanges} (want "
+            f"{want}); the same embed, ln_f, head on every rank: "
+            f"{identity} "
+            + ("planted fault: " + ("FAIL (passed)" if ok else "caught")
+               if fault else ("ok" if sound else "FAIL")))
+        log(f"    readings: { {k: f'{v:.2e}' for k, v in read.items()} }")
+        record[name] = {"readings": read, "worst": worst, "ms": ms,
+                        "exchanges": exchanges, "identity": identity}
+        if (ok if fault else not sound):
+            failed.append(name)
+        del full
+    log(f"  four thread ranks on one card over gloo (a correctness rig; "
+        f"times are readings, host staging included), on {card}")
+    if failed:
+        raise RuntimeError(f"the pp mesh checks failed: {failed}")
+    return record
+
+
+def pp_bench(device, card):
+    """Phase 14 (a): the bench's pp mode (``transformer_train.run`` with
+    ``mode="pp"``) at its defaults (``PP_CFG``, ``PP_RUN``: one stage,
+    GPipe over 4 microbatches) in f32 then bf16, one timed batch, every
+    launch count set to 0 just before it and read just after: no flash
+    kernel runs (the stage's attention is ``"xla"``, as in JAX).  The
+    record is the pp mode's, its numbers positive and finite; then one
+    more step under torch.profiler, device ms by kernel class."""
+    cfg = PP_CFG
+    out, failed = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        counted = {}
+
+        @contextlib.contextmanager
+        def timed(steps):
+            reset_launch_counts()
+            yield
+            counted.update(steps=steps, counts=launch_counts())
+
+        torch.cuda.empty_cache()
+        rec = transformer_train.run(
+            batch=PP_RUN["batch"], seq=PP_RUN["seq"], layers=cfg.layers,
+            d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+            d_ff=cfg.d_ff, vocab=cfg.vocab, bf16=dtype == torch.bfloat16,
+            batches=1, mode="pp", micro=PP_RUN["micro"], device=device,
+            timed=timed)
+        flash = {k: n for k, n in counted["counts"].items()
+                 if k.startswith("flash")}
+        numbers = {k: rec[k] for k in ("value", "step_ms",
+                                       "model_tflops_per_sec",
+                                       "peak_memory_gb", "loss")}
+        if any(flash.values()):
+            failed.append(f"{name}: flash launches {flash}")
+        if not all(math.isfinite(x) and x > 0 for x in numbers.values()):
+            failed.append(f"{name}: a reading is not a positive finite "
+                          f"number: {numbers}")
+        if (rec["metric"] != "transformer_pp_train_tokens_per_sec"
+                or "remat" in rec or rec["mesh"] != [1, 1]
+                or rec["n_micro"] != PP_RUN["micro"]):
+            failed.append(f"{name}: not the pp mode's record on one card")
+        # one more step under the profiler: device time by kernel class
+        one = MeshComm(axes=("dp", "pp"), axis_sizes=(1, 1))
+        params, batch = train_data(cfg, device, seed=0, dtype=dtype,
+                                   batch=PP_RUN["batch"], seq=PP_RUN["seq"])
+        step = ppt.make_global_train_step(
+            one.sub("dp"), one.sub("pp"), cfg, PP_RUN["micro"], lr=TRAIN_LR,
+            device=device)
+        step(params, batch)
+        per_kernel, span = device_trace(lambda: step(params, batch))
+        trace = None
+        if per_kernel:
+            split = device_split(per_kernel)
+            busy = sum(split.values())
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+            trace = {"busy_ms": busy, "span_ms": span, "split_ms": split,
+                     "launches": sum(c for _, c in per_kernel.values()),
+                     "idle_share": 1 - busy / rec["step_ms"],
+                     "top": [(k[:90], ms, c) for k, (ms, c) in top]}
+        del params, step
+        log(f"  {name}: the bench's pp mode: step {rec['step_ms']:.4f} ms, "
+            f"{rec['value']:.2f} tokens/s, {rec['model_tflops_per_sec']:.4f}"
+            f" model TFLOP/s, peak memory {rec['peak_memory_gb']:.4f} GB; "
+            f"flash launches over its {counted['steps']} timed steps "
+            f"{flash}; on {card}" + (f" FAIL {failed}" if failed else ""))
+        log(f"  {name}: {json.dumps(rec)}")
+        if trace:
+            log(f"  {name}: one traced step: device busy "
+                f"{trace['busy_ms']:.4f} ms in {trace['launches']} launches "
+                f"over a {span:.4f} ms timeline; idle share "
+                f"{trace['idle_share']:.4f} of the bench's step; by class "
+                f"{ {k: round(v, 4) for k, v in trace['split_ms'].items()} }")
+            for kname, ms, c in trace["top"]:
+                log(f"    {ms:.4f} ms, {c} launches: {kname}")
+        else:
+            log(f"  {name}: the profiler recorded no device activity: the "
+                f"split is not measured")
+        out[name] = dict(rec, launches=flash, trace=trace)
+    if failed:
+        raise RuntimeError(f"the bench's pp mode: {failed}")
+    return out
+
+
+def pp_memory(device, card):
+    """Phase 14 (c): the one-card pp step (``PP_CFG``, ``PP_RUN``'s batch)
+    in bf16 at ``PP_MEMORY_MICRO`` microbatches, each schedule's first
+    step with the peak memory statistics reset just before it: 1F1B,
+    which holds one microbatch's graph (its logits included), must
+    peak lower than GPipe, which holds every microbatch's."""
+    cfg = PP_CFG
+    one = MeshComm(axes=("dp", "pp"), axis_sizes=(1, 1))
+    params, batch = train_data(cfg, device, seed=7, dtype=torch.bfloat16,
+                               batch=PP_RUN["batch"], seq=PP_RUN["seq"])
+    out = {}
+    for schedule in ppt.SCHEDULES:
+        step = ppt.make_global_train_step(
+            one.sub("dp"), one.sub("pp"), cfg, PP_MEMORY_MICRO, lr=TRAIN_LR,
+            schedule=schedule, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        (new, loss), wall = synced_seconds(lambda: step(params, batch))
+        peak = torch.cuda.max_memory_allocated(device)
+        out[schedule] = {"peak_gb": peak / 1e9,
+                         "above_held_gb": (peak - held) / 1e9,
+                         "ms": wall * 1e3, "loss": float(loss[0])}
+        del new, loss
+        log(f"  {schedule} (bf16, {PP_MEMORY_MICRO} microbatches of "
+            f"{PP_RUN['batch'] // PP_MEMORY_MICRO}): peak "
+            f"{peak / 1e9:.4f} GB ({(peak - held) / 1e9:.4f} above the "
+            f"{held / 1e9:.4f} GB held before the step), first step "
+            f"{wall * 1e3:.1f} ms, loss {out[schedule]['loss']:.6f}; on "
+            f"{card}")
+    ok = (out["1f1b"]["peak_gb"] < out["gpipe"]["peak_gb"]
+          and all(math.isfinite(r["loss"]) for r in out.values()))
+    log(f"  1F1B peaks below GPipe: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"the pp schedules' memory: {out}")
+    return out
+
+
+def pp_phase(device, kernels, card):
+    """Phase 14: (a) the bench's pp mode on one card in f32 and bf16, no
+    flash launch; (b) both schedules across four thread ranks against
+    the one-rank step, and the planted fault; (c) 1F1B against GPipe in
+    memory."""
+    t0 = time.perf_counter()
+    out = {"bench": pp_bench(device, card)}
+    for kern in kernels:
+        kern["launches_pp"] = sum(out["bench"][name]["launches"].get(
+            kern["name"], 0) for name in ("float32", "bfloat16"))
+    torch.cuda.empty_cache()
+    out["mesh"] = pp_mesh_phase(device, card)
+    torch.cuda.empty_cache()
+    out["memory"] = pp_memory(device, card)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 14: {out['seconds']:.1f} s")
     return out
 
 
@@ -5031,6 +5393,59 @@ def nccl_train_phase(comm, device, rank):
     return out
 
 
+def nccl_pp_phase(comm, device, rank):
+    """The bench's pp mode (``PP_CFG``, ``PP_RUN``, GPipe) across the
+    world on the JAX bench's (dp, pp) = (1, 4) over NCCL, f32 and bf16,
+    3 timed batches: the record's step ms (the slowest rank's),
+    tokens/s in all and a card, each rank's peak memory; then one step
+    traced on rank 0 (device ms by kernel class)."""
+    cfg = PP_CFG
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        rec = transformer_train.run(
+            batch=PP_RUN["batch"], seq=PP_RUN["seq"], layers=cfg.layers,
+            d_model=cfg.d_model, heads=cfg.heads, kv_heads=cfg.kv_heads,
+            d_ff=cfg.d_ff, vocab=cfg.vocab, bf16=dtype == torch.bfloat16,
+            batches=3, mode="pp", micro=PP_RUN["micro"], device=device,
+            comm=comm)
+        if not math.isfinite(rec["loss"]) or rec["mesh"] != list(PP_MESH):
+            raise RuntimeError(f"rank {rank}: the pp mode ({name}): {rec}")
+        out[name] = {k: rec[k] for k in (
+            "step_ms", "value", "peak_memory_gb", "peak_memory_gb_ranks",
+            "loss", "steps_per_batch", "mesh", "devices", "n_micro",
+            "layers")}
+        out[name]["tokens_per_s_per_card"] = rec["value"] / rec["devices"]
+        log(f"rank {rank}: the bench's pp mode on {rec['mesh']} ({name}): "
+            f"{rec['step_ms']:.1f} ms a step, {rec['value']:.1f} tokens/s, "
+            f"peak memory {rec['peak_memory_gb_ranks']} GB")
+        torch.cuda.empty_cache()
+    # one f32 step under torch.profiler on rank 0
+    world = comm.world.comm((("dp", "pp"), PP_MESH))
+    comm_dp, comm_pp = world.sub("dp"), world.sub("pp")
+    params, batch = train_data(cfg, device, dtype=torch.float32,
+                               batch=PP_RUN["batch"], seq=PP_RUN["seq"])
+    params = ppt.shard_params(params, comm_pp)
+    step = ppt.make_global_train_step(comm_dp, comm_pp, cfg,
+                                      PP_RUN["micro"], lr=TRAIN_LR,
+                                      device=device)
+    step(params, batch)
+    torch.cuda.synchronize()
+    if rank == 0:
+        per_kernel, span = device_trace(lambda: step(params, batch))
+        split = device_split(per_kernel)
+        busy = sum(split.values())
+        log(f"rank 0: one traced f32 pp step: device busy {busy:.1f} ms "
+            f"over a {span:.1f} ms timeline; by class "
+            f"{ {k: round(v, 2) for k, v in split.items()} } ms")
+        out["trace_rank0_float32"] = {"busy_ms": busy, "span_ms": span,
+                                      "split_ms": split}
+    else:
+        step(params, batch)
+        torch.cuda.synchronize()
+    return out
+
+
 def nccl_decode_phase(comm, device, rank, want):
     """The decoder on the (2, 2) mesh over NCCL, its generate steps CUDA
     graphs that hold the tp allreduces: tokens equal to the gloo world's
@@ -5120,15 +5535,17 @@ def run_checks(device, parts, mesh_timings=True):
     ``sw``: phase 2's sw_main checks; ``ops``: phase 4b''s op cases, no
     kernel; ``mesh``: phase 10c's transformer across thread ranks;
     ``proc``: phase 11's launcher jobs, no kernel; ``mlp``: phase 12's
-    MLP steps, no kernel; ``moe``: phase 13), after building the
-    kernels they need.  The phases' own timings are left out; ``fwd``
-    and ``bwd`` time the bf16 kernels at the meshes' shapes
-    (:func:`mesh_shape_timings`) unless ``mesh_timings`` is False
-    (``--no-timings``: the copies of ``--fault-readings``).
+    MLP steps, no kernel; ``moe``: phase 13; ``pp``: phase 14, no
+    kernel), after building the kernels they need.  The phases' own
+    timings are left out; ``fwd`` and ``bwd`` time the bf16 kernels at
+    the meshes' shapes (:func:`mesh_shape_timings`) unless
+    ``mesh_timings`` is False (``--no-timings``: the copies of
+    ``--fault-readings``).
     Every check runs and prints its readings even when an earlier one
     failed; returns 1 when any failed."""
     sources = ((("sw_step",) if "sw" in parts else ())
-               + (FLASH_SOURCES if set(parts) - {"sw", "ops", "proc", "mlp"}
+               + (FLASH_SOURCES
+                  if set(parts) - {"sw", "ops", "proc", "mlp", "pp"}
                   else ()))
     if sources:
         build_phase(sources)
@@ -5146,6 +5563,7 @@ def run_checks(device, parts, mesh_timings=True):
         "proc": lambda: proc_phase(device, card_line()),
         "mlp": lambda: mlp_mesh_phase(device, card_line()),
         "moe": lambda: moe_phase(device, [], card_line()),
+        "pp": lambda: pp_phase(device, [], card_line()),
     }
     failed = []
     for part in parts:
@@ -5349,16 +5767,18 @@ def main(argv):
         return witness_readings(device)
     if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
-                                    "mesh", "proc", "mlp", "moe"} and argv[2:] in (
+                                    "mesh", "proc", "mlp", "moe",
+                                    "pp"} and argv[2:] in (
             [], ["--no-timings"]):
         return run_checks(device, argv[1].split(","),
                           mesh_timings=argv[2:] == [])
     if argv[:1] == ["--sw-forms"] and len(argv) > 1:
         return sw_forms(device, [pathlib.Path(a) for a in argv[1:]])
-    if len(argv) == 2 and argv[0] == "--nccl-world":
-        return nccl_world(int(argv[1]))
-    if argv == ["--nccl-rank"]:
-        return nccl_rank()
+    if len(argv) in (2, 3) and argv[0] == "--nccl-world" and argv[2:] in (
+            [], ["pp"]):
+        return nccl_world(int(argv[1]), only_pp=argv[2:] == ["pp"])
+    if argv in (["--nccl-rank"], ["--nccl-rank", "pp"]):
+        return nccl_rank(only_pp=argv[1:] == ["pp"])
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5469,6 +5889,13 @@ def main(argv):
         f"{MOE_MESH_CFG.experts} experts; the bench's moe mode)")
     moe_record = moe_phase(device, kernels, card)
 
+    log(f"phase pipeline (the bench's pp mode: the dense model, "
+        f"{PP_CFG.layers} layers, batch {PP_RUN['batch']}, seq "
+        f"{PP_RUN['seq']}, {PP_RUN['micro']} microbatches, f32 then bf16; "
+        f"GPipe and 1F1B across four thread ranks on {PP_MESH}; their "
+        f"memory at {PP_MEMORY_MICRO} microbatches)")
+    pp_record = pp_phase(device, kernels, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -5480,6 +5907,7 @@ def main(argv):
                     "bench_training": bench_training,
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
                     "proc": proc, "mlp_mesh": mlp_mesh, "moe": moe_record,
+                    "pp": pp_record,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES},

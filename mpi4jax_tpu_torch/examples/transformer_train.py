@@ -1,12 +1,14 @@
 """Training-step throughput of the transformer, on PyTorch.
 
-The counterpart of ``benchmarks/transformer.py:run`` in its dense and
-moe modes: tokens per second through ``make_global_train_step`` (of
-``models/transformer.py``, or with ``--mode moe`` of
-``models/moe_transformer.py``: 4 experts a sp rank) on one rank, or
-on the ``(dp, tp, sp)`` mesh that run builds from the rank count
-(:func:`train_mesh_shape`) when ``run`` is given the world's comm (as
-the bench passes it under ``torchrun``), with the same JSON record
+The counterpart of ``benchmarks/transformer.py:run`` in its dense, moe
+and pp modes: tokens per second through ``make_global_train_step`` (of
+``models/transformer.py``, with ``--mode moe`` of
+``models/moe_transformer.py``: 4 experts a sp rank, or with ``--mode
+pp`` of ``models/pp_transformer.py``: GPipe over ``min(n, 4)`` stages)
+on one rank, or on the mesh that run builds from the rank count
+(:func:`train_mesh_shape`; pp: :func:`pp_mesh_shape`) when ``run`` is
+given the world's comm (as the bench passes it under ``torchrun``),
+with the same JSON record
 (model FLOPs as 6·N·tokens, with and without the causal attention
 scores, and the MFU of both against the cards' bf16 tensor-core
 peak).  The presets are the benchmark's ``SIZES``, remat policy
@@ -31,6 +33,13 @@ Usage:
     python -m mpi4jax_tpu_torch.examples.transformer_train --mode moe
     torchrun --nproc-per-node 4 -m \\
         mpi4jax_tpu_torch.examples.transformer_train --mode moe
+
+    # the dense model of that width as a GPipe pipeline: 4 microbatches
+    # (--micro), one stage on one card; under torchrun on four cards
+    # (dp, pp) = (1, 4), 2 layers a stage
+    python -m mpi4jax_tpu_torch.examples.transformer_train --mode pp
+    torchrun --nproc-per-node 4 -m \\
+        mpi4jax_tpu_torch.examples.transformer_train --mode pp --micro 4
 
     # the plain PyTorch path on the CPU, small
     python -m mpi4jax_tpu_torch.examples.transformer_train --device cpu \\
@@ -86,6 +95,13 @@ def train_mesh_shape(n):
     if n == 2:
         return (1, 2, 1)
     return (1, 1, 1)
+
+
+def pp_mesh_shape(n):
+    """``benchmarks/transformer.py``'s pp mesh ``(dp, pp)`` for ``n``
+    ranks: ``min(n, 4)`` stages (1 on one rank), the rest over dp."""
+    pp_n = min(n, 4) if n > 1 else 1
+    return (n // pp_n, pp_n)
 
 
 def mesh_comm(comm, names, shape):
@@ -188,7 +204,7 @@ def autotune_attn_impl(batch=8, seq=2048, heads=16, head_dim=64, chain=4,
 def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         d_ff=2048, vocab=32768, bf16=False, batches=8, mode="dense",
         remat=False, attn_impl="auto", ce_chunk=0, sequence="ring",
-        device="cuda", timed=None, comm=None):
+        micro=None, device="cuda", timed=None, comm=None):
     """Train-step throughput record (``run``'s keys, and the device it
     ran on).  ``remat``, ``ce_chunk`` and ``sequence`` are the training
     step's (see ``make_global_train_step``); the record names the first
@@ -207,6 +223,18 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     the active parameters (each token meets one expert's FFN of the
     ``E``: ``n − expert + expert / E``).
 
+    ``mode="pp"`` times the dense model as a pipeline
+    (``models/pp_transformer.py``) as the JAX bench's pp mode: the mesh
+    ``(dp, pp)`` of :func:`pp_mesh_shape`, ``layers`` rounded down to a
+    multiple of the stages, one a stage at least (a line on stderr says
+    so), ``micro``
+    microbatches (``min(4, batch)`` by default; ``batch`` must divide
+    by it), the GPipe schedule, ``batch`` rows per dp rank and ``seq``
+    whole on every stage; the stages' attention is the dense ``"xla"``
+    path (no flash kernel), ``remat``, ``attn_impl``, ``ce_chunk`` and
+    ``sequence`` are not the mode's (the last two refused); the metric
+    ``transformer_pp_train_tokens_per_sec``, with ``n_micro``.
+
     ``timed(steps)``, given, is a context entered around the timed
     batches, ``steps`` training steps in all (``chip_smoke.py`` counts
     the kernels' launches in it).
@@ -218,6 +246,7 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     record, the same on every rank, names the mesh, and the peak memory
     is the largest rank's, each rank's in ``peak_memory_gb_ranks``."""
     from mpi4jax_tpu_torch.models import moe_transformer as moe
+    from mpi4jax_tpu_torch.models import pp_transformer as ppt
     from mpi4jax_tpu_torch.models import transformer as tfm
     from mpi4jax_tpu_torch.utils.runtime import (
         drain,
@@ -225,52 +254,85 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         slowest,
     )
 
-    if mode not in ("dense", "moe"):
-        raise ValueError(f"mode must be 'dense' or 'moe', got {mode!r}")
+    if mode not in ("dense", "moe", "pp"):
+        raise ValueError(
+            f"mode must be 'dense', 'moe' or 'pp', got {mode!r}")
     if ce_chunk and mode != "dense":
         # a silent fallback to the streaming loss would mislabel the
         # record (benchmarks/transformer.py refuses it too)
         raise ValueError(f"ce_chunk is dense-mode only (got mode={mode!r})")
-    if sequence != "ring" and mode != "dense":
+    if sequence != "ring" and mode == "moe":
         raise ValueError(
             f"the MoE step's attention is the ring (got sequence="
             f"{sequence!r})")
+    if sequence != "ring" and mode == "pp":
+        raise ValueError(
+            f"the pp step's stages attend whole sequences, it has no sp "
+            f"axis (got sequence={sequence!r})")
     device = resolve_device(device)
     n = 1 if comm is None else comm.size
-    shape = train_mesh_shape(n)
-    world = mesh_comm(comm, ("dp", "tp", "sp"), shape)
-    dp, tp, sp = world.sub("dp"), world.sub("tp"), world.sub("sp")
     dtype = torch.bfloat16 if bf16 else torch.float32
     # every rank draws the same full weights and global batch, and
     # keeps its shards; the step takes its (dp, sp) block
     gen = torch.Generator(device=device).manual_seed(0)
-    if mode == "moe":
-        attn_impl = "auto"
-        cfg = moe.MoEConfig(
-            vocab=vocab, d_model=d_model, layers=layers, heads=heads,
-            kv_heads=kv_heads, head_dim=d_model // heads,
-            experts=4 * sp.size, d_ff=d_ff,
-        )
-        params = moe.init_params(cfg, generator=gen, dtype=dtype,
-                                 device=device)
-        if tp.size * sp.size > 1:
-            params = moe.shard_params(params, tp, sp)
-        step = moe.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
-                                          device=device)
-    else:
+    if mode == "pp":
+        shape, sp_size = pp_mesh_shape(n), 1
+        world = mesh_comm(comm, ("dp", "pp"), shape)
+        dp, pp = world.sub("dp"), world.sub("pp")
+        rounded = max(layers, pp.size) - max(layers, pp.size) % pp.size
+        if rounded != layers:
+            print(f"[transformer-bench] pp: layers {layers} -> {rounded} "
+                  f"(multiple of {pp.size} stages)", file=sys.stderr)
+        layers = rounded
+        micro = micro or min(4, batch)
+        if batch % micro:
+            raise ValueError(
+                f"--batch {batch} must be divisible by the microbatch "
+                f"count {micro} (pass --micro)")
+        attn_impl = "xla"
         cfg = tfm.TransformerConfig(
             vocab=vocab, d_model=d_model, layers=layers, heads=heads,
             kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
-            attn_impl=attn_impl, ce_chunk=ce_chunk,
+            attn_impl=attn_impl,
         )
         params = tfm.init_params(cfg, generator=gen, dtype=dtype,
                                  device=device)
-        if tp.size > 1:
-            params = tfm.shard_params(params, tp)
-        step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
-                                          sequence=sequence, remat=remat,
-                                          donate=True, device=device)
-    b, s = batch * dp.size, seq * sp.size
+        if pp.size > 1:
+            params = ppt.shard_params(params, pp)
+        step = ppt.make_global_train_step(dp, pp, cfg, n_micro=micro,
+                                          lr=1e-3, device=device)
+    else:
+        shape = train_mesh_shape(n)
+        world = mesh_comm(comm, ("dp", "tp", "sp"), shape)
+        dp, tp, sp = world.sub("dp"), world.sub("tp"), world.sub("sp")
+        sp_size = sp.size
+        if mode == "moe":
+            attn_impl = "auto"
+            cfg = moe.MoEConfig(
+                vocab=vocab, d_model=d_model, layers=layers, heads=heads,
+                kv_heads=kv_heads, head_dim=d_model // heads,
+                experts=4 * sp.size, d_ff=d_ff,
+            )
+            params = moe.init_params(cfg, generator=gen, dtype=dtype,
+                                     device=device)
+            if tp.size * sp.size > 1:
+                params = moe.shard_params(params, tp, sp)
+            step = moe.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
+                                              device=device)
+        else:
+            cfg = tfm.TransformerConfig(
+                vocab=vocab, d_model=d_model, layers=layers, heads=heads,
+                kv_heads=kv_heads, head_dim=d_model // heads, d_ff=d_ff,
+                attn_impl=attn_impl, ce_chunk=ce_chunk,
+            )
+            params = tfm.init_params(cfg, generator=gen, dtype=dtype,
+                                     device=device)
+            if tp.size > 1:
+                params = tfm.shard_params(params, tp)
+            step = tfm.make_global_train_step(dp, tp, sp, cfg, lr=1e-3,
+                                              sequence=sequence, remat=remat,
+                                              donate=True, device=device)
+    b, s = batch * dp.size, seq * sp_size
     tokens = torch.randint(0, vocab, (b, s), generator=gen, device=device)
     data = (tokens, torch.roll(tokens, -1, dims=1))
 
@@ -312,8 +374,8 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
     incl_attn_tflops = (model_tflops
                         + attention_flops(cfg, b, s) / best / 1e12)
     rec = {
-        "metric": ("transformer_moe_train_tokens_per_sec" if mode == "moe"
-                   else "transformer_train_tokens_per_sec"),
+        "metric": ("transformer_train_tokens_per_sec" if mode == "dense"
+                   else f"transformer_{mode}_train_tokens_per_sec"),
         "value": tokens_per_step / best,
         "unit": "tokens/s",
         "devices": n,
@@ -321,6 +383,7 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
         "params_m": n_params / 1e6,
         "params_active_m": n_active / 1e6,
         "layers": layers,
+        **({"n_micro": micro} if mode == "pp" else {}),
         "dtype": "bf16" if bf16 else "f32",
         "batch": batch,
         "seq": seq,
@@ -331,7 +394,7 @@ def run(batch=8, seq=1024, layers=8, d_model=512, heads=8, kv_heads=8,
             else remat} if mode == "dense" else {}),
         **({"ce_chunk": ce_chunk} if ce_chunk else {}),
         "attn_impl": attn_impl,
-        **({"sequence": sequence} if sp.size > 1 else {}),
+        **({"sequence": sequence} if sp_size > 1 else {}),
         "loss": float(loss[0]),
         "steps_per_batch": steps,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -370,6 +433,8 @@ def preset_run(preset, attn_impl="auto", **overrides):
         kw["attn_impl"] = attn_impl
     if kw["mode"] == "moe":
         kw["attn_impl"] = "auto"  # the MoE step's own attention
+    elif kw["mode"] == "pp":
+        kw["attn_impl"] = "xla"  # the pipeline stage's own attention
     if kw["attn_impl"] == "autotune":
         kw["attn_impl"] = autotune_attn_impl(
             batch=kw["batch"], seq=kw["seq"], heads=kw["heads"],
@@ -423,9 +488,14 @@ def main(argv=None):
                    "against the dense attention and keeps the faster")
     p.add_argument("--batches", type=int, default=8,
                    help="timed batches (the best is taken)")
-    p.add_argument("--mode", choices=("dense", "moe"), default="dense",
-                   help="the dense transformer or the MoE model (4 "
-                   "experts a sp rank; no remat, attention 'auto')")
+    p.add_argument("--mode", choices=("dense", "moe", "pp"),
+                   default="dense",
+                   help="the dense transformer, the MoE model (4 experts "
+                   "a sp rank; no remat, attention 'auto') or the dense "
+                   "model as a GPipe pipeline (min(ranks, 4) stages; no "
+                   "remat, attention 'xla')")
+    p.add_argument("--micro", type=int, default=None,
+                   help="pp microbatches (default min(4, batch))")
     p.add_argument(
         "--device", default="cuda",
         help="'cuda' (default; the hand-written kernels) or 'cpu' (their "
@@ -445,7 +515,7 @@ def main(argv=None):
     rec = preset_run(
         preset, attn_impl=args.attn_impl, remat=remat, vocab=args.vocab,
         bf16=args.bf16, batches=args.batches, device=device,
-        mode=args.mode, comm=comm,
+        mode=args.mode, micro=args.micro, comm=comm,
         **{key: getattr(args, key) for key in (
             "batch", "seq", "layers", "d_model", "heads", "kv_heads",
             "d_ff")})

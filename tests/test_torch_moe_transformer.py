@@ -618,7 +618,7 @@ def test_bench_moe_refusals():
                        "ring"):
         transformer_train.run(mode="moe", sequence="ulysses", **TINY)
     with pytest.raises(ValueError, match="mode must be"):
-        transformer_train.run(mode="pp", **TINY)
+        transformer_train.run(mode="ep", **TINY)
 
 
 def test_bench_moe_cli(capsys):

@@ -10,7 +10,11 @@ a tiny width, the CPU world standing in for the card's.  Phase 13's
 checks at a tiny width: the MoE step's kernel path, plain path and
 ``reference_loss`` step agree, and across four thread ranks the sound
 step holds to the one-rank step while the planted expert sync over sp
-is caught, for both routings."""
+is caught, for both routings.  Phase 14's helpers and its check across
+four thread ranks at a tiny width: the exchange counter, the identity
+of the replicated leaves across pp ranks, both schedules within the
+limit of the one-rank step and the planted sync that skips pp for the
+replicated leaves caught."""
 
 import importlib.util
 import pathlib
@@ -178,3 +182,61 @@ def test_moe_bench_leg_counts_and_records(smoke, monkeypatch):
         assert rec["dtype"] == ("f32" if name == "float32" else "bf16")
         assert set(rec["launches"].values()) == {0}
         assert rec["params_active_m"] < rec["params_m"]
+
+
+TINY_PP = dict(vocab=64, d_model=32, layers=4, heads=8, kv_heads=8,
+               head_dim=4, d_ff=64, attn_impl="xla")
+
+
+def test_pp_exchange_counter_and_identity(smoke):
+    # phase 14's helpers: the counter sees every exchange of a 4-rank
+    # GPipe step (its handoffs and their transposes) and of a 1F1B step
+    # (two plain exchanges a tick), the same number on every rank; the
+    # identity check names a leaf whose bits differ
+    cfg = smoke.tfm.TransformerConfig(**TINY_PP)
+    params, batch = smoke.train_data(cfg, "cpu", seed=3,
+                                     dtype=torch.float32, batch=4, seq=8)
+
+    def body(comm):
+        dp, pp = comm.sub("dp"), comm.sub("pp")
+        stage = smoke.ppt.shard_params(params, pp)
+        for schedule in ("gpipe", "1f1b"):
+            smoke.ppt.make_global_train_step(
+                dp, pp, cfg, 4, schedule=schedule, device="cpu")(stage,
+                                                                 batch)
+
+    with smoke.exchange_counter() as counts:
+        distributed.local_world(4, body, axes=(("dp", "pp"), (1, 4)))
+    want = smoke.pp_exchanges("gpipe", 4, 4) + smoke.pp_exchanges("1f1b",
+                                                                   4, 4)
+    assert want == 2 * 7 + 2 * 10
+    assert counts == {(("pp",), r): want for r in range(4)}
+    assert smoke.p_p2p.move.__name__ == "move"  # the counter is gone
+    assert smoke.pp_exchanges("gpipe", 4, 1) == 0
+    a, b = torch.zeros(3), torch.ones(3)
+    assert smoke.pp_identity([{"head": a, "ln_f": a}, {"head": a.clone(),
+                                                       "ln_f": b}]) == {
+        "head": True, "ln_f": False}
+
+
+def test_pp_mesh_phase_holds_and_catches_the_fault(smoke, monkeypatch):
+    # phase 14 (b) at a tiny width on the CPU: both schedules within the
+    # limit of the one-rank dense step, every rank's exchanges counted
+    # and its replicated leaves the same bits; the planted sync that
+    # skips pp for them far outside the limit (stage 0's head and ln_f
+    # keep their values), the loss untouched by it
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "PP_CFG",
+                        smoke.tfm.TransformerConfig(**TINY_PP))
+    monkeypatch.setattr(smoke, "PP_RUN", dict(batch=4, seq=8, micro=4))
+    got = smoke.pp_mesh_phase(torch.device("cpu"), "the CPU")
+    for name, want in (("gpipe", 14), ("1f1b", 20)):
+        assert got[name]["worst"] < 1e-5 < smoke.MESH_TRAIN_LIMIT
+        assert got[name]["exchanges"] == [want] * 4
+        assert all(got[name]["identity"].values())
+    fault = got["fault_replicated_not_summed_over_pp"]
+    assert min(fault["readings"]["head"], fault["readings"]["ln_f"]) > (
+        100 * smoke.MESH_TRAIN_LIMIT)
+    assert fault["readings"]["loss"] < 1e-5
+    assert not fault["identity"]["head"]
+    assert smoke.ppt._sync_grads.__name__ == "_sync_grads"
