@@ -266,6 +266,29 @@ Phases, each of which raises on failure (nothing is caught):
    leaves not summed over pp) must exceed the limit.  (c) the one-card
    step in bf16 at 8 microbatches: each schedule's peak memory from
    ``max_memory_allocated``, 1F1B's below GPipe's.
+15. serving (``serving/engine.py``): (a) the continuous-batching engine
+   on a ``SelfComm`` on the card, the decode benchmark's model at its
+   published width (``SERVE_CFG``: vocab 32768, d_model 512, 8 layers, 8
+   heads and 8 KV heads of 64, d_ff 2048) in f32 with TF32 off, seeded
+   parameters, ``max_batch`` 8, ``max_len`` 512, admission off: every
+   prefill bucket warmed, then 24 ``LoadGen`` requests (prompts 16-256,
+   ``max_new`` 8-96) offered at t = 0 and drained, every launch count
+   set to 0 just before and read just after: no flash launch (the
+   engine's attention is the dense path, as in JAX); the request
+   accounting; every response held to ``reference_greedy_decode`` on the
+   card, a departure accepted only where the oracle's top two logits lie
+   within ``SERVE_TIE_LIMIT``; wall, tokens/s, steps, mean occupancy,
+   p50/p99 latency and time to first token, the slot step's ms (CUDA
+   events) and each bucket's prefill ms; then an open-loop window
+   (admission on, 2000 ms SLO, 3 s at 80 requests/s), its accounting
+   held, its shed count and SLO attainment reported.  (b) a planted
+   fault (every row of the slot step attends at slot 0's position) must
+   fail (a)'s check at a gap of at least ten times the limit.  (c) a
+   ``--serve`` launcher job of 2 ranks on the card (tp 2, CUDA tensors
+   staged through host memory, 8 requests with prompts up to 64): the
+   ranks' finished lists equal, held to the oracle as in (a).  (d) the
+   bench's serving leg (``bench.serving_leg``, an 8-rank job): its seven
+   keys finite.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -286,10 +309,11 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe,pp [--no-timings]
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe,pp,serve [--no-timings]
 
 runs those checks (any of them) on this tree alone (``proc``: phase 11,
-``mlp``: phase 12, ``moe``: phase 13, ``pp``: phase 14);
+``mlp``: phase 12, ``moe``: phase 13, ``pp``: phase 14, ``serve``:
+phase 15);
 ``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
 unless ``--no-timings`` is given (``--fault-readings`` gives it to its
 copies, which share the card and so could time nothing).
@@ -299,7 +323,9 @@ copies, which share the card and so could time nothing).
 
 is a rank of phase 11's jobs (``async OUT_DIR`` the requests of (e),
 ``fail -`` the planted failure): the results go to
-``OUT_DIR/rank<r>.npz``.
+``OUT_DIR/rank<r>.npz``.  ``serve OUT_DIR`` (under ``--serve``) is a rank
+of phase 15 (c)'s job; its finished list goes to
+``OUT_DIR/rank<r>.json``.
 
     python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
 
@@ -355,6 +381,7 @@ seeds of four cases (``WITNESS_CASES``): the evidence for the bf16
 limits' measure.
 """
 
+import argparse
 import collections
 import contextlib
 import ctypes
@@ -381,8 +408,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mpi4jax_tpu_torch import bench as port_bench
+from mpi4jax_tpu_torch import serving
 from mpi4jax_tpu_torch import launch
 from mpi4jax_tpu_torch import ops as p_ops
+from mpi4jax_tpu_torch.benchmarks import serving as serving_bench
 from mpi4jax_tpu_torch.examples import transformer_decode, transformer_train
 from mpi4jax_tpu_torch.kernels import _build, sw_step
 from mpi4jax_tpu_torch.kernels import flash as kflash
@@ -395,9 +424,10 @@ from mpi4jax_tpu_torch.native import build as native_build
 from mpi4jax_tpu_torch.ops import p2p as p_p2p
 from mpi4jax_tpu_torch.parallel import distributed
 from mpi4jax_tpu_torch.parallel import moe as pmoe
-from mpi4jax_tpu_torch.parallel.comm import MeshComm
+from mpi4jax_tpu_torch.parallel.comm import MeshComm, SelfComm
 from mpi4jax_tpu_torch.parallel.halo import halo_exchange_2d
 from mpi4jax_tpu_torch.parallel.longseq import zigzag_shard
+from mpi4jax_tpu_torch.serving import engine as serving_engine
 from mpi4jax_tpu_torch.utils import prng
 from mpi4jax_tpu_torch.utils.runtime import graph_capture
 
@@ -512,6 +542,32 @@ PP_MESH = (1, 4)
 # (c): GPipe against 1F1B in memory, one card, bf16, one sequence a
 # microbatch
 PP_MEMORY_MICRO = 8
+# phase 15: the serving engine on the decode benchmark's model at its
+# published width (benchmarks/transformer.py run_decode's defaults), f32
+# with TF32 off; (a) 24 LoadGen requests on one card, offered at t = 0
+SERVE_CFG = tfm.TransformerConfig(
+    vocab=port_bench.DECODE_MODEL["vocab"],
+    d_model=port_bench.DECODE_MODEL["d_model"],
+    layers=port_bench.DECODE_MODEL["layers"],
+    heads=port_bench.DECODE_MODEL["heads"],
+    kv_heads=port_bench.DECODE_MODEL["kv_heads"],
+    head_dim=port_bench.DECODE_MODEL["d_model"]
+    // port_bench.DECODE_MODEL["heads"],
+    d_ff=port_bench.DECODE_MODEL["d_ff"],
+)
+SERVE_RUN = dict(max_batch=8, max_len=port_bench.DECODE_MODEL["max_len"],
+                 requests=24, prompt=(16, 256), new=(8, 96), seed=2026)
+# a response may depart from reference_greedy_decode only where the
+# oracle's top two logits lie closer than this (f32 products of two
+# cuBLAS call shapes differ by ~1e-5 of logits of size ~1; the planted
+# fault of (b) departs at gaps of ~1e-1)
+SERVE_TIE_LIMIT = 1e-3
+# (a)'s open-loop window: admission on, arrivals that overload 8 slots
+SERVE_OPEN = dict(slo_ms=2000.0, seconds=3.0, rate=80.0, seed=7)
+# (c): a --serve launcher job of 2 ranks on the card, tp 2
+SERVE_PROC = dict(ranks=2, max_batch=4, max_len=128, requests=8,
+                  prompt=(4, 64), new=(8, 32), seed=11)
+SERVE_PROC_TIMEOUT_S = 300.0
 
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
@@ -2554,7 +2610,8 @@ def proc_rank(argv):
     """A rank of a launcher job (``--proc-rank KIND OUT_DIR [NY NX]``):
     ``battery`` writes ``proc_battery``'s results (with the halo at an
     NY x NX block) to ``OUT_DIR/rank<r>.npz``, ``async`` those of
-    ``proc_async``; ``fail`` is the planted
+    ``proc_async``, ``serve`` the serving engine's finished list
+    (``proc_serve``, phase 15 (c)); ``fail`` is the planted
     failure: rank ``proc_failing_rank(n)`` raises once every rank has
     passed a barrier, while the others wait in an allreduce."""
     from mpi4jax_tpu_torch import get_default_comm
@@ -2575,6 +2632,9 @@ def proc_rank(argv):
     if kind == "async":
         save_results(proc_async(comm, device),
                      pathlib.Path(out_dir) / f"rank{comm.rank()}.npz")
+        return 0
+    if kind == "serve":
+        proc_serve(comm, device, out_dir)
         return 0
     if kind == "fail":
         p_ops.barrier(comm=comm)
@@ -3568,6 +3628,389 @@ def pp_phase(device, kernels, card):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 15: serving ----------------------------------------------------
+
+
+def serve_params(cfg, device):
+    """The served model's f32 parameters from a seeded CPU generator
+    (the same on every rank of a job), on ``device``."""
+    return tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device=device)
+
+
+def serve_requests(run, vocab):
+    """``run["requests"]`` requests of the port's ``LoadGen`` (seed
+    ``run["seed"]``, prompt lengths and ``max_new`` uniform over
+    ``run["prompt"]`` and ``run["new"]``), every one arriving at t = 0."""
+    gen = serving.LoadGen(seed=run["seed"], rate_rps=1.0,
+                          prompt_len=("uniform", *run["prompt"]),
+                          max_new=("uniform", *run["new"]), vocab=vocab)
+    return [serving.Request(r.rid, r.prompt, r.max_new, 0.0)
+            for r in gen.take(run["requests"])]
+
+
+def serve_lengths(req, max_len):
+    """A response's length: the prompt and its continuation, clamped by
+    the slot's ``max_len`` budget."""
+    return req.prompt_len + min(req.max_new, max_len - req.prompt_len)
+
+
+def serve_drive(engine, reqs, stop=False):
+    """Offer ``reqs`` at the start of the clock (milliseconds since the
+    call) and step the leader until every request finished (then, with
+    ``stop``, the stop plan that ends the followers' loop); the
+    accounting is checked.  Returns the wall seconds, the steps and the
+    occupancy after each step."""
+    t0 = time.perf_counter()
+
+    def now():
+        return (time.perf_counter() - t0) * 1e3
+
+    for req in reqs:
+        engine.offer(req, now())
+    occupancy = []
+    while not engine.sched.idle():
+        engine.step(now())
+        occupancy.append(engine.stats.occupancy)
+    if stop:
+        engine.stop(now())
+    engine._sync()
+    engine.sched.check_accounting()
+    return {"wall_s": time.perf_counter() - t0, "steps": len(occupancy),
+            "occupancy": occupancy}
+
+
+@torch.no_grad()
+def oracle_logits(params, tokens, cfg):
+    """The unsharded model's logits at the last of ``tokens`` ([1, n]):
+    ``reference_greedy_decode``'s forward."""
+    x = params.embed[tokens]
+    for i in range(cfg.layers):
+        x = tfm.dense_layer(x, tfm._layer(params.blocks, i), cfg)
+    return tfm._rmsnorm(x[:, -1], params.ln_f, cfg.eps) @ params.head
+
+
+def serve_oracle(params, cfg, reqs, max_len, device):
+    """Each request's response by ``reference_greedy_decode`` on
+    ``device``: ``{rid: tokens}``."""
+    return {r.rid: tuple(tfm.reference_greedy_decode(
+        params, torch.tensor([r.prompt], device=device), cfg,
+        serve_lengths(r, max_len))[0].tolist()) for r in reqs}
+
+
+def hold_responses(finished, reqs, refs, params, cfg, max_len, limit):
+    """The engine's responses against the oracle's.  A response may
+    depart from the oracle's only where the oracle's top two logits lie
+    within ``limit`` of each other: the engine's batched products and
+    the oracle's are different cuBLAS calls, so a near tie may flip.
+    Returns ``{"equal", "departed": [(rid, index, gap)], "bad": [...]}``,
+    ``bad`` the departures at a gap of ``limit`` or more and the
+    responses of the wrong length."""
+    by_rid = {r.rid: r for r in reqs}
+    out = {"equal": 0, "departed": [], "bad": []}
+    for rid, toks in finished:
+        req, ref = by_rid[rid], refs[rid]
+        if len(toks) != serve_lengths(req, max_len) or \
+                toks[:req.prompt_len] != req.prompt:
+            out["bad"].append((rid, "length or prompt", len(toks)))
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                 None)
+        if j is None:
+            out["equal"] += 1
+            continue
+        prefix = torch.tensor([ref[:j]], device=params.embed.device)
+        top2 = torch.topk(oracle_logits(params, prefix, cfg)[0], 2).values
+        gap = float(top2[0] - top2[1])
+        out["departed"].append((rid, j, gap))
+        if not gap < limit:
+            out["bad"].append((rid, j, gap))
+    return out
+
+
+@contextlib.contextmanager
+def slot_step_fault():
+    """Phase 15 (b)'s planted fault: the slot step's attention with every
+    row at slot 0's position (each row still writes its own K/V)."""
+    sound = serving_engine._slot_attention
+
+    def at_slot_0(q, k, v, pos):
+        return sound(q, k, v, pos[:1].expand(pos.shape[0]))
+
+    serving_engine._slot_attention = at_slot_0
+    try:
+        yield
+    finally:
+        serving_engine._slot_attention = sound
+
+
+def serve_warmup(engine, run):
+    """Every prefill bucket of ``run``'s prompt range and the decode once,
+    outside the measured drive; the engine's stats start afresh."""
+    buckets = sorted({engine._prefill_bucket(p)
+                      for p in range(run["prompt"][0], run["prompt"][1] + 1)})
+    warm = [serving.Request(-1 - i, tuple(range(1, min(b, run["max_len"]
+                                                        - 2) + 1)), 3, 0.0)
+            for i, b in enumerate(buckets)]
+    serve_drive(engine, warm)
+    engine.finished.clear()
+    engine.reconfigure("off")
+    return buckets
+
+
+def serve_one_card(device, card, run=None, cfg=None, limit=None,
+                   open_loop=None):
+    """Phase 15 (a) and (b): the engine on one card (a ``SelfComm``) at
+    ``SERVE_RUN``, its responses held to the oracle under the tie rule,
+    its timings; one open-loop window under admission; then the planted
+    fault, which the same check must catch far above the limit."""
+    run, cfg = run or SERVE_RUN, cfg or SERVE_CFG
+    limit = SERVE_TIE_LIMIT if limit is None else limit
+    open_loop = open_loop or SERVE_OPEN
+    params = serve_params(cfg, device)
+
+    def engine():
+        return serving_engine.ServingEngine(
+            SelfComm(), cfg, params, max_len=run["max_len"],
+            max_batch=run["max_batch"], admit="off", markers=True,
+            device=device)
+
+    eng = engine()
+    buckets = serve_warmup(eng, run)
+    reqs = serve_requests(run, cfg.vocab)
+    reset_launch_counts()
+    drive = serve_drive(eng, reqs)
+    counts = launch_counts()
+    flash = {k: n for k, n in counts.items() if k.startswith("flash")}
+    snap = eng.stats.snapshot()
+    finished = list(eng.finished)
+    t0 = time.perf_counter()
+    refs = serve_oracle(params, cfg, reqs, run["max_len"], device)
+    oracle_s = time.perf_counter() - t0
+    held = hold_responses(finished, reqs, refs, params, cfg, run["max_len"],
+                          limit)
+    generated = sum(len(t) - reqs[rid].prompt_len for rid, t in finished)
+    failed = []
+    if sorted(rid for rid, _ in finished) != [r.rid for r in reqs] or \
+            (snap["submitted"], snap["completed"], snap["shed"]) != (
+                len(reqs), len(reqs), 0):
+        failed.append(f"accounting: {len(finished)} finished, {snap}")
+    if held["bad"]:
+        failed.append(f"responses off the oracle: {held['bad']}")
+    if any(flash.values()):
+        failed.append(f"flash launches {flash}")
+
+    # the step's and the prefills' device times (CUDA events)
+    pos = torch.arange(run["max_batch"], device=device) * (
+        run["max_len"] // run["max_batch"]) + run["max_len"] // run[
+            "max_batch"] - 1
+    last = torch.zeros_like(pos)
+
+    def slot_step():
+        return serving_engine._decode_step_slots(
+            eng.params, eng.cache, last, pos, cfg, eng.comm, eng.hq_l,
+            eng.hk_l)
+
+    with torch.no_grad():
+        step_ms = time_ms(slot_step, n=20, repeats=5, warmup=3)
+        # one slot step under the profiler: its device work and launches
+        per_kernel, span = device_trace(slot_step)
+        prefill_ms = {}
+        for b in buckets:
+            padded = torch.zeros((1, b), dtype=torch.int64, device=device)
+            prefill_ms[b] = time_ms(lambda: eng._prefill(padded, 0, b),
+                                    n=5, repeats=3, warmup=1)
+    out = {"requests": len(reqs), "wall_s": drive["wall_s"],
+           "steps": drive["steps"], "generated": generated,
+           "tokens_per_s": generated / drive["wall_s"],
+           "mean_occupancy": statistics.fmean(drive["occupancy"]),
+           "latency_p50_ms": snap["latency_p50_ms"],
+           "latency_p99_ms": snap["latency_p99_ms"],
+           "first_token_p50_ms": snap["first_token_p50_ms"],
+           "first_token_p99_ms": snap["first_token_p99_ms"],
+           "decode_step_ms": step_ms, "prefill_ms": prefill_ms,
+           "step_trace": None,
+           "flash_launches": flash, "launches": counts,
+           "equal": held["equal"], "departed": held["departed"],
+           "oracle_s": oracle_s, "tie_limit": limit}
+    log(f"  (a) {len(reqs)} requests, max_batch {run['max_batch']}, max_len "
+        f"{run['max_len']}: {drive['wall_s']:.4f} s wall, {generated} "
+        f"tokens generated, {out['tokens_per_s']:.2f} tokens/s, "
+        f"{drive['steps']} steps, mean occupancy "
+        f"{out['mean_occupancy']:.4f} of {run['max_batch']}; latency p50 "
+        f"{snap['latency_p50_ms']:.4f} p99 {snap['latency_p99_ms']:.4f} ms, "
+        f"first token p50 {snap['first_token_p50_ms']:.4f} p99 "
+        f"{snap['first_token_p99_ms']:.4f} ms; on {card}")
+    log(f"  (a) decode step over {run['max_batch']} slots "
+        f"{step_ms:.4f} ms (CUDA events); prefill ms by bucket "
+        f"{ {b: round(ms, 4) for b, ms in prefill_ms.items()} }; flash "
+        f"launches {flash}")
+    if per_kernel:
+        busy = sum(ms for ms, _ in per_kernel.values())
+        trace = out["step_trace"] = {
+            "busy_ms": busy, "span_ms": span,
+            "launches": sum(c for _, c in per_kernel.values()),
+            "idle_share": 1 - busy / step_ms,
+            "split_ms": device_split(per_kernel)}
+        log(f"  (a) one traced slot step: device busy {busy:.4f} ms in "
+            f"{trace['launches']} launches over a {span:.4f} ms timeline; "
+            f"idle share {trace['idle_share']:.4f} of the timed step; by "
+            f"class { {k: round(v, 4) for k, v in trace['split_ms'].items()} }")
+    else:
+        log("  (a) the profiler recorded no device activity: the slot "
+            "step's split is not measured")
+    log(f"  (a) responses against reference_greedy_decode ({oracle_s:.1f} "
+        f"s on {device}): {held['equal']} equal, {len(held['departed'])} "
+        f"departing at a near tie {held['departed']} (limit: a top-two "
+        f"gap under {limit:g}) {'FAIL ' + str(failed) if failed else 'ok'}")
+
+    # one open-loop window: admission on, an SLO, arrivals that overload
+    # the slots (benchmarks/serving.py's window)
+    args = argparse.Namespace(
+        slo=open_loop["slo_ms"], rate_limit=0.0, seed=open_loop["seed"],
+        rate=open_loop["rate"], prompt=run["prompt"], new=run["new"],
+        vocab=cfg.vocab, duration=open_loop["seconds"])
+    window_stats = serving.ServingStats(slo_ms=open_loop["slo_ms"],
+                                        max_batch=run["max_batch"],
+                                        admit_mode="on")
+    info = serving_bench._window(eng, args, "on", {"on": window_stats}, 0)
+    eng.sched.check_accounting()
+    w = window_stats.snapshot()
+    if w["submitted"] != w["completed"] + w["shed"] or \
+            w["submitted"] != info["offered"]:
+        failed.append(f"open-loop accounting: {info}, {w}")
+    eng.stop()
+    est = eng.ctrl.estimator
+    out["open_loop"] = {"offered": info["offered"], "wall_s": info["wall_s"],
+                        "estimator_step_ms": est.step_ms,
+                        "estimator_prefill_ms_per_tok":
+                            est.prefill_ms_per_tok,
+                        **{k: w[k] for k in (
+                            "completed", "shed", "shed_by_reason",
+                            "slo_attainment", "latency_p50_ms",
+                            "latency_p99_ms")}}
+    log(f"  (a) open loop, admission on, SLO {open_loop['slo_ms']:g} ms, "
+        f"{open_loop['rate']:g} requests/s for {open_loop['seconds']:g} s: "
+        f"{info['offered']} offered, {w['completed']} completed, "
+        f"{w['shed']} shed {w['shed_by_reason']}, SLO attainment "
+        f"{w['slo_attainment']}, p99 {w['latency_p99_ms']} ms, "
+        f"{info['wall_s']:.4f} s wall; the estimator learned a "
+        f"{est.step_ms:.4f} ms step and {est.prefill_ms_per_tok:.5f} ms "
+        f"a prompt token; on {card}")
+    del eng
+
+    with slot_step_fault():
+        bad = engine()
+        serve_drive(bad, reqs=serve_requests(run, cfg.vocab))
+    fault = hold_responses(bad.finished, reqs, refs, params, cfg,
+                           run["max_len"], limit)
+    worst = max((g for _, _, g in fault["departed"]), default=0.0)
+    caught = bool(fault["bad"]) and worst >= 10 * limit
+    log(f"  (b) planted fault (every row attends at slot 0's position): "
+        f"{len(fault['departed'])} of {len(reqs)} responses depart, "
+        f"largest top-two gap at a departure {worst:.4f} ({worst / limit:.0f}"
+        f" x the limit) {'caught' if caught else 'NOT CAUGHT'}")
+    if not caught:
+        failed.append(f"the planted fault passed: {fault}")
+    out["fault"] = {"departed": len(fault["departed"]), "worst_gap": worst}
+    if failed:
+        raise RuntimeError(f"phase 15 (a)/(b): {failed}")
+    return out
+
+
+def proc_serve(comm, device, out_dir):
+    """Phase 15 (c)'s rank: the engine over the job's proc world at
+    ``SERVE_PROC`` on ``SERVE_CFG`` (tp = the world), its tensors on
+    ``device`` (staged through host memory across ranks); every rank
+    writes its finished list to ``OUT_DIR/rank<r>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = SERVE_PROC
+    params = serve_params(SERVE_CFG, "cpu")
+    eng = serving_engine.ServingEngine(
+        comm, SERVE_CFG, params, max_len=run["max_len"],
+        max_batch=run["max_batch"], admit="off", markers=True, device=device)
+    with torch.no_grad():
+        if eng.is_leader:
+            serve_drive(eng, serve_requests(run, SERVE_CFG.vocab), stop=True)
+        else:
+            eng.run_follower()
+    out = {"finished": eng.finished, "snapshot": eng.stats.snapshot()}
+    (pathlib.Path(out_dir) / f"rank{comm.rank()}.json").write_text(
+        json.dumps(out))
+
+
+def serve_proc_phase(device, card, limit=None):
+    """Phase 15 (c): ``SERVE_PROC["ranks"]`` ranks of a ``--serve``
+    launcher job on the card: both ranks' finished lists equal, and
+    held to the oracle as in (a)."""
+    limit = SERVE_TIE_LIMIT if limit is None else limit
+    run, n = SERVE_PROC, SERVE_PROC["ranks"]
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        rc, out, err, secs = launch.run_job(
+            n, [pathlib.Path(__file__).resolve(), "--proc-rank", "serve",
+                work], platform=device.type, timeout=SERVE_PROC_TIMEOUT_S,
+            flags=("--serve",))
+        if rc != 0:
+            raise RuntimeError(f"the {n}-rank serve job exited {rc}:\n"
+                               f"{out[-3000:]}\n{err[-6000:]}")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(n)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lists = [[(rid, tuple(t)) for rid, t in r["finished"]] for r in ranks]
+    reqs = serve_requests(run, SERVE_CFG.vocab)
+    params = serve_params(SERVE_CFG, device)
+    refs = serve_oracle(params, SERVE_CFG, reqs, run["max_len"], device)
+    held = hold_responses(lists[0], reqs, refs, params, SERVE_CFG,
+                          run["max_len"], limit)
+    agree = all(lst == lists[0] for lst in lists)
+    ok = agree and len(lists[0]) == len(reqs) and not held["bad"]
+    log(f"  (c) {n}-rank --serve job (tp {n}, {len(reqs)} requests, prompts "
+        f"{run['prompt'][0]}-{run['prompt'][1]}, max_batch "
+        f"{run['max_batch']}): {secs:.1f} s; the ranks' finished lists "
+        f"{'equal' if agree else 'DIFFER'}; {held['equal']} responses equal "
+        f"to the oracle, departing at a near tie {held['departed']}; on "
+        f"{card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"phase 15 (c): {held}, agree={agree}")
+    return {"job_s": secs, "ranks": n, "equal": held["equal"],
+            "departed": held["departed"],
+            "leader": ranks[0]["snapshot"]}
+
+
+def serve_bench(card):
+    """Phase 15 (d): the bench's serving SLO leg (``bench.serving_leg``,
+    the root bench's ``proc_serving``): an 8-rank launcher job on the
+    card; its seven keys present and finite."""
+    keys = port_bench.serving_leg()
+    log(f"  (d) bench serving leg: {json.dumps(keys)} on {card}")
+    bad = [k for k in port_bench.SERVING_KEYS
+           if not (isinstance(keys.get(k), (int, float))
+                   and math.isfinite(keys[k]))]
+    if bad:
+        raise RuntimeError(f"the bench's serving leg gave no finite {bad}")
+    return keys
+
+
+def serve_phase(device, kernels, card):
+    """Phase 15: (a) the serving engine on one card at the decode model's
+    width, every response held to the oracle, no flash launch, one
+    open-loop window; (b) the planted fault caught; (c) two ranks of a
+    ``--serve`` job agreeing; (d) the bench's serving leg."""
+    t0 = time.perf_counter()
+    out = {"one_card": serve_one_card(device, card)}
+    for kern in kernels:
+        kern["launches_serve"] = out["one_card"]["launches"].get(
+            kern["name"], 0)
+    torch.cuda.empty_cache()
+    out["proc"] = serve_proc_phase(device, card)
+    out["bench"] = serve_bench(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15: {out['seconds']:.1f} s")
     return out
 
 
@@ -5536,7 +5979,8 @@ def run_checks(device, parts, mesh_timings=True):
     kernel; ``mesh``: phase 10c's transformer across thread ranks;
     ``proc``: phase 11's launcher jobs, no kernel; ``mlp``: phase 12's
     MLP steps, no kernel; ``moe``: phase 13; ``pp``: phase 14, no
-    kernel), after building the kernels they need.  The phases' own
+    kernel; ``serve``: phase 15, no kernel), after building the kernels
+    they need.  The phases' own
     timings are left out; ``fwd`` and ``bwd`` time the bf16 kernels at
     the meshes' shapes (:func:`mesh_shape_timings`) unless
     ``mesh_timings`` is False (``--no-timings``: the copies of
@@ -5545,7 +5989,8 @@ def run_checks(device, parts, mesh_timings=True):
     failed; returns 1 when any failed."""
     sources = ((("sw_step",) if "sw" in parts else ())
                + (FLASH_SOURCES
-                  if set(parts) - {"sw", "ops", "proc", "mlp", "pp"}
+                  if set(parts) - {"sw", "ops", "proc", "mlp", "pp",
+                                   "serve"}
                   else ()))
     if sources:
         build_phase(sources)
@@ -5564,6 +6009,7 @@ def run_checks(device, parts, mesh_timings=True):
         "mlp": lambda: mlp_mesh_phase(device, card_line()),
         "moe": lambda: moe_phase(device, [], card_line()),
         "pp": lambda: pp_phase(device, [], card_line()),
+        "serve": lambda: serve_phase(device, [], card_line()),
     }
     failed = []
     for part in parts:
@@ -5768,7 +6214,7 @@ def main(argv):
     if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
                                     "mesh", "proc", "mlp", "moe",
-                                    "pp"} and argv[2:] in (
+                                    "pp", "serve"} and argv[2:] in (
             [], ["--no-timings"]):
         return run_checks(device, argv[1].split(","),
                           mesh_timings=argv[2:] == [])
@@ -5896,6 +6342,15 @@ def main(argv):
         f"memory at {PP_MEMORY_MICRO} microbatches)")
     pp_record = pp_phase(device, kernels, card)
 
+    log(f"phase serving (the continuous-batching engine on the decode "
+        f"model, {SERVE_CFG.layers} layers, d_model {SERVE_CFG.d_model}, "
+        f"vocab {SERVE_CFG.vocab}, f32: {SERVE_RUN['requests']} requests on "
+        f"one card at max_batch {SERVE_RUN['max_batch']}, max_len "
+        f"{SERVE_RUN['max_len']}; an open-loop window; the planted fault; "
+        f"a {SERVE_PROC['ranks']}-rank --serve job; the bench's serving "
+        f"leg)")
+    serve_record = serve_phase(device, kernels, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -5907,7 +6362,7 @@ def main(argv):
                     "bench_training": bench_training,
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
                     "proc": proc, "mlp_mesh": mlp_mesh, "moe": moe_record,
-                    "pp": pp_record,
+                    "pp": pp_record, "serve": serve_record,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES},

@@ -18,7 +18,9 @@ the OS processes of a launcher job over the native DCN bridge
 the proc tier, CUDA tensors staged through host memory), where the
 nonblocking requests (``iallreduce``, ``isend``, ``wait`` ...) and the
 bucketed gradient sync (``BucketedGradSync``) overlap communication with
-the program's compute; see ROADMAP.md for what is still to be ported.
+the program's compute, and where ``serving/`` runs the continuous-
+batching inference engine tensor-parallel across the ranks; see
+ROADMAP.md for what is still to be ported.
 """
 
 import torch as _torch

@@ -102,9 +102,16 @@ The run, as in the root bench:
    off in interleaved pairs, on the card with its buckets staged
    (``train_step_ms_proc8_overlap_on``, ``_off``,
    ``overlap_speedup_proc8``) and on CPU tensors (the same with
-   ``_host``).  With ``--device cpu`` they are named skipped (the staged
-   leg needs the card), and under ``torchrun`` too (one launcher job is
-   its own world).
+   ``_host``); and, but for ``--quick``, the serving SLO leg
+   (:func:`serving_leg`): ``benchmarks/serving.py --arms pairs --windows
+   2 --duration 6 --rate 6 --slo 6000``, the continuous-batching engine
+   tensor-parallel over the 8 ranks, admission on and off in interleaved
+   windows (``serving_p50_ms_proc8``, ``serving_p99_ms_proc8``,
+   ``serving_rps_proc8``, ``serving_shed_rate_proc8``,
+   ``serving_slo_attainment_proc8``, ``serving_p99_ms_proc8_admit_off``,
+   ``serving_slo_attainment_proc8_admit_off``).  With ``--device cpu``
+   they are named skipped (the staged legs need the card), and under
+   ``torchrun`` too (one launcher job is its own world).
 
 Across ranks every decision (the schedule, the calls a batch, the second
 wind) is taken on the slowest rank's time (a MAX allreduce), so all
@@ -156,7 +163,7 @@ from mpi4jax_tpu_torch.utils.runtime import (
 __all__ = ["run_bench", "estimate", "hbm_copy_bandwidth",
            "nominal_hbm_gbps", "allreduce_bandwidth", "local_world_busbw",
            "busbw_factor", "matmul_roofline_tflops", "training_legs",
-           "proc_legs", "overlap_leg", "main"]
+           "proc_legs", "overlap_leg", "serving_leg", "main"]
 
 BASELINE_CELL_UPDATES_PER_SEC = 4.5e8  # 1x P100, BASELINE.md
 
@@ -185,8 +192,9 @@ SKIPPED = (
      "io_uring, the autotune pair, two-tier and weak scaling",
      "they wait for ROADMAP Queue 1 item 19 (a second world kind inside "
      "one job, or emulated links)"),
-    ("the serving legs (SLO, autoscale)",
-     "serving waits for ROADMAP Queue 1 item 9"),
+    ("the serving autoscale leg",
+     "it needs elastic jobs (--elastic rejoin --autoscale), which wait for "
+     "ROADMAP Queue 1 item 19"),
 )
 # across ranks: the leg that runs in one process
 WORLD_SKIPPED = (
@@ -206,7 +214,7 @@ PROC_KEYS = tuple(k.format(n=PROC_RANKS) for k in (
     "allreduce_busbw_proc{n}_shm_gbps", "allreduce_busbw_proc{n}_shm_host_gbps",
     "halo_p50_ms_proc{n}_w1_coalesce_on", "halo_p50_ms_proc{n}_w1_coalesce_off",
     "halo_coalesce_speedup_proc{n}"))
-PROC_SKIPPED = ("the proc busbw, halo and overlap legs",
+PROC_SKIPPED = ("the proc busbw, halo, overlap and serving legs",
                 "one launcher job is its own world")
 # the root bench's proc overlap leg (bench.py proc_overlap_step): a
 # launcher job of PROC_RANKS ranks running benchmarks/transformer.py
@@ -216,6 +224,15 @@ OVERLAP_KEYS = tuple(k.format(n=PROC_RANKS) for k in (
     "train_step_ms_proc{n}_overlap_on", "train_step_ms_proc{n}_overlap_off",
     "overlap_speedup_proc{n}", "train_step_ms_proc{n}_host_overlap_on",
     "train_step_ms_proc{n}_host_overlap_off", "overlap_speedup_proc{n}_host"))
+# the root bench's serving SLO leg (bench.py proc_serving): a launcher job
+# of PROC_RANKS ranks running benchmarks/serving.py with its argv
+SERVING_ARGS = ("--arms", "pairs", "--windows", 2, "--duration", 6,
+                "--rate", 6, "--slo", 6000)
+SERVING_KEYS = tuple(k.format(n=PROC_RANKS) for k in (
+    "serving_p50_ms_proc{n}", "serving_p99_ms_proc{n}",
+    "serving_rps_proc{n}", "serving_shed_rate_proc{n}",
+    "serving_slo_attainment_proc{n}", "serving_p99_ms_proc{n}_admit_off",
+    "serving_slo_attainment_proc{n}_admit_off"))
 
 # the root bench's allreduce legs (bench.py allreduce_bandwidth and
 # virtual_mesh_busbw): MB per rank, chained calls per batch, and the
@@ -445,6 +462,27 @@ def overlap_leg(batches=OVERLAP["batches"], say=log):
         f"{records[0]['bucket_bytes']} bytes ({secs:.1f} s): "
         + ", ".join(f"{k} {keys[k]}" for k in OVERLAP_KEYS))
     keys["proc_overlap_job_s"] = round(secs, 3)
+    return keys
+
+
+def serving_leg(say=log):
+    """The root bench's serving SLO leg: one launcher job of
+    ``PROC_RANKS`` ranks on the one card running ``benchmarks/
+    serving.py`` with the root bench's argv (``SERVING_ARGS``:
+    admission-on and admission-off windows interleaved, 2 pairs of 6 s
+    at 6 requests/s under a 6000 ms SLO; the tensor-parallel engine's
+    collectives staged through pinned host memory): the seven keys of
+    ``SERVING_KEYS`` and the job's seconds."""
+    records, secs = _proc_job(list(SERVING_ARGS), script="serving.py")
+    by_metric = {rec["metric"]: rec for rec in records}
+    missing = set(SERVING_KEYS) - set(by_metric)
+    if missing:
+        raise RuntimeError(f"the serving job gave no {sorted(missing)}")
+    keys = {k: by_metric[k]["value"] for k in SERVING_KEYS}
+    say(f"[bench] proc serving, {PROC_RANKS} ranks, "
+        f"{' '.join(map(str, SERVING_ARGS))} ({secs:.1f} s): "
+        + ", ".join(f"{k} {v}" for k, v in keys.items()))
+    keys["proc_serving_job_s"] = round(secs, 3)
     return keys
 
 
@@ -779,9 +817,11 @@ def main(argv=None):
     elif torch.device(device).type == "cuda":
         rec.update(proc_legs(args.quick))
         if args.quick:
-            log("[bench] skipped the proc overlap step: quick mode")
+            log("[bench] skipped the proc overlap step and serving: quick "
+                "mode")
         else:
             rec.update(overlap_leg())
+            rec.update(serving_leg())
     else:
         log(f"[bench] skipped {PROC_SKIPPED[0]}: the staged leg moves "
             "CUDA tensors (run on the card)")

@@ -3,6 +3,7 @@ equivalent.
 
     python -m mpi4jax_tpu_torch.launch -np 4 prog.py [args...]
     python -m mpi4jax_tpu_torch.launch -np 2 --platform cpu prog.py
+    python -m mpi4jax_tpu_torch.launch -np 2 --serve --slo 2000 serve.py
 
 The port's counterpart of ``mpi4jax_tpu/launch.py``.  It builds the
 native bridge once (``native/build.py``), then starts N worker processes
@@ -33,10 +34,15 @@ names the ranks still running and exits 124.  The workers form one
 process group, which a failure or a timeout ends (SIGTERM, then SIGKILL
 after 10 s).
 
-``--restarts`` and ``--elastic`` come with ROADMAP Queue 1 item 19;
-``--telemetry``, ``--metrics``, ``--autotune`` and ``--shims`` with item
-10; ``--serve``, ``--slo``, ``--max-batch`` and ``--autoscale`` with
-item 9.
+``--serve`` is the serving job's wiring: ``T4J_ADMIT=on`` for every
+rank unless the environment chose (``off`` included), ``--slo MS`` sets
+``T4J_SLO_MS`` and ``--max-batch N`` ``T4J_MAX_BATCH`` (both need
+``--serve``); the program runs a ``mpi4jax_tpu_torch.serving`` engine
+(``benchmarks/serving.py`` is the reference loop).
+
+``--restarts``, ``--elastic`` and ``--autoscale`` come with ROADMAP
+Queue 1 item 19; ``--telemetry``, ``--metrics``, ``--autotune`` and
+``--shims`` with item 10.
 """
 
 import argparse
@@ -76,18 +82,18 @@ def rank_device():
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def run_job(n, prog_args, *, platform="cuda", timeout):
+def run_job(n, prog_args, *, platform="cuda", timeout, flags=()):
     """Run ``python -m mpi4jax_tpu_torch.launch -np n --platform platform
-    --timeout timeout *prog_args`` from this checkout (its root on
-    ``PYTHONPATH``) and wait; returns (exit code, stdout, stderr,
-    seconds).  The launcher's deadline ends the job; this call's, 60 s
-    later, is the backstop."""
+    --timeout timeout *flags *prog_args`` from this checkout (its root on
+    ``PYTHONPATH``; ``flags`` such as ``("--serve",)``) and wait; returns
+    (exit code, stdout, stderr, seconds).  The launcher's deadline ends
+    the job; this call's, 60 s later, is the backstop."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "mpi4jax_tpu_torch.launch", "-np", str(n),
            "--platform", platform, "--timeout", str(timeout),
-           *map(str, prog_args)]
+           *map(str, flags), *map(str, prog_args)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
                           cwd=root, timeout=timeout + 60)
@@ -220,6 +226,14 @@ def _run_workers(args, failure_file, ready_dir):
                T4J_READY_DIR=ready_dir)
     if args.platform == "cpu":
         env["CUDA_VISIBLE_DEVICES"] = ""
+    if args.serve:
+        # admission on unless the environment chose (off included: the
+        # uncontrolled-baseline arm of the benchmarks)
+        env.setdefault("T4J_ADMIT", "on")
+        if args.slo is not None:
+            env["T4J_SLO_MS"] = str(args.slo)
+        if args.max_batch is not None:
+            env["T4J_MAX_BATCH"] = str(args.max_batch)
     procs = []
     pgid = None
     for rank in range(n):
@@ -288,6 +302,20 @@ def main(argv=None):
         "--timeout", type=float, default=None, metavar="SECONDS",
         help="whole-job deadline: past it the workers are torn down and "
         "the launcher exits 124, naming the ranks still running")
+    parser.add_argument(
+        "--serve", action="store_true",
+        help="serving-job wiring (docs/serving.md): T4J_ADMIT=on for every "
+        "rank unless the environment chose; pair with --slo for the "
+        "latency target.  The program runs a mpi4jax_tpu_torch.serving "
+        "engine (benchmarks/serving.py is the reference loop)")
+    parser.add_argument(
+        "--slo", type=float, default=None, metavar="MS",
+        help="with --serve: per-request end-to-end latency SLO in "
+        "milliseconds (T4J_SLO_MS for every rank)")
+    parser.add_argument(
+        "--max-batch", type=int, default=None, metavar="N",
+        help="with --serve: concurrent decode slots in the serving "
+        "engine's KV pool (T4J_MAX_BATCH)")
     parser.add_argument("--child", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("prog", nargs=argparse.REMAINDER)
@@ -303,6 +331,15 @@ def main(argv=None):
     if args.timeout is not None and args.timeout <= 0:
         parser.error("--timeout must be > 0 seconds (omit it for no "
                      "deadline)")
+    if args.slo is not None and not args.serve:
+        parser.error("--slo requires --serve (it sets the serving "
+                     "engine's T4J_SLO_MS)")
+    if args.max_batch is not None and not args.serve:
+        parser.error("--max-batch requires --serve (it sets the "
+                     "serving engine's T4J_MAX_BATCH)")
+    if args.slo is not None and args.slo <= 0:
+        parser.error("--slo must be > 0 milliseconds (omit it for no "
+                     "SLO)")
     from mpi4jax_tpu_torch.native import build
 
     build.ensure_built()  # once, before the ranks' bootstrap deadline

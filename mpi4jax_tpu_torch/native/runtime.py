@@ -20,7 +20,8 @@ output tensors until its wait, since the bridge's progress thread reads
 and writes them after the submit returns.  Requests never waited are
 reported on stderr at :func:`finalize`.  Telemetry and the flight
 recorder come with ROADMAP Queue 1 item 10; the wire info surfaces and
-the resize API with item 19.
+the resize API with item 19.  :func:`link_stats` (the self-healing
+transport's counters) is here for serving admission's fabric poll.
 """
 
 import atexit
@@ -44,6 +45,7 @@ __all__ = [
     "world_info",
     "alive_ranks",
     "topology",
+    "link_stats",
     "comm_handle",
     "last_error",
     "check_health",
@@ -159,6 +161,10 @@ SIGNATURES = {
     "t4j_world_info": ([_u32p, _i32p, _u64p, _i32p, _u64p], _i32),
     "t4j_resize_wait": ([_dbl], _i32),
     "t4j_topo": ([_i32p] * 5, _i32),
+    "t4j_link_stats": ([_i32, _u64p, _u64p, _u64p, _u64p, _u64p, _i32p],
+                       _i32),
+    "t4j_link_stripe_stats": ([_i32, _i32, _u64p, _u64p, _u64p, _u64p,
+                               _u64p, _i32p], _i32),
     "t4j_c_allreduce": ([_i32, _vp, _vp, _u64, _i32, _i32], _i32),
     "t4j_c_reduce": ([_i32, _vp, _vp, _u64, _i32, _i32, _i32], _i32),
     "t4j_c_scan": ([_i32, _vp, _vp, _u64, _i32, _i32], _i32),
@@ -457,6 +463,76 @@ def topology():
     return dict(zip(keys, (v.value for v in vals)))
 
 
+_LINK_KEYS = ("reconnects", "replayed_frames", "replayed_bytes",
+              "tx_syscalls", "rx_syscalls", "state")
+
+
+def _link_counters(fn, *args):
+    """The six counters of ``t4j_link_stats`` or ``t4j_link_stripe_stats``
+    as a dict, or None where the call filled nothing."""
+    vals = [ctypes.c_uint64(0) for _ in range(5)] + [ctypes.c_int32(0)]
+    if not fn(*args, *[ctypes.byref(v) for v in vals]):
+        return None
+    return dict(zip(_LINK_KEYS, (v.value for v in vals)))
+
+
+def _link_stats_one(lib, peer):
+    return _link_counters(lib.t4j_link_stats, int(peer))
+
+
+def _stripe_stats_one(lib, peer, stripe):
+    return _link_counters(lib.t4j_link_stripe_stats, int(peer), int(stripe))
+
+
+def link_stats(peer=None):
+    """The self-healing transport's counters, or None before init.
+
+    ``peer=None`` aggregates every link: ``{"reconnects",
+    "replayed_frames", "replayed_bytes", "tx_syscalls", "rx_syscalls",
+    "state"}`` with ``state`` the worst link's (0 up, 1 broken or
+    repairing, 2 dead), plus the per-peer maxima (``"worst_peer"``,
+    ``"max_reconnects"``, ``"max_replayed_frames"``,
+    ``"max_replayed_bytes"``): serving admission sheds by the worst
+    link, not the average.  ``worst_peer`` is the rank with the most
+    reconnects (ties broken by replayed bytes, then by the worse
+    state); None when no link has any counter.  An integer ``peer``
+    selects that world rank's link, with one dict per stripe under
+    ``"stripes"`` (None for this rank itself or out of range)."""
+    lib = _state["lib"]
+    if lib is None or not lib.t4j_initialized():
+        return None
+    if peer is not None:
+        s = _link_stats_one(lib, peer)
+        if s is None:
+            return None
+        stripes = []
+        while True:
+            ss = _stripe_stats_one(lib, peer, len(stripes))
+            if ss is None:
+                break
+            stripes.append(ss)
+        if stripes:
+            s["stripes"] = stripes
+        return s
+    agg = _link_stats_one(lib, -1)
+    if agg is None:
+        return None
+    agg.update(worst_peer=None, max_reconnects=0, max_replayed_frames=0,
+               max_replayed_bytes=0)
+    worst_key = (0, 0, 0)
+    for r in range(int(lib.t4j_world_size())):
+        s = _link_stats_one(lib, r)
+        if s is None:
+            continue
+        for k in ("reconnects", "replayed_frames", "replayed_bytes"):
+            agg[f"max_{k}"] = max(agg[f"max_{k}"], s[k])
+        key = (s["reconnects"], s["replayed_bytes"], s["state"])
+        if key > worst_key and any(key):
+            worst_key = key
+            agg["worst_peer"] = r
+    return agg
+
+
 def ensure_initialized():
     """Join the launcher job of this process (idempotent); False when
     this process is not a rank of one.
@@ -500,6 +576,26 @@ def ensure_initialized():
             "survive to resize; elastic jobs come with the launcher's "
             "--elastic and the resize API (ROADMAP Queue 1 item 19) — "
             "unset T4J_ELASTIC or set it to off"
+        )
+    # the serving knobs act in the Python serving tier after init; they
+    # are checked here, before anything is built, as the JAX package's
+    serve_slo = config.slo_ms()
+    config.max_batch()
+    serve_admit = config.admit_mode()
+    if serve_slo > 0 and serve_admit == "off":
+        raise ValueError(
+            f"T4J_SLO_MS={serve_slo:g} with T4J_ADMIT=off: an SLO "
+            "with admission control off cannot be enforced, only "
+            "missed — set T4J_ADMIT=on (shed to hold the deadline) "
+            "or drop the SLO (docs/serving.md \"admission control\")"
+        )
+    if config.autoscale_mode() == "on":
+        raise ValueError(
+            "T4J_AUTOSCALE=on: growing the serving world admits relaunched "
+            "ranks into an elastic job, which the port's fail-fast "
+            "launcher does not run yet (--elastic rejoin and the "
+            "autoscale wiring come with ROADMAP Queue 1 item 19) — "
+            "unset T4J_AUTOSCALE or set it to off"
         )
     lib = _load()
     lib.t4j_set_timeouts(op_s, connect_s)

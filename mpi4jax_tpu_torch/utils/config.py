@@ -22,11 +22,14 @@ fails at launch, never falls back in silence.
 * ``T4J_ELASTIC`` (off|shrink|rejoin), ``T4J_MIN_WORLD`` (1),
   ``T4J_RESIZE_TIMEOUT`` (30 s);
 * ``T4J_BUCKET_BYTES`` (4M), the gradient buckets of
-  ``BucketedGradSync`` and ``models/train.py:make_dp_train_step``.
+  ``BucketedGradSync`` and ``models/train.py:make_dp_train_step``;
+* the serving engine's ``T4J_SLO_MS`` (0: none), ``T4J_MAX_BATCH``
+  (8) and ``T4J_ADMIT`` (off|on), and ``T4J_AUTOSCALE`` (off; ``on``
+  is refused until the port has elastic jobs).
 
-Byte counts take a K/M/G suffix.  The serving, autoscale and telemetry
-knobs come with the modules that read them (ROADMAP Queue 1 items 9 and
-10).
+Byte counts take a K/M/G suffix.  The autoscaler's window and
+request-file knobs and the telemetry knobs come with the code that
+reads them (ROADMAP Queue 1 items 19 and 10).
 """
 
 import math
@@ -42,6 +45,7 @@ __all__ = [
     "hier_mode", "leader_ring_min_bytes",
     "retry_max", "backoff_base", "backoff_max", "replay_bytes",
     "elastic_mode", "min_world", "resize_timeout", "bucket_bytes",
+    "slo_ms", "max_batch", "admit_mode", "autoscale_mode",
 ]
 
 _TRUE = {"1", "true", "on", "yes"}
@@ -353,3 +357,43 @@ def bucket_bytes():
             "be empty)"
         )
     return v
+
+
+# -- serving ----------------------------------------------------------------
+
+
+def slo_ms():
+    """Per-request end-to-end latency SLO in milliseconds (docs/
+    serving.md), or 0 when unset.  Must be finite and >= 0.
+    ``ensure_initialized`` also refuses an SLO with ``T4J_ADMIT=off``:
+    nothing would enforce it."""
+    return seconds(os.environ.get("T4J_SLO_MS"), 0.0, name="T4J_SLO_MS")
+
+
+def max_batch():
+    """Concurrent decode slots in the serving engine's KV-cache pool
+    (default 8; 1..1024: the slot cache is ``layers x 2 x max_batch x
+    max_len`` KV positions of real memory, and the per-step plan vector
+    grows with it)."""
+    v = int_count(os.environ.get("T4J_MAX_BATCH"), 8,
+                  name="T4J_MAX_BATCH")
+    if not 1 <= v <= 1024:
+        raise ValueError(
+            f"T4J_MAX_BATCH={v} out of range (want 1..1024: at least "
+            "one slot, and the KV slot pool is real memory)"
+        )
+    return v
+
+
+def admit_mode():
+    """Serving admission control: ``off`` (default: every request is
+    admitted, the uncontrolled baseline) or ``on`` (token bucket and
+    SLO-estimator shedding)."""
+    return _choice("T4J_ADMIT", ("off", "on"), "off")
+
+
+def autoscale_mode():
+    """Traffic-driven autoscaling of the serving world: ``off``
+    (default) or ``on``.  ``ensure_initialized`` refuses ``on`` until
+    the port has elastic jobs (ROADMAP Queue 1 item 19)."""
+    return _choice("T4J_AUTOSCALE", ("off", "on"), "off")

@@ -151,11 +151,12 @@ def test_cpu_run_prints_one_json_record(tiny_bench, capsys, quick):
     assert rec["draws"] >= (3 if quick else 10)
     for leg, _ in bench.SKIPPED:
         assert f"[bench] skipped {leg}" in err
-    # only the rest of the proc tier (the second world kinds) and
-    # serving wait: one rank runs every single-card leg, the training
-    # legs with their remat policies included (the transformer's meshes
-    # are named only across ranks); the proc legs need the card
-    assert set(re.findall(r"item (\d+)", err)) == {"9", "19"}
+    # only the rest of the proc tier (the second world kinds, elastic
+    # jobs and so the serving autoscale leg) waits: one rank runs every
+    # single-card leg, the training legs with their remat policies
+    # included (the transformer's meshes are named only across ranks);
+    # the proc legs, serving's SLO leg among them, need the card
+    assert set(re.findall(r"item (\d+)", err)) == {"19"}
     assert (f"[bench] skipped {bench.PROC_SKIPPED[0]}: the staged leg "
             "moves CUDA tensors") in err
     assert rec["devices"] == 1 and rec["mesh"] == [1, 1]
@@ -384,3 +385,32 @@ def test_overlap_leg_keys_from_the_jobs_records(monkeypatch):
                         lambda args, script: (job(args, script)[0][:3], 1.0))
     with pytest.raises(RuntimeError, match="overlap job gave no"):
         bench.overlap_leg(batches=1, say=lambda msg: None)
+
+
+def test_serving_leg_keys_from_the_jobs_records(monkeypatch):
+    # the root bench's proc_serving: its argv, its seven keys
+    seen = {}
+
+    def job(args, script="proc_busbw.py"):
+        seen["args"], seen["script"] = [str(a) for a in args], script
+        return [{"metric": k, "value": i + 0.5}
+                for i, k in enumerate(bench.SERVING_KEYS)] + [
+            {"metric": "serving_slo_held_proc8", "value": 1}], 30.5
+
+    monkeypatch.setattr(bench, "_proc_job", job)
+    keys = bench.serving_leg(say=lambda msg: None)
+    assert seen["script"] == "serving.py"
+    assert seen["args"] == ["--arms", "pairs", "--windows", "2",
+                            "--duration", "6", "--rate", "6", "--slo",
+                            "6000"]
+    assert keys == {**{k: i + 0.5 for i, k in enumerate(bench.SERVING_KEYS)},
+                    "proc_serving_job_s": 30.5}
+    assert bench.SERVING_KEYS == (
+        "serving_p50_ms_proc8", "serving_p99_ms_proc8", "serving_rps_proc8",
+        "serving_shed_rate_proc8", "serving_slo_attainment_proc8",
+        "serving_p99_ms_proc8_admit_off",
+        "serving_slo_attainment_proc8_admit_off")
+    monkeypatch.setattr(bench, "_proc_job",
+                        lambda args, script: (job(args, script)[0][:5], 1.0))
+    with pytest.raises(RuntimeError, match="serving job gave no"):
+        bench.serving_leg(say=lambda msg: None)

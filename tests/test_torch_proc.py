@@ -24,11 +24,15 @@ seeded inputs, over the same native bridge.
   off, error feedback with the wire dtype at bf16) at 4 ranks, every
   result equal to the port's blocking op bit for bit, and the dp step's
   parameters within 1e-5 relative of a JAX proc job on the same seeds;
-* a request never waited is reported on stderr at finalize.
+* a request never waited is reported on stderr at finalize;
+* the serving engine over a 2-rank ``--serve`` job: both ranks' responses
+  equal ``reference_greedy_decode`` (the port's and the JAX package's)
+  and each other's; the port's ``benchmarks/serving.py`` at a tiny size
+  gives the serving leg's records, and refuses ``--arms ramp``.
 
-Nine jobs of at most 4 ranks, each with its own deadline (the launcher's
-``--timeout``, and the process group killed 30 s later); the ranks run
-one thread each on small payloads.
+Twelve jobs of at most 4 ranks, each with its own deadline (the
+launcher's ``--timeout``, and the process group killed 30 s later); the
+ranks run one thread each on small payloads.
 """
 
 import importlib.util
@@ -563,3 +567,135 @@ def test_request_never_waited_is_reported_at_finalize():
     assert out.count("LEAK-DETECTED-OK") == 2
     assert err.count("async request(s) never waited at finalize "
                      "(iallreduce)") == 2
+
+
+SERVE_PROG = """
+import json
+import sys
+import types
+
+import numpy as np
+import torch
+
+import mpi4jax_tpu_torch as mt
+from mpi4jax_tpu_torch.launch import rank_device
+from mpi4jax_tpu_torch.models import transformer as tfm
+from mpi4jax_tpu_torch.serving import engine as eng
+from mpi4jax_tpu_torch.serving.request import Request
+from mpi4jax_tpu_torch.utils import config
+
+torch.set_num_threads(1)
+comm = mt.get_default_comm()
+assert comm.backend == "proc" and comm.size == 2, comm
+assert config.admit_mode() == "on"  # the launcher's --serve
+with np.load(sys.argv[1]) as f:
+    leaves = {k: f[k] for k in f.files}
+cfg = tfm.TransformerConfig(**json.loads(sys.argv[2]))
+arrays = types.SimpleNamespace(
+    embed=leaves["embed"], ln_f=leaves["ln_f"], head=leaves["head"],
+    blocks=types.SimpleNamespace(**{k[7:]: v for k, v in leaves.items()
+                                    if k.startswith("blocks.")}))
+params = tfm.params_from_jax(arrays, cfg, device="cpu")
+E = eng.ServingEngine(comm, cfg, params, max_len=16, max_batch=3,
+                      admit="off", markers=True, device=rank_device())
+rng = np.random.RandomState(3)
+reqs = []
+for i in range(7):
+    p_len = int(rng.randint(2, 7))
+    prompt = tuple(int(x) for x in rng.randint(0, cfg.vocab, p_len))
+    reqs.append(Request(i, prompt, int(rng.randint(1, 8)), 0.0))
+if E.is_leader:
+    for r in reqs:
+        E.offer(r, 0.0)
+    E.drain(now_ms_fn=lambda: 0.0)
+else:
+    E.run_follower()
+assert len(E.finished) == len(reqs), E.finished
+for rid, toks in sorted(E.finished):
+    req = reqs[rid]
+    n_new = min(req.max_new, 16 - req.prompt_len)
+    ref = tfm.reference_greedy_decode(params, torch.tensor([req.prompt]), cfg,
+                                      req.prompt_len + n_new)
+    assert toks == tuple(ref[0].tolist()), (comm.rank(), rid, toks, ref)
+print("FINISHED", comm.rank(), json.dumps(E.finished), flush=True)
+print("BITWISE-OK", comm.rank(), flush=True)
+"""
+
+
+def test_serve_job_two_ranks_equal_the_references():
+    # the serving engine tensor-parallel over a 2-rank launcher job
+    # (--serve): both ranks' responses equal reference_greedy_decode,
+    # the port's in the job and the JAX package's here, and the two
+    # ranks finish the same requests in the same order
+    import jax
+    import jax.numpy as jnp
+
+    from mpi4jax_tpu.models import transformer as jtfm
+
+    cfg = jtfm.TransformerConfig(vocab=32, d_model=16, layers=2, heads=4,
+                                 kv_heads=2, head_dim=4, d_ff=32)
+    params = jtfm.init_params(jax.random.PRNGKey(0), cfg)
+    leaves = {"embed": params.embed, "ln_f": params.ln_f,
+              "head": params.head,
+              **{f"blocks.{k}": v for k, v in params.blocks._asdict().items()}}
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(pathlib.Path(d) / "params.npz",
+                 **{k: np.asarray(v) for k, v in leaves.items()})
+        prog = pathlib.Path(d) / "serve.py"
+        prog.write_text(SERVE_PROG)
+        rc, out, err = run_job(
+            "mpi4jax_tpu_torch.launch", 2,
+            ["--serve", prog, pathlib.Path(d) / "params.npz",
+             json.dumps(cfg._asdict())])
+    assert rc == 0, err[-4000:]
+    assert out.count("BITWISE-OK") == 2, (out, err[-4000:])
+    finished = {}
+    for line in out.splitlines():
+        if line.startswith("FINISHED "):
+            _, rank, body = line.split(" ", 2)
+            finished[int(rank)] = [(rid, tuple(t)) for rid, t in
+                                   json.loads(body)]
+    assert finished[0] == finished[1] and len(finished[0]) == 7
+    rng = np.random.RandomState(3)
+    prompts = {}
+    for i in range(7):
+        p_len = int(rng.randint(2, 7))
+        prompts[i] = tuple(int(x) for x in rng.randint(0, cfg.vocab, p_len))
+        rng.randint(1, 8)
+    for rid, toks in finished[0]:
+        ref = jtfm.reference_greedy_decode(
+            params, jnp.asarray([prompts[rid]], jnp.int32), cfg, len(toks))
+        assert toks == tuple(int(t) for t in np.asarray(ref)[0]), rid
+
+
+def test_serving_bench_tiny():
+    # the port's benchmarks/serving.py, one admission-on window on 2 CPU
+    # ranks: the records the bench's serving leg reads
+    rc, out, err = run_job(
+        "mpi4jax_tpu_torch.launch", 2,
+        [ROOT / "mpi4jax_tpu_torch" / "benchmarks" / "serving.py", "--arms",
+         "on", "--windows", "1", "--duration", "2", "--rate", "6", "--slo",
+         "4000", "--layers", "1", "--heads", "4", "--kv-heads", "4"])
+    assert rc == 0, err[-4000:]
+    recs = {json.loads(line)["metric"]: json.loads(line)
+            for line in out.splitlines() if line.startswith("{")}
+    assert set(recs) == {f"serving_{k}_proc2" for k in (
+        "p50_ms", "p99_ms", "rps", "shed_rate", "slo_attainment",
+        "slo_held")}
+    for rec in recs.values():
+        assert rec["nprocs"] == 2 and rec["device"] == "cpu"
+        assert not rec["interleaved_pairs"] and rec["max_batch"] == 4
+    assert recs["serving_p99_ms_proc2"]["admit"] == "on"
+    assert 0 < recs["serving_p50_ms_proc2"]["value"] <= \
+        recs["serving_p99_ms_proc2"]["value"]
+    assert recs["serving_rps_proc2"]["value"] > 0
+    assert 0 <= recs["serving_shed_rate_proc2"]["value"] <= 1
+    assert 0 <= recs["serving_slo_attainment_proc2"]["value"] <= 1
+    assert "window 0 arm=on" in err
+    # the autoscale contrast is refused, naming the item that brings it
+    rc, out, err = run_job(
+        "mpi4jax_tpu_torch.launch", 1,
+        [ROOT / "mpi4jax_tpu_torch" / "benchmarks" / "serving.py", "--arms",
+         "ramp"], timeout=120)
+    assert rc != 0 and "item 19" in err
+

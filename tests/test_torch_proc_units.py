@@ -62,6 +62,10 @@ KNOBS = {
     "elastic_mode": "T4J_ELASTIC",
     "min_world": "T4J_MIN_WORLD",
     "resize_timeout": "T4J_RESIZE_TIMEOUT",
+    "slo_ms": "T4J_SLO_MS",
+    "max_batch": "T4J_MAX_BATCH",
+    "admit_mode": "T4J_ADMIT",
+    "autoscale_mode": "T4J_AUTOSCALE",
 }
 
 # every knob reads every value: numbers, sizes, words, and typos
@@ -272,6 +276,66 @@ def test_elastic_modes_refused_before_the_build(mode, monkeypatch):
 def test_launcher_exit_reports_match_jax(rc):
     assert tlaunch._describe_exit(rc) == jlaunch._describe_exit(rc)
     assert tlaunch._job_exit_code(rc) == jlaunch._job_exit_code(rc)
+
+
+def _parse_error(main, argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(argv)
+    assert exc.value.code == 2
+    return capsys.readouterr().err.splitlines()[-1].split("error: ", 1)[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-np", "2", "--slo", "100", "prog.py"],
+    ["-np", "2", "--max-batch", "4", "prog.py"],
+    ["-np", "2", "--serve", "--slo", "0", "prog.py"],
+    ["-np", "2", "--serve", "--slo", "-5", "prog.py"],
+    ["-np", "2", "--serve", "--max-batch", "x", "prog.py"],
+    ["-np", "2", "--serve", "--slo", "soon", "prog.py"],
+])
+def test_launcher_serve_parse_errors_match_jax(argv, capsys, monkeypatch):
+    # refused before anything is built or spawned, with the JAX
+    # launcher's own words
+    monkeypatch.setattr(tbuild, "ensure_built", lambda: pytest.fail(
+        "the launcher built the bridge for a refused command line"))
+    assert _parse_error(tlaunch.main, argv, capsys) == \
+        _parse_error(jlaunch.main, argv, capsys)
+
+
+@pytest.mark.parametrize("flags,ambient,want", [
+    (["--serve"], {}, {"T4J_ADMIT": "on"}),
+    (["--serve", "--slo", "2500", "--max-batch", "16"], {},
+     {"T4J_ADMIT": "on", "T4J_SLO_MS": "2500.0", "T4J_MAX_BATCH": "16"}),
+    (["--serve"], {"T4J_ADMIT": "off"}, {"T4J_ADMIT": "off"}),
+    ([], {}, {}),
+])
+def test_launcher_serve_wires_the_environment(flags, ambient, want,
+                                              monkeypatch):
+    # every worker gets the serving knobs the JAX launcher gives it:
+    # admission on unless the environment chose, the SLO and the slots
+    for var in ("T4J_ADMIT", "T4J_SLO_MS", "T4J_MAX_BATCH"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in ambient.items():
+        monkeypatch.setenv(var, value)
+    envs = []
+
+    class Worker:
+        pid = 4242
+
+        def __init__(self, cmd, env, process_group):
+            envs.append(env)
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(tlaunch.subprocess, "Popen", Worker)
+    monkeypatch.setattr(tbuild, "ensure_built", lambda: None)
+    assert tlaunch.main(["-np", "2", *flags, "prog.py"]) == 0
+    assert len(envs) == 2
+    for env in envs:
+        got = {k: env[k] for k in ("T4J_ADMIT", "T4J_SLO_MS",
+                                   "T4J_MAX_BATCH") if k in env}
+        assert got == want
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,10 @@ is caught, for both routings.  Phase 14's helpers and its check across
 four thread ranks at a tiny width: the exchange counter, the identity
 of the replicated leaves across pp ranks, both schedules within the
 limit of the one-rank step and the planted sync that skips pp for the
-replicated leaves caught."""
+replicated leaves caught.  Phase 15's one-card check at a tiny width:
+the engine's responses held to the oracle under the tie rule, the
+books, no flash launch, and the planted slot-0 position caught; the tie
+rule itself on a flipped near tie and a short response."""
 
 import importlib.util
 import pathlib
@@ -240,3 +243,63 @@ def test_pp_mesh_phase_holds_and_catches_the_fault(smoke, monkeypatch):
     assert fault["readings"]["loss"] < 1e-5
     assert not fault["identity"]["head"]
     assert smoke.ppt._sync_grads.__name__ == "_sync_grads"
+
+
+TINY_SERVE = dict(vocab=64, d_model=32, layers=2, heads=4, kv_heads=2,
+                  head_dim=8, d_ff=64)
+TINY_SERVE_RUN = dict(max_batch=3, max_len=32, requests=8, prompt=(2, 12),
+                      new=(2, 10), seed=5)
+
+
+def test_serve_one_card_holds_and_catches_the_fault(smoke, monkeypatch):
+    # phase 15 (a) and (b) at a tiny width on the CPU: the engine's
+    # responses equal the oracle's (one kind of product here, so none
+    # departs), the books balance in the drive and the open-loop window,
+    # no flash kernel runs, and the planted slot-0 position departs at a
+    # gap far above the limit
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, **kw: (fn(), 0.25)[1])
+    monkeypatch.setattr(smoke, "device_trace", lambda fn: (fn(), ({}, 0.0))[1])
+    got = smoke.serve_one_card(
+        torch.device("cpu"), "the CPU", run=TINY_SERVE_RUN,
+        cfg=smoke.tfm.TransformerConfig(**TINY_SERVE),
+        open_loop=dict(slo_ms=500.0, seconds=0.5, rate=200.0, seed=1))
+    assert got["equal"] == 8 and got["departed"] == []
+    assert set(got["flash_launches"].values()) == {0}
+    assert got["generated"] > 8 and got["steps"] > 0
+    assert 0 < got["mean_occupancy"] <= 3
+    assert got["decode_step_ms"] == 0.25 and got["step_trace"] is None
+    assert sorted(got["prefill_ms"]) == [8, 16]
+    assert got["open_loop"]["offered"] == (got["open_loop"]["completed"]
+                                           + got["open_loop"]["shed"]) > 0
+    assert got["fault"]["departed"] > 0
+    assert got["fault"]["worst_gap"] >= 10 * smoke.SERVE_TIE_LIMIT
+    # the fault is planted for its drive only
+    assert smoke.serving_engine._slot_attention.__name__ == \
+        "_slot_attention"
+
+
+def test_hold_responses_tie_rule(smoke):
+    # a departure is accepted only below the limit of the oracle's top
+    # two logits at the departing position; a response of the wrong
+    # length is named
+    cfg = smoke.tfm.TransformerConfig(**TINY_SERVE)
+    params = smoke.serve_params(cfg, "cpu")
+    reqs = smoke.serve_requests(dict(TINY_SERVE_RUN, requests=3), cfg.vocab)
+    refs = smoke.serve_oracle(params, cfg, reqs, 32, "cpu")
+    r0 = reqs[0]
+    j = r0.prompt_len
+    prefix = torch.tensor([refs[0][:j]])
+    logits = smoke.oracle_logits(params, prefix, cfg)[0]
+    top2 = torch.topk(logits, 2)
+    gap = float(top2.values[0] - top2.values[1])
+    flipped = list(refs[0])
+    flipped[j] = int(top2.indices[1])
+    finished = [(0, tuple(flipped)), (1, refs[1]), (2, refs[2][:-1])]
+    held = smoke.hold_responses(finished, reqs, refs, params, cfg, 32,
+                                limit=gap * 2)
+    assert held["equal"] == 1
+    assert held["departed"] == [(0, j, pytest.approx(gap))]
+    assert held["bad"] == [(2, "length or prompt", len(refs[2]) - 1)]
+    held = smoke.hold_responses(finished[:1], reqs, refs, params, cfg, 32,
+                                limit=gap / 2)
+    assert held["bad"] == [(0, j, pytest.approx(gap))]
