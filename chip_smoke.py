@@ -289,6 +289,32 @@ Phases, each of which raises on failure (nothing is caught):
    ranks' finished lists equal, held to the oracle as in (a).  (d) the
    bench's serving leg (``bench.serving_leg``, an 8-rank job): its seven
    keys finite.
+16. fault tolerance (``utils/checkpoint.py``, the launcher's
+   ``--restarts`` and ``--elastic``, ``models/train.py:run_elastic``):
+   (a) the flagship at 3600x1800, ghost 2, in chunks of
+   ``ELASTIC_SW_CHUNK`` steps: run A goes to ``t_full`` uninterrupted;
+   run B, checkpointed every chunk, stops at ``t_half`` (2 timed chunks),
+   and a fresh ``make_solver`` in the same directory resumes it to
+   ``t_full`` with every launch count set to 0 just before and read just
+   after (the slice's main path): sw_main and sw_visc once a step (eager
+   launches plus replays times the captured ones), and all six fields
+   equal to run A's by ``torch.equal``; one chunk's save timed
+   (``SAVE_REPEATS``, the median) and the checkpoint's bytes printed.
+   (b) ``proc_recover``'s job (the contract of
+   tests/proc/test_failure_recovery.py on CUDA tensors, ``RECOVER``) of 2
+   ranks on the card under ``--restarts 1``: rank 1 exits hard after
+   step 7 (the step-5 checkpoint committed) in the first attempt only,
+   the launcher relaunches the job, which resumes from step 5; its final
+   state equals an uninterrupted job's bit for bit.  (c)
+   ``run_elastic`` at the bench overlap leg's width (``ELASTIC_RUN``: d
+   1024, 6 layers, batch 16) on 4 ranks on the card under ``--elastic
+   rejoin``: rank 2 exits hard once the step-4 checkpoint is committed on
+   every rank, in its first incarnation only; the job exits 0 with every
+   slot in the final world, the survivors through at least 2 resizes,
+   every rank's final world 4 and its final parameters equal to rank 0's
+   bit for bit; the job's seconds and the time from the death to the
+   rejoined world's first step are printed.  Each kernel's entry gains
+   ``launches_elastic``.
 
 Prints, last, a ``{"kernels": [...]}`` line, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": ...}``.
@@ -309,11 +335,11 @@ prints every copy's readings: the evidence for the limits.  It exits 0
 when the sound tree passes, every fault fails and the dropped diagonal
 tile fails the gradient check too.
 
-    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe,pp,serve [--no-timings]
+    python3 chip_smoke.py --check fwd,bwd,grad,sw,ops,mesh,proc,mlp,moe,pp,serve,elastic [--no-timings]
 
 runs those checks (any of them) on this tree alone (``proc``: phase 11,
 ``mlp``: phase 12, ``moe``: phase 13, ``pp``: phase 14, ``serve``:
-phase 15);
+phase 15, ``elastic``: phase 16);
 ``fwd`` and ``bwd`` also time the bf16 kernels at the meshes' shapes
 unless ``--no-timings`` is given (``--fault-readings`` gives it to its
 copies, which share the card and so could time nothing).
@@ -325,7 +351,10 @@ is a rank of phase 11's jobs (``async OUT_DIR`` the requests of (e),
 ``fail -`` the planted failure): the results go to
 ``OUT_DIR/rank<r>.npz``.  ``serve OUT_DIR`` (under ``--serve``) is a rank
 of phase 15 (c)'s job; its finished list goes to
-``OUT_DIR/rank<r>.json``.
+``OUT_DIR/rank<r>.json``.  ``recover OUT_DIR TOTAL KILL_RANK KILL_STEP``
+and ``elastic OUT_DIR STEPS D LAYERS BATCH SAVE_EVERY KILL_RANK
+KILL_STEP`` (under ``--elastic rejoin``) are the ranks of phase 16 (b)
+and (c); tests/test_torch_elastic.py runs them on the CPU.
 
     python3 chip_smoke.py --sw-forms other/sw_step.cu [...]
 
@@ -568,6 +597,28 @@ SERVE_OPEN = dict(slo_ms=2000.0, seconds=3.0, rate=80.0, seed=7)
 SERVE_PROC = dict(ranks=2, max_batch=4, max_len=128, requests=8,
                   prompt=(4, 64), new=(8, 32), seed=11)
 SERVE_PROC_TIMEOUT_S = 300.0
+# phase 16: (a) the flagship at its bench size and ghost 2, checkpointed
+# every chunk of ELASTIC_SW_CHUNK steps: run B stops after 2 timed
+# chunks, and its resume runs 2 more; SAVE_REPEATS timed saves of the
+# state
+ELASTIC_SW_CHUNK = 10
+SAVE_REPEATS = 3
+# (b): the failure-recovery contract of tests/proc/test_failure_recovery
+# .py on a --restarts 1 job: 10 steps, rank 0 saving every 5, rank 1
+# exiting hard after step 7 in the first attempt
+RECOVER = dict(ranks=2, total=10, kill_rank=1, kill_step=7)
+# (c): run_elastic at the bench overlap leg's width on 4 ranks under
+# --elastic rejoin, rank 2 exiting hard once the step-4 checkpoint is
+# committed everywhere, in its first incarnation
+ELASTIC_RUN = dict(ranks=4, steps=12, d=port_bench.OVERLAP["d_model"],
+                   layers=port_bench.OVERLAP["layers"],
+                   batch=port_bench.OVERLAP["batch"], save_every=2,
+                   kill_rank=2, kill_step=4)
+# the elastic jobs' bridge knobs (the JAX package's elastic tests')
+ELASTIC_ENV = dict(T4J_MIN_WORLD="2", T4J_RESIZE_TIMEOUT="15",
+                   T4J_CONNECT_TIMEOUT="10", T4J_RETRY_MAX="2",
+                   T4J_BACKOFF_BASE="0.05", T4J_BACKOFF_MAX="0.3")
+ELASTIC_TIMEOUT_S = 300.0
 
 BASELINE_SIDE = 1024
 BASELINE_REPEATS = 10
@@ -2613,7 +2664,10 @@ def proc_rank(argv):
     ``proc_async``, ``serve`` the serving engine's finished list
     (``proc_serve``, phase 15 (c)); ``fail`` is the planted
     failure: rank ``proc_failing_rank(n)`` raises once every rank has
-    passed a barrier, while the others wait in an allreduce."""
+    passed a barrier, while the others wait in an allreduce.  Phase 16's
+    ranks: ``recover OUT_DIR TOTAL KILL_RANK KILL_STEP`` (``proc_recover``)
+    and ``elastic OUT_DIR STEPS D LAYERS BATCH SAVE_EVERY KILL_RANK
+    KILL_STEP`` (``proc_elastic``)."""
     from mpi4jax_tpu_torch import get_default_comm
     from mpi4jax_tpu_torch.launch import rank_device
 
@@ -2635,6 +2689,12 @@ def proc_rank(argv):
         return 0
     if kind == "serve":
         proc_serve(comm, device, out_dir)
+        return 0
+    if kind == "recover":
+        proc_recover(comm, device, out_dir, *(int(a) for a in rest))
+        return 0
+    if kind == "elastic":
+        proc_elastic(device, out_dir, *(int(a) for a in rest))
         return 0
     if kind == "fail":
         p_ops.barrier(comm=comm)
@@ -4011,6 +4071,350 @@ def serve_phase(device, kernels, card):
     out["bench"] = serve_bench(card)
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def sw_resume(device, kernels, card):
+    """Phase 16 (a): the flagship at its bench size resumes from a
+    checkpoint bit for bit.  Run A goes to ``t_full`` uninterrupted; run
+    B stops at ``t_half`` with a checkpoint every chunk, and a fresh
+    solver in the same directory resumes it to ``t_full`` with every
+    launch count set to 0 just before and read just after (the slice's
+    main path).  Then the save of one chunk's state is timed."""
+    from mpi4jax_tpu_torch.utils import checkpoint
+
+    cfg = sw.SWConfig().bench_size()
+    comm = MeshComm()
+    n = ELASTIC_SW_CHUNK
+    t_half = cfg.dt * (1 + n) + cfg.dt * n * 2  # warm-up + 2 timed chunks
+    t_full = t_half + cfg.dt * n * 2
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        run_a, _, _ = sw.make_solver(cfg, comm, n, device=device)(t_full)
+        run_a = clone(run_a)
+        _, _, steps_b1 = sw.make_solver(cfg, comm, n, checkpoint_dir=work,
+                                        device=device)(t_half)
+        saved = checkpoint.latest_step(work)
+        solve = sw.make_solver(cfg, comm, n, checkpoint_dir=work,
+                               device=device)
+        multi = solve.multistep
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run_b, wall, steps = solve(t_full)
+        resume_s = time.perf_counter() - t0
+        counts = launch_counts()
+        launches = {k: counts[k] + multi.replays * multi.captured.get(k, 0)
+                    for k in counts}
+        log(f"  (a) run B: {steps_b1} timed steps to t_half, latest "
+            f"checkpoint chunk {saved}; its resume: {steps} steps in "
+            f"{resume_s:.3f} s (saves included), launches {launches}")
+        for kern in kernels:
+            kern["launches_elastic"] = launches[kern["name"]]
+        for name in ("sw_main", "sw_visc"):
+            if launches[name] != steps or steps == 0:
+                raise RuntimeError(f"(a) the resumed run launched {name} "
+                                   f"{launches[name]} times in {steps} steps")
+        for name, a, b in zip(sw.SWState._fields, run_a, run_b):
+            same = torch.equal(a, b)
+            log(f"  (a) {name}: resumed run equal to run A bit for bit "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError(f"(a) the resumed run differs from the "
+                                   f"uninterrupted one in {name}")
+        mgr = checkpoint.Manager(work / "timed", max_to_keep=1)
+        save_ms = []
+        for i in range(SAVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(i, {"state": run_b, "t": np.float64(t_full)})
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = (work / "timed" / str(SAVE_REPEATS - 1) /
+                  checkpoint.PAYLOAD).stat().st_size
+        state_bytes = sum(t.numel() * t.element_size() for t in run_b)
+        log(f"  (a) one chunk's save: {statistics.median(save_ms):.2f} ms "
+            f"(median of {SAVE_REPEATS}: "
+            f"{', '.join(f'{x:.2f}' for x in save_ms)}"
+            f"), {nbytes} bytes a checkpoint ({state_bytes} of state), on "
+            f"{card}")
+        return {"launches": launches, "steps": steps, "resume_s": resume_s,
+                "save_ms": save_ms, "checkpoint_bytes": nbytes,
+                "state_bytes": state_bytes}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def proc_recover(comm, device, out_dir, total, kill_rank, kill_step):
+    """The failure-recovery contract (``tests/proc/test_failure_recovery
+    .py``'s job) on this rank's device: ``total`` steps of a replicated
+    state through an allreduce, rank 0 saving every 5 steps and waiting
+    for the commit, every rank passing a barrier after each step; rank
+    ``kill_rank`` exits hard after step ``kill_step`` unless
+    ``OUT_DIR/killed`` exists (it makes it first).  A run resumes from
+    ``OUT_DIR/ck``; rank 0 writes the final state to
+    ``OUT_DIR/final.json``."""
+    from mpi4jax_tpu_torch.utils import checkpoint
+
+    out = pathlib.Path(out_dir)
+    marker = out / "killed"
+    rank = comm.rank()
+    state = torch.arange(8.0, device=device)
+
+    def step_fn(s, i):
+        y, _ = p_ops.allreduce(s * (1.0 + 0.01 * i), op=p_ops.SUM, comm=comm)
+        return y / comm.size + 0.001 * i
+
+    with checkpoint.Manager(out / "ck", max_to_keep=2) as mgr:
+        start = mgr.latest_step() or 0
+        if start:
+            state = mgr.restore(start, like={"state": state})["state"]
+        print(f"[job] rank {rank} start={start}", flush=True)
+        for i in range(start, total):
+            state = step_fn(state, float(i))
+            if rank == 0 and mgr.maybe_save(i + 1, {"state": state},
+                                            every=5):
+                mgr.wait_until_finished()
+            p_ops.barrier(comm=comm)
+            if rank == kill_rank and i + 1 == kill_step \
+                    and not marker.exists():
+                marker.touch()
+                os._exit(17)  # a hard death, no cleanup
+    if rank == 0:
+        (out / "final.json").write_text(
+            json.dumps([float(v) for v in state.cpu()]))
+
+
+def proc_elastic(device, out_dir, steps, d, layers, batch, save_every,
+                 kill_rank, kill_step):
+    """A rank of ``run_elastic``'s job under ``--elastic``: the loop on
+    this rank's device at the given sizes; once every rank has committed
+    step ``kill_step`` (a barrier after the save), rank ``kill_rank``
+    exits hard, in its first incarnation only (``T4J_REJOIN`` unset), and
+    under ``--elastic rejoin`` the survivors hold their next step until
+    its replacement has joined (under ``shrink`` they go on without it).
+    Each rank writes its final parameters to ``OUT_DIR/rank<r>.npz`` and
+    its result, with the wall time and world of every step, to
+    ``OUT_DIR/rank<r>.json``; the dying rank writes its time of death to
+    ``OUT_DIR/death``."""
+    from mpi4jax_tpu_torch.models import train as ttrain
+    from mpi4jax_tpu_torch.native import runtime
+    from mpi4jax_tpu_torch.parallel.proc import world_comm_if_initialized
+    from mpi4jax_tpu_torch.utils import checkpoint
+
+    out = pathlib.Path(out_dir)
+    rank = runtime.world_rank()
+    n = runtime.world_size()
+    timeline = []
+    first_life = os.environ.get("T4J_REJOIN") != "1"
+    hold = first_life and os.environ.get("T4J_ELASTIC") == "rejoin"
+    fired = []
+    build = ttrain.make_dp_train_step
+    save = checkpoint.Manager.save
+
+    def timed_build(c, **kw):
+        step = build(c, **kw)
+
+        def timed(params, batch_):
+            if hold and c.size < n:
+                # a survivor holds its next step until the replacement
+                # has joined, so the job cannot end before the rejoin; it
+                # then steps into a resize that may still be in flight,
+                # as any caller of run_elastic does (the op tier's
+                # check_health waits it out)
+                deadline = time.monotonic() + ELASTIC_TIMEOUT_S / 2
+                while True:
+                    info = runtime.world_info()
+                    if info["alive_count"] == n:
+                        break
+                    if time.monotonic() > deadline:
+                        raise RuntimeError("the replacement never joined")
+                    time.sleep(0.05)
+            new = step(params, batch_)
+            timeline.append((time.time(), c.size,
+                             runtime.world_info()["epoch"]))
+            return new
+
+        return timed
+
+    def planted_save(mgr, step, tree):
+        save(mgr, step, tree)
+        if step == kill_step and first_life and not fired:
+            fired.append(step)
+            p_ops.barrier(comm=world_comm_if_initialized())
+            if rank == kill_rank:
+                (out / "death").write_text(repr(time.time()))
+                os._exit(42)
+
+    ttrain.make_dp_train_step = timed_build
+    checkpoint.Manager.save = planted_save
+    result = ttrain.run_elastic(steps, out / "ck", d=d, layers=layers,
+                                batch=batch, save_every=save_every,
+                                device=device, log=lambda *a, **k: None)
+    # the last step is always saved: its checkpoint is the final state
+    mgr = checkpoint.Manager(out / "ck" / f"rank{rank}")
+    like = ttrain.StackParams(
+        layers=tuple((torch.empty(d, d, device=device),
+                      torch.empty(d, device=device)) for _ in range(layers)),
+        w_out=torch.empty(d, d, device=device))
+    final = mgr.restore(mgr.latest_step(), like=like)
+    leaves = [t for pair in final.layers for t in pair] + [final.w_out]
+    np.savez(out / f"rank{rank}.npz",
+             **{f"leaf{i}": t.cpu().numpy() for i, t in enumerate(leaves)})
+    result["timeline"] = timeline
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def recover_job(work, kill, flags=()):
+    """``proc_recover``'s job of ``RECOVER["ranks"]`` ranks on the card
+    in ``work``, ``kill`` its ``(KILL_RANK, KILL_STEP)``; (exit code,
+    stdout, stderr, seconds)."""
+    return launch.run_job(
+        RECOVER["ranks"], [pathlib.Path(__file__).resolve(), "--proc-rank",
+                           "recover", work, RECOVER["total"], *kill],
+        platform="cuda", timeout=PROC_JOB_TIMEOUT_S, flags=flags)
+
+
+def restarts_phase(card):
+    """Phase 16 (b): the failure-recovery job under ``--restarts 1``:
+    rank 1 dies after the step-5 save in the first attempt, the launcher
+    relaunches the job, which resumes from step 5; its final state equals
+    an uninterrupted run's bit for bit."""
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_recover_"))
+    try:
+        (work / "b").mkdir()
+        (work / "c").mkdir()
+        rc, out, err, secs = recover_job(
+            work / "b", (RECOVER["kill_rank"], RECOVER["kill_step"]),
+            ("--restarts", 1))
+        ok = (rc == 0 and "attempt 1/2 exited with code 17" in err
+              and "job succeeded on attempt 2/2" in err
+              and "start=5" in out)
+        log(f"  (b) --restarts 1 job: exit {rc} in {secs:.1f} s, relaunched "
+            f"and resumed from step 5 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"(b) the --restarts job did not recover:\n"
+                               f"{out[-2000:]}\n{err[-4000:]}")
+        rc, out, err, oracle_s = recover_job(work / "c", (-1, -1))
+        if rc != 0 or "start=0" not in out:
+            raise RuntimeError(f"(b) the uninterrupted job failed:\n"
+                               f"{out[-2000:]}\n{err[-4000:]}")
+        resumed = json.loads((work / "b" / "final.json").read_text())
+        oracle = json.loads((work / "c" / "final.json").read_text())
+        same = resumed == oracle
+        log(f"  (b) final state equal to an uninterrupted run's bit for bit "
+            f"{'ok' if same else 'FAIL'} ({oracle_s:.1f} s) on {card}")
+        if not same:
+            raise RuntimeError(f"(b) resumed {resumed} != {oracle}")
+        return {"job_s": secs, "oracle_s": oracle_s, "final": resumed}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def elastic_args(work, run):
+    """The program arguments of ``proc_elastic``'s job in ``work``."""
+    return [pathlib.Path(__file__).resolve(), "--proc-rank", "elastic", work,
+            *(run[k] for k in ("steps", "d", "layers", "batch", "save_every",
+                               "kill_rank", "kill_step"))]
+
+
+def hold_elastic(work, run, rc, out, err, oracle):
+    """The elastic job's checks: exit 0, every slot clean and in the
+    final world, the survivors through at least 2 resizes, every rank's
+    final world the full one and its parameters equal bit for bit to the
+    no-fault job's in ``oracle`` (the same sizes, seed and steps with
+    ``kill_rank`` -1: the rejoined world is the boot world again and
+    every rank resumes after the committed step ``kill_step``, so a
+    resume from the wrong step, a replayed step or the template restored
+    in place of the checkpoint shows); returns ``(results,
+    death-to-rejoined-step seconds)``."""
+    n = run["ranks"]
+    blob = out + err
+    every = ", ".join(str(r) for r in range(n))
+    checks = {
+        "exit 0": rc == 0,
+        "history printed": "world membership history: boot" in blob
+        and f"rejoin({n})" in blob,
+        "every slot clean": f"final world membership: {n}/{n} rank(s) "
+        f"[{every}]" in blob,
+        "no escalation": "escalating to abort" not in blob,
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"the elastic job failed {checks}:\n"
+                           f"{out[-2000:]}\n{err[-6000:]}")
+    res = {r: json.loads((work / f"rank{r}.json").read_text())
+           for r in range(n)}
+    leaves = {r: load_results(work / f"rank{r}.npz") for r in range(n)}
+    want = {r: load_results(oracle / f"rank{r}.npz") for r in range(n)}
+    for r in range(n):
+        clean = json.loads((oracle / f"rank{r}.json").read_text())
+        if clean["resizes"] or clean["final_world"] != n:
+            raise RuntimeError(f"the no-fault job's rank {r} resized: "
+                               f"{clean}")
+        if res[r]["final_world"] != n:
+            raise RuntimeError(f"rank {r} ended in a world of "
+                               f"{res[r]['final_world']}")
+        if r != run["kill_rank"] and res[r]["resizes"] < 2:
+            raise RuntimeError(f"survivor {r} saw {res[r]['resizes']} "
+                               "resizes (want >= 2: the shrink and the "
+                               "rejoin)")
+        bad = [k for k in want[0] if not same_bits(leaves[r][k],
+                                                   want[0][k])
+               or not same_bits(want[r][k], want[0][k])]
+        if bad:
+            raise RuntimeError(f"rank {r}'s final parameters differ from "
+                               f"the no-fault job's in {bad}")
+    death = float((work / "death").read_text())
+    rejoined = min(t for t, size, epoch in res[0]["timeline"]
+                   if t > death and size == n)
+    return res, rejoined - death
+
+
+def elastic_rejoin_phase(card):
+    """Phase 16 (c): ``run_elastic`` on 4 ranks on the card under
+    ``--elastic rejoin``, rank 2 dying after the step-4 checkpoint, held
+    to the same job without the death."""
+    run = ELASTIC_RUN
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    try:
+        (work / "oracle").mkdir()
+        jobs = {}
+        for name, where, kill in (("rejoin", work, run),
+                                  ("oracle", work / "oracle",
+                                   dict(run, kill_rank=-1, kill_step=-1))):
+            jobs[name] = launch.run_job(
+                run["ranks"], elastic_args(where, kill), platform="cuda",
+                timeout=ELASTIC_TIMEOUT_S, flags=("--elastic", "rejoin"),
+                env=ELASTIC_ENV)
+        rc, out, err, oracle_s = jobs["oracle"]
+        if rc != 0:
+            raise RuntimeError(f"(c) the no-fault job failed:\n"
+                               f"{out[-2000:]}\n{err[-4000:]}")
+        rc, out, err, secs = jobs["rejoin"]
+        res, rejoin_s = hold_elastic(work, run, rc, out, err, work / "oracle")
+        log(f"  (c) {run['ranks']}-rank run_elastic (d {run['d']}, "
+            f"{run['layers']} layers, batch {run['batch']}, {run['steps']} "
+            f"steps) under --elastic rejoin: exit 0 in {secs:.1f} s, "
+            f"resizes {[res[r]['resizes'] for r in sorted(res)]}, final "
+            f"world {run['ranks']} on every rank, parameters equal to the "
+            f"no-fault job's ({oracle_s:.1f} s) bit for bit; death to the "
+            f"rejoined world's first step {rejoin_s:.3f} s, on {card}")
+        return {"job_s": secs, "oracle_s": oracle_s, "rejoin_s": rejoin_s,
+                "resizes": [res[r]["resizes"] for r in sorted(res)],
+                "losses": res[0]["losses"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def elastic_phase(device, kernels, card):
+    """Phase 16: (a) the flagship's resume at full width, (b) a
+    ``--restarts`` job, (c) a ``--elastic rejoin`` job of
+    ``run_elastic``."""
+    t0 = time.perf_counter()
+    out = {"sw_resume": sw_resume(device, kernels, card)}
+    torch.cuda.empty_cache()
+    out["restarts"] = restarts_phase(card)
+    out["rejoin"] = elastic_rejoin_phase(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: {out['seconds']:.1f} s")
     return out
 
 
@@ -5979,18 +6383,18 @@ def run_checks(device, parts, mesh_timings=True):
     kernel; ``mesh``: phase 10c's transformer across thread ranks;
     ``proc``: phase 11's launcher jobs, no kernel; ``mlp``: phase 12's
     MLP steps, no kernel; ``moe``: phase 13; ``pp``: phase 14, no
-    kernel; ``serve``: phase 15, no kernel), after building the kernels
-    they need.  The phases' own
+    kernel; ``serve``: phase 15, no kernel; ``elastic``: phase 16, the
+    shallow-water kernels), after building the kernels they need.  The phases' own
     timings are left out; ``fwd`` and ``bwd`` time the bf16 kernels at
     the meshes' shapes (:func:`mesh_shape_timings`) unless
     ``mesh_timings`` is False (``--no-timings``: the copies of
     ``--fault-readings``).
     Every check runs and prints its readings even when an earlier one
     failed; returns 1 when any failed."""
-    sources = ((("sw_step",) if "sw" in parts else ())
+    sources = ((("sw_step",) if {"sw", "elastic"} & set(parts) else ())
                + (FLASH_SOURCES
                   if set(parts) - {"sw", "ops", "proc", "mlp", "pp",
-                                   "serve"}
+                                   "serve", "elastic"}
                   else ()))
     if sources:
         build_phase(sources)
@@ -6010,6 +6414,7 @@ def run_checks(device, parts, mesh_timings=True):
         "moe": lambda: moe_phase(device, [], card_line()),
         "pp": lambda: pp_phase(device, [], card_line()),
         "serve": lambda: serve_phase(device, [], card_line()),
+        "elastic": lambda: elastic_phase(device, [], card_line()),
     }
     failed = []
     for part in parts:
@@ -6214,7 +6619,7 @@ def main(argv):
     if len(argv) in (2, 3) and argv[0] == "--check" and set(
             argv[1].split(",")) <= {"fwd", "bwd", "grad", "sw", "ops",
                                     "mesh", "proc", "mlp", "moe",
-                                    "pp", "serve"} and argv[2:] in (
+                                    "pp", "serve", "elastic"} and argv[2:] in (
             [], ["--no-timings"]):
         return run_checks(device, argv[1].split(","),
                           mesh_timings=argv[2:] == [])
@@ -6351,6 +6756,13 @@ def main(argv):
         f"leg)")
     serve_record = serve_phase(device, kernels, card)
 
+    log(f"phase fault tolerance (the flagship at {cfg.ny}x{cfg.nx}, ghost "
+        f"{cfg.ghost}, resumed from a checkpoint; a {RECOVER['ranks']}-rank "
+        f"--restarts 1 job; a {ELASTIC_RUN['ranks']}-rank --elastic rejoin "
+        f"job of run_elastic at d {ELASTIC_RUN['d']}, {ELASTIC_RUN['layers']} "
+        f"layers)")
+    elastic_record = elastic_phase(device, kernels, card)
+
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"path": path, "profile": profile,
                     "schedules": schedules, "multirank": multirank,
@@ -6363,6 +6775,7 @@ def main(argv):
                     "mesh_train": mesh_train, "mesh_decode": mesh_decode,
                     "proc": proc, "mlp_mesh": mlp_mesh, "moe": moe_record,
                     "pp": pp_record, "serve": serve_record,
+                    "elastic": elastic_record,
                     "copy_bytes_per_s": copy_rate, "ptxas": ptxas,
                     "nvcc_s": {name: _build.build_seconds(name)
                                for name in SOURCES},

@@ -4,6 +4,8 @@ equivalent.
     python -m mpi4jax_tpu_torch.launch -np 4 prog.py [args...]
     python -m mpi4jax_tpu_torch.launch -np 2 --platform cpu prog.py
     python -m mpi4jax_tpu_torch.launch -np 2 --serve --slo 2000 serve.py
+    python -m mpi4jax_tpu_torch.launch -np 2 --restarts 2 prog.py
+    python -m mpi4jax_tpu_torch.launch -np 4 --elastic rejoin prog.py
 
 The port's counterpart of ``mpi4jax_tpu/launch.py``.  It builds the
 native bridge once (``native/build.py``), then starts N worker processes
@@ -40,9 +42,27 @@ rank unless the environment chose (``off`` included), ``--slo MS`` sets
 ``--serve``); the program runs a ``mpi4jax_tpu_torch.serving`` engine
 (``benchmarks/serving.py`` is the reference loop).
 
-``--restarts``, ``--elastic`` and ``--autoscale`` come with ROADMAP
-Queue 1 item 19; ``--telemetry``, ``--metrics``, ``--autotune`` and
-``--shims`` with item 10.
+``--restarts N`` relaunches a failed job whole, up to N more times,
+each attempt with a fresh coordinator port and job id ("attempt k/N+1
+exited with code ...; restarting the job", "restart budget exhausted",
+"job succeeded on attempt k/N+1"); without it the output is the one
+attempt's.  Pair it with ``utils/checkpoint.py`` so that a relaunch
+resumes at the last saved step.
+
+``--elastic shrink|rejoin`` sets ``T4J_ELASTIC`` for every rank: a rank
+that dies is a shrink, not the job's end (the survivors' bridge agrees
+on the smaller world, ``native/runtime.py``), and no rank claims the
+first-failure file.  Under ``rejoin`` the launcher relaunches the dead
+slot alone while rank 0 runs (never rank 0, which owns the coordinator
+port) with ``T4J_REJOIN=1``, in the job's process group and under its
+deadline; the replacement skips the start-up rendezvous and joins the
+survivors at the next epoch.  The job succeeds when at least ``T4J_MIN_WORLD`` ranks
+finish cleanly, and the launcher prints the world's membership history
+(``boot(4) -> e1:shrink(3) -> e2:rejoin(4)``) and its final membership.
+
+``--autoscale`` comes with ROADMAP Queue 1 item 19's serving job;
+``--telemetry``, ``--metrics``, ``--autotune`` and ``--shims`` with item
+10.
 """
 
 import argparse
@@ -54,6 +74,8 @@ import sys
 import tempfile
 import time
 import uuid
+
+from mpi4jax_tpu_torch.utils import config
 
 __all__ = ["main", "child_main", "rank_device", "run_job"]
 
@@ -82,14 +104,15 @@ def rank_device():
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def run_job(n, prog_args, *, platform="cuda", timeout, flags=()):
+def run_job(n, prog_args, *, platform="cuda", timeout, flags=(), env=None):
     """Run ``python -m mpi4jax_tpu_torch.launch -np n --platform platform
     --timeout timeout *flags *prog_args`` from this checkout (its root on
-    ``PYTHONPATH``; ``flags`` such as ``("--serve",)``) and wait; returns
-    (exit code, stdout, stderr, seconds).  The launcher's deadline ends
-    the job; this call's, 60 s later, is the backstop."""
+    ``PYTHONPATH``; ``flags`` such as ``("--serve",)``, ``env`` extra
+    variables for the launcher and its ranks) and wait; returns (exit
+    code, stdout, stderr, seconds).  The launcher's deadline ends the
+    job; this call's, 60 s later, is the backstop."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
+    env = {**os.environ, **(env or {})}
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "mpi4jax_tpu_torch.launch", "-np", str(n),
            "--platform", platform, "--timeout", str(timeout),
@@ -108,9 +131,10 @@ def _rendezvous():
     host one rank's imports may take longer than that.  Each worker
     marks itself in the launcher's ``T4J_READY_DIR`` and polls for the
     others; the job's deadline and its fail-fast teardown bound the
-    wait.  Nothing to wait for outside the launcher."""
+    wait.  Nothing to wait for outside the launcher, nor for a rank
+    relaunched into an elastic job, whose peers are long past it."""
     ready = os.environ.get("T4J_READY_DIR")
-    if not ready:
+    if not ready or os.environ.get("T4J_REJOIN") == "1":
         return
     open(os.path.join(ready, os.environ["T4J_RANK"]), "w").close()
     size = int(os.environ["T4J_SIZE"])
@@ -144,7 +168,9 @@ def child_main(argv):
     except BaseException as e:
         code = e.code if isinstance(e, SystemExit) else None
         if not (isinstance(e, SystemExit) and code in (0, None)):
-            _report_first_failure(f"{type(e).__name__}: {e}")
+            if os.environ.get("T4J_ELASTIC") not in ("shrink", "rejoin"):
+                # in an elastic job a death is a shrink, not the job's end
+                _report_first_failure(f"{type(e).__name__}: {e}")
             # the MPI_Abort analog: the peers' blocked ops raise at once
             why = (f"rank {os.environ.get('T4J_RANK', '?')} died: "
                    f"{type(e).__name__}: {e}")
@@ -210,6 +236,8 @@ def _first_failure(path):
 
 
 def _run_job(args):
+    """One launch attempt in a fresh temporary directory (the ready
+    marks, the first-failure file)."""
     with tempfile.TemporaryDirectory(prefix="t4j-launch-") as tmp:
         ready = os.path.join(tmp, "ready")
         os.mkdir(ready)
@@ -224,8 +252,11 @@ def _run_workers(args, failure_file, ready_dir):
     env.update(T4J_SIZE=str(n), T4J_COORD=coord, T4J_JOB=job,
                T4J_PLATFORM=args.platform, T4J_FIRST_FAILURE=failure_file,
                T4J_READY_DIR=ready_dir)
+    env.pop("T4J_REJOIN", None)
     if args.platform == "cpu":
         env["CUDA_VISIBLE_DEVICES"] = ""
+    if args.elastic:
+        env["T4J_ELASTIC"] = args.elastic
     if args.serve:
         # admission on unless the environment chose (off included: the
         # uncontrolled-baseline arm of the benchmarks)
@@ -234,19 +265,37 @@ def _run_workers(args, failure_file, ready_dir):
             env["T4J_SLO_MS"] = str(args.slo)
         if args.max_batch is not None:
             env["T4J_MAX_BATCH"] = str(args.max_batch)
-    procs = []
     pgid = None
-    for rank in range(n):
+
+    def spawn(rank, rejoin=False):
+        nonlocal pgid
         cmd = [sys.executable, "-m", "mpi4jax_tpu_torch.launch", "--child",
                *args.prog]
-        # one new process group for the workers (the first one's pid)
-        procs.append(subprocess.Popen(cmd, env=dict(env, T4J_RANK=str(rank)),
-                                      process_group=pgid or 0))
+        rank_env = dict(env, T4J_RANK=str(rank))
+        if rejoin:
+            # a replacement re-bootstraps through rank 0's kept-open
+            # coordinator port, not the start-up rendezvous
+            rank_env["T4J_REJOIN"] = "1"
+        # one new process group for the workers (the first one's pid),
+        # relaunched ones included
+        proc = subprocess.Popen(cmd, env=rank_env, process_group=pgid or 0)
         if pgid is None:
-            pgid = procs[0].pid
+            pgid = proc.pid
+        return proc
+
+    procs = [spawn(rank) for rank in range(n)]
     exit_code = 0
     start = time.monotonic()
     torn_down = None
+    # the elastic job's membership as the launcher sees it: boot, then
+    # one epoch per shrink (a rank died) and per rejoin (its slot
+    # relaunched)
+    epoch = 0
+    members = n
+    history = [f"boot({n})"]
+    exited_ok = set()
+    last_bad_rc = None
+    relaunches = 0
 
     def tear_down(why):
         nonlocal torn_down
@@ -262,7 +311,36 @@ def _run_workers(args, failure_file, ready_dir):
                 if rc is None:
                     continue
                 remaining.discard(i)
-                if rc != 0 and exit_code == 0:
+                if rc == 0:
+                    exited_ok.add(i)
+                    continue
+                if args.elastic and exit_code == 0 and torn_down is None:
+                    # a dead rank is a shrink, not the job's end: the
+                    # survivors' bridge is agreeing on the smaller world
+                    last_bad_rc = rc
+                    epoch += 1
+                    members -= 1
+                    history.append(
+                        f"e{epoch}:shrink({members}) [rank {i} "
+                        f"{_describe_exit(rc)} at "
+                        f"+{time.monotonic() - start:.1f}s]")
+                    _say(f"rank {i} {_describe_exit(rc)} — elastic "
+                         f"{args.elastic}: {len(remaining)} rank(s) continue")
+                    if args.elastic == "rejoin" and i != 0 \
+                            and 0 in remaining and relaunches < n:
+                        # only the dead slot, and only while rank 0 runs:
+                        # it owns the coordinator port a replacement dials
+                        relaunches += 1
+                        epoch += 1
+                        members += 1
+                        history.append(f"e{epoch}:rejoin({members}) "
+                                       f"[rank {i} relaunched]")
+                        _say(f"relaunching rank {i} as a rejoin "
+                             f"replacement ({relaunches} so far)")
+                        procs[i] = spawn(i, rejoin=True)
+                        remaining.add(i)
+                    continue
+                if exit_code == 0:
                     exit_code = _job_exit_code(rc)
                     first = _first_failure(failure_file)
                     named = ("" if first is None else
@@ -287,7 +365,42 @@ def _run_workers(args, failure_file, ready_dir):
         _signal_group(pgid, signal.SIGINT)
         for p in procs:
             p.wait()
-        exit_code = 130
+        return 130
+    if args.elastic:
+        floor = config.min_world()
+        if exit_code == 0 and len(exited_ok) < floor:
+            # below the floor the world did not survive; the nonzero
+            # code is what --restarts relaunches the whole job on
+            exit_code = _job_exit_code(last_bad_rc)
+            _say(f"only {len(exited_ok)} rank(s) finished cleanly — below "
+                 f"T4J_MIN_WORLD={floor}; the elastic world did not survive")
+        final = sorted(exited_ok)
+        _say("world membership history: " + " -> ".join(history))
+        _say(f"final world membership: {len(final)}/{n} rank(s) "
+             f"[{', '.join(str(r) for r in final)}] after {epoch} "
+             "membership epoch(s)")
+    return exit_code
+
+
+def _run_attempts(args):
+    """The job, relaunched whole up to ``--restarts`` times while it
+    fails (Ctrl-C ends it); without ``--restarts`` the output is the one
+    attempt's."""
+    attempts = args.restarts + 1
+    for attempt in range(1, attempts + 1):
+        exit_code = _run_job(args)
+        if exit_code in (0, 130):
+            break
+        if attempt < attempts:
+            _say(f"attempt {attempt}/{attempts} exited with code "
+                 f"{exit_code}; restarting the job ({attempts - attempt} "
+                 "restart(s) left)")
+        elif args.restarts:
+            _say(f"attempt {attempt}/{attempts} exited with code "
+                 f"{exit_code}; restart budget exhausted (--restarts "
+                 f"{args.restarts})")
+    if args.restarts and exit_code == 0 and attempt > 1:
+        _say(f"job succeeded on attempt {attempt}/{attempts}")
     return exit_code
 
 
@@ -302,6 +415,22 @@ def main(argv=None):
         "--timeout", type=float, default=None, metavar="SECONDS",
         help="whole-job deadline: past it the workers are torn down and "
         "the launcher exits 124, naming the ranks still running")
+    parser.add_argument(
+        "--restarts", type=int, default=0, metavar="N",
+        help="bounded auto-relaunch: a job exiting nonzero (other than "
+        "Ctrl-C) is relaunched up to N more times with a fresh "
+        "coordinator and job id; pair it with utils/checkpoint.py so the "
+        "relaunch resumes at the last saved step")
+    parser.add_argument(
+        "--elastic", choices=("shrink", "rejoin"), default=None,
+        metavar="MODE",
+        help="elastic membership: a dead rank no longer ends the job; the "
+        "survivors agree on a smaller world and go on (shrink), and with "
+        "rejoin the launcher relaunches only the dead slot (T4J_REJOIN=1), "
+        "which joins again at the next epoch.  Sets T4J_ELASTIC for every "
+        "rank; T4J_MIN_WORLD floors the shrink, and the job succeeds when "
+        "at least that many ranks finish cleanly.  With --restarts the "
+        "whole job is relaunched only when it failed")
     parser.add_argument(
         "--serve", action="store_true",
         help="serving-job wiring (docs/serving.md): T4J_ADMIT=on for every "
@@ -331,6 +460,13 @@ def main(argv=None):
     if args.timeout is not None and args.timeout <= 0:
         parser.error("--timeout must be > 0 seconds (omit it for no "
                      "deadline)")
+    if args.restarts < 0:
+        parser.error("--restarts must be >= 0")
+    if args.elastic:
+        try:
+            config.min_world()
+        except ValueError as e:
+            parser.error(str(e))
     if args.slo is not None and not args.serve:
         parser.error("--slo requires --serve (it sets the serving "
                      "engine's T4J_SLO_MS)")
@@ -343,7 +479,7 @@ def main(argv=None):
     from mpi4jax_tpu_torch.native import build
 
     build.ensure_built()  # once, before the ranks' bootstrap deadline
-    return _run_job(args)
+    return _run_attempts(args)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ runs the chunk eagerly); on the CPU it is a Python loop.
 """
 
 import math
+import pathlib
 import time
 from dataclasses import dataclass, fields, replace
 from typing import NamedTuple
@@ -773,42 +774,96 @@ def _capture(chunk, comm, state, multi, num_steps):
     return graph, static
 
 
-def make_solver(cfg, comm, num_multisteps=10, on_chunk=None, *,
-                device="cuda"):
+def make_solver(cfg, comm, num_multisteps=10, on_chunk=None,
+                checkpoint_dir=None, checkpoint_every=1, *, device="cuda"):
     """Full driver: init -> bootstrap step -> repeated multistep chunks.
 
     Returns ``solve(t1_seconds) -> (state, wall_seconds, n_steps)``.
     The wall time covers only the hot loop after one warm-up chunk, and
     ``n_steps`` counts the steps timed (the JAX package's contract).
-    At least one chunk is timed even when the warm-up already passed
-    ``t1``.  ``on_chunk(state, t_seconds)``, if given, runs after every
-    chunk (the warm-up one included) and its time counts in the wall
-    clock.  The chunks run through ``make_multistep(..., donate=True)``
-    (on the card: the warm-up chunk eagerly, then graph replays), which
-    ``solve.multistep`` holds; so on the card the state ``on_chunk``
-    sees is overwritten by the next chunk, and a callback copies what it
-    keeps.
+    At least one chunk is timed on a fresh run even when the warm-up
+    already passed ``t1``.  ``on_chunk(state, t_seconds)``, if given,
+    runs after every chunk (the warm-up one included) and its time
+    counts in the wall clock.  The chunks run through
+    ``make_multistep(..., donate=True)`` (on the card: the warm-up chunk
+    eagerly, then graph replays), which ``solve.multistep`` holds; so on
+    the card the state ``on_chunk`` sees is overwritten by the next
+    chunk, and a callback copies what it keeps.
+
+    ``checkpoint_dir`` makes runs resumable: every ``checkpoint_every``
+    chunks the state and the model time (a float64) are saved through
+    :mod:`mpi4jax_tpu_torch.utils.checkpoint` (a host copy, taken before
+    the next chunk overwrites the state), and a fresh ``solve`` in the
+    same directory resumes from the latest checkpoint instead of
+    initialising: no warm-up chunk, and a run that already reached
+    ``t1`` returns the restored state with ``n_steps == 0`` and saves
+    nothing.  A comm of one rank keeps the series in ``checkpoint_dir``
+    itself (step ``s`` in ``<dir>/<s>``); on a comm of several ranks
+    each rank keeps its own block's series in ``<dir>/rank<r>``, and the
+    ranks resume from the lowest of their latest steps (a MIN
+    allreduce), which every rank still holds.  Save time counts in the
+    wall clock, so do not combine it with benchmark timing.
     """
     init = make_init(cfg, comm, device=device)
     first = make_first_step(cfg, comm)
     multi = make_multistep(cfg, comm, num_multisteps, donate=True)
+    device = resolve_device(device)
+
+    def restore_latest(mgr):
+        """``(chunk, state, t)`` of the latest checkpoint every rank
+        holds, or None."""
+        latest = mgr.latest_step()
+        if comm.size > 1:
+            mine = torch.tensor([-1 if latest is None else latest],
+                                dtype=torch.int64, device=device)
+            agreed, _ = allreduce(mine, reductions.MIN, comm=comm)
+            latest = int(agreed[0])
+            latest = None if latest < 0 else latest
+        if latest is None:
+            return None
+        ny_l, nx_l = cfg.local_interior(comm)
+        G = cfg.ghost
+        field = torch.empty((ny_l + 2 * G, nx_l + 2 * G),
+                            dtype=torch_dtype(cfg), device=device)
+        like = {"state": SWState(*(field,) * 6), "t": np.float64(0.0)}
+        restored = mgr.restore(latest, like=like)
+        return latest, restored["state"], float(restored["t"])
 
     def solve(t1):
-        state = first(init())
-        t = cfg.dt
-        state = multi(state)  # warm-up chunk (kernel builds, capture)
-        t += cfg.dt * num_multisteps
+        mgr = None
+        if checkpoint_dir is not None:
+            from mpi4jax_tpu_torch.utils import checkpoint
+
+            series = pathlib.Path(checkpoint_dir)
+            if comm.size > 1:
+                series = series / f"rank{comm.rank()}"
+            mgr = checkpoint.Manager(series)
+        resumed = None if mgr is None else restore_latest(mgr)
+        if resumed is not None:
+            chunk, state, t = resumed
+        else:
+            chunk = 0
+            state = first(init())
+            t = cfg.dt
+            state = multi(state)  # warm-up chunk (kernel builds, capture)
+            t += cfg.dt * num_multisteps
         drain(state.h)
         if on_chunk is not None:
             on_chunk(state, t)
         steps = 0
         start = time.perf_counter()
-        while t < t1 or steps == 0:
+        # a resumed run times no chunk past t1: rerunning a finished run
+        # must not push the trajectory (and its checkpoints) on
+        while t < t1 or (steps == 0 and resumed is None):
             state = multi(state)
             t += cfg.dt * num_multisteps
             steps += num_multisteps
+            chunk += 1
             if on_chunk is not None:
                 on_chunk(state, t)
+            if mgr is not None:
+                mgr.maybe_save(chunk, {"state": state, "t": np.float64(t)},
+                               every=checkpoint_every)
         drain(state.h)
         wall = time.perf_counter() - start
         return state, wall, steps

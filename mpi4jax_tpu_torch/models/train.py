@@ -1,9 +1,7 @@
 """Distributed training steps of an MLP: data parallel, tensor parallel
 and ZeRO.
 
-The port's counterpart of ``mpi4jax_tpu/models/train.py`` (all of it
-but ``run_elastic``, which needs the launcher's ``--elastic``, ROADMAP
-Queue 1 item 19):
+The port's counterpart of ``mpi4jax_tpu/models/train.py``:
 
 * :func:`make_train_step`, :func:`make_global_train_step` and
   :func:`make_global_zero_train_step`: a two-layer MLP with its hidden
@@ -20,6 +18,9 @@ Queue 1 item 19):
 * :func:`make_dp_train_step`: pure data parallelism for the proc tier,
   every rank holding the full parameters, with the gradient sync in
   buckets that overlap the backward.
+* :func:`run_elastic`: the dp step in a loop that survives rank deaths
+  and rejoins under the launcher's ``--elastic``, resuming from per-rank
+  checkpoints.
 
 The steps return new parameters and leave the caller's untouched.
 Parameters come from :func:`init_params` / :func:`init_stack_params`
@@ -49,6 +50,7 @@ __all__ = [
     "make_global_train_step",
     "make_global_zero_train_step",
     "make_dp_train_step",
+    "run_elastic",
 ]
 
 
@@ -458,3 +460,168 @@ def make_dp_train_step(comm, lr=1e-2, overlap=True, bucket_bytes=None,
         )
 
     return step
+
+
+# -- the elastic training loop ----------------------------------------------
+
+
+def _resize_interrupted(exc):
+    """True for an op failure caused by an elastic resize: the bridge's
+    ``ResizeInterrupted`` status (an op drained mid-resize) or an op on a
+    handle of the old world."""
+    s = str(exc)
+    return ("ResizeInterrupted" in s or "world resize" in s
+            or "not a member of the current world" in s)
+
+
+def _keyed_stack_params(key, layers, d, device):
+    """The JAX package's ``init_stack_params(key, layers, d)`` drawn with
+    ``utils/prng.py`` (JAX's key schedule and uniform bits; the normal's
+    inverse error function is PyTorch's)."""
+    from mpi4jax_tpu_torch.utils import prng
+
+    keys = prng.split(key, layers + 1)
+    scale = (2.0 / d) ** 0.5
+    return StackParams(
+        layers=tuple((prng.normal(keys[i], (d, d)) * scale,
+                      torch.zeros((d,), dtype=torch.float32, device=device))
+                     for i in range(layers)),
+        w_out=prng.normal(keys[-1], (d, d)) * scale,
+    )
+
+
+def run_elastic(nsteps, checkpoint_dir, *, d=32, layers=2, batch=4,
+                lr=1e-2, save_every=2, seed=0, log=print, device="cuda"):
+    """The elastic data-parallel training loop of a launcher job run with
+    ``--elastic shrink|rejoin``: the job survives rank deaths, and grows
+    back under ``rejoin``, instead of restarting.
+
+    1. Every rank checkpoints its (replicated) parameters into its own
+       :class:`~mpi4jax_tpu_torch.utils.checkpoint.Manager` series,
+       ``<checkpoint_dir>/rank<r>``, every ``save_every`` steps and at
+       the last.
+    2. At entry and after every resize the members agree on the resume
+       point, the MIN of their latest saved steps (ranks may have died
+       between saves, and a rejoined rank inherits its predecessor's
+       series), and everyone restores it.
+    3. A membership change mid-step surfaces as an op failure carrying
+       the bridge's ``ResizeInterrupted`` status or as
+       :class:`~mpi4jax_tpu_torch.WorldResized` at the next op.  The loop
+       waits the resize out, calls ``runtime.refresh_after_resize``,
+       rebuilds the comm over the members and the step
+       (``make_dp_train_step(comm, lr=lr, overlap=False)``) and resumes
+       at the agreed step.  The recovery runs through pending flags, so a
+       second resize during it (a rejoin right after a shrink) is
+       harmless.
+
+    The template is the JAX package's ``init_stack_params(PRNGKey(seed),
+    layers, d)`` and step ``i``'s batch on member ``c`` is drawn from
+    ``fold_in(PRNGKey(seed), 1009 * i + c)``, as in JAX's loop, through
+    ``utils/prng.py``, on ``device`` (the card unless ``"cpu"``).  Losses
+    after a shrink differ from the full world's (fewer micro-batches a
+    step).  Returns ``{"resizes", "final_world", "final_epoch",
+    "last_step", "losses"}``.
+    """
+    from mpi4jax_tpu_torch.native import runtime
+    from mpi4jax_tpu_torch.native.runtime import WorldResized
+    from mpi4jax_tpu_torch.parallel.proc import world_comm_if_initialized
+    from mpi4jax_tpu_torch.utils import checkpoint, prng
+
+    device = resolve_device(device)
+    runtime.ensure_initialized()
+    comm = world_comm_if_initialized()
+    if comm is None:
+        raise RuntimeError(
+            "run_elastic needs a multi-process world "
+            "(python -m mpi4jax_tpu_torch.launch -np N --elastic shrink ...)")
+    rank = runtime.world_rank()
+    mgr = checkpoint.Manager(f"{checkpoint_dir}/rank{rank}", max_to_keep=5)
+    root = prng.raw_key([0, seed], device)
+
+    def template():
+        return _keyed_stack_params(root, layers, d, device)
+
+    def build(c):
+        return make_dp_train_step(c, lr=lr, overlap=False)
+
+    def batch_for(i, c):
+        # one stream per (step, member index): the partition follows the
+        # membership
+        k = prng.fold_in(root, 1009 * i + c.rank())
+        return (prng.normal(k, (batch, d)),
+                prng.normal(prng.fold_in(k, 1), (batch, d)))
+
+    def sync_start(c):
+        """The agreed resume point: ``(params, first step)``."""
+        mgr.wait_until_finished()
+        local = mgr.latest_step()
+        mine = torch.tensor([-1 if local is None else local],
+                            dtype=torch.int32, device=device)
+        agreed, _ = allreduce(mine, reductions.MIN, comm=c,
+                              token=create_token())
+        agreed = int(agreed[0])
+        if agreed < 0:
+            return template(), 0
+        return mgr.restore(agreed, like=template()), agreed + 1
+
+    step = build(comm)
+    resizes = 0
+    epoch = (runtime.world_info() or {}).get("epoch", 0)
+    losses = []
+    params = None
+    i = 0
+    pending_rebuild = False
+    pending_sync = True
+    while pending_rebuild or pending_sync or i < nsteps:
+        try:
+            if pending_rebuild:
+                runtime.refresh_after_resize()
+                comm = world_comm_if_initialized()
+                step = build(comm)
+                pending_rebuild = False
+                pending_sync = True
+            if pending_sync:
+                params, i = sync_start(comm)
+                pending_sync = False
+                continue
+            params, loss = step(params, batch_for(i, comm))
+            losses.append(float(loss))
+            if save_every and (i % save_every == 0 or i == nsteps - 1):
+                mgr.save(i, params)
+            i += 1
+        except WorldResized as w:
+            resizes += 1
+            epoch = w.epoch
+            pending_rebuild = True
+            log(f"t4j elastic: world now {len(w.new_world)} member(s) at "
+                f"epoch {w.epoch} — resuming from the last agreed "
+                "checkpoint", flush=True)
+        except Exception as e:  # noqa: BLE001 (only a resize's passes)
+            if not _resize_interrupted(e):
+                raise
+            runtime.resize_wait()
+            info = runtime.world_info() or {}
+            if info.get("epoch", epoch) == epoch and not pending_rebuild:
+                # settled with no new epoch: the runtime still owes a
+                # WorldResized, or the resize became a fault
+                try:
+                    runtime.check_health()
+                except WorldResized as w:
+                    resizes += 1
+                    epoch = w.epoch
+                    pending_rebuild = True
+                    continue
+                raise
+            resizes += 1
+            epoch = info.get("epoch", epoch)
+            pending_rebuild = True
+            log(f"t4j elastic: step {i} interrupted by a resize (epoch "
+                f"{epoch}) — rebuilding", flush=True)
+    info = runtime.world_info() or {}
+    return {
+        "resizes": resizes,
+        "final_world": comm.size,
+        "final_epoch": int(info.get("epoch", epoch)),
+        "last_step": i - 1,
+        "losses": losses,
+    }

@@ -18,10 +18,17 @@ The async engine (``host_i*``, :func:`host_wait`, :func:`host_test`)
 takes the same raw pointers: a registry holds each request's input and
 output tensors until its wait, since the bridge's progress thread reads
 and writes them after the submit returns.  Requests never waited are
-reported on stderr at :func:`finalize`.  Telemetry and the flight
-recorder come with ROADMAP Queue 1 item 10; the wire info surfaces and
-the resize API with item 19.  :func:`link_stats` (the self-healing
-transport's counters) is here for serving admission's fabric poll.
+reported on stderr at :func:`finalize`.
+
+Elastic membership (``T4J_ELASTIC=shrink|rejoin``, the launcher's
+``--elastic``): after a resize the next op raises :class:`WorldResized`;
+the program waits out a resize in flight (:func:`resize_wait`), drops
+the old world's handles (:func:`refresh_after_resize`) and rebuilds its
+comms over :func:`alive_ranks` (``models/train.py:run_elastic`` is the
+template).  Telemetry, the flight recorder and the tuning cache come
+with ROADMAP Queue 1 item 10, the wire info surfaces with item 19.
+:func:`link_stats` (the self-healing transport's counters) is here for
+serving admission's fabric poll.
 """
 
 import atexit
@@ -44,6 +51,10 @@ __all__ = [
     "world_size",
     "world_info",
     "alive_ranks",
+    "effective_world_size",
+    "resize_wait",
+    "refresh_after_resize",
+    "set_elastic",
     "topology",
     "link_stats",
     "comm_handle",
@@ -374,6 +385,23 @@ def set_resilience(retry_max=None, backoff_base_s=None, backoff_max_s=None,
         -1 if replay_bytes is None else int(replay_bytes))
 
 
+def set_elastic(mode=None, min_world=None, resize_timeout_s=None):
+    """The elastic-membership knobs: ``mode`` ``"off"`` (a dead rank
+    ends the job), ``"shrink"`` (the survivors agree on a smaller world
+    and go on) or ``"rejoin"`` (shrink, and rank 0 keeps the bootstrap
+    port open for relaunched ranks); ``min_world`` the survivor floor,
+    ``resize_timeout_s`` the bound of each resize phase.  None keeps a
+    value.  Before init, uniform across ranks (the launcher's
+    ``--elastic`` sets ``T4J_ELASTIC`` for every rank)."""
+    if mode is not None and str(mode) not in _ELASTIC_MODES:
+        raise ValueError(f"cannot interpret elastic mode {mode!r} "
+                         "(want off|shrink|rejoin)")
+    _load().t4j_set_elastic(
+        -1 if mode is None else _ELASTIC_MODES[str(mode)],
+        0 if min_world is None else int(min_world),
+        -1.0 if resize_timeout_s is None else float(resize_timeout_s))
+
+
 def _uring_supported(lib):
     mode, supported, active = (ctypes.c_int32(0) for _ in range(3))
     lib.t4j_wire_backend_info(ctypes.byref(mode), ctypes.byref(supported),
@@ -387,7 +415,8 @@ def _uring_supported(lib):
 def world_info():
     """The live membership, or None before init: ``{"epoch",
     "boot_size", "alive_count", "alive_mask", "resizing",
-    "stale_frames"}``; epoch 0 is the bootstrap world."""
+    "stale_frames"}``; epoch 0 is the bootstrap world and each committed
+    resize adds one."""
     lib = _state["lib"]
     if lib is None or not lib.t4j_initialized():
         return None
@@ -423,6 +452,41 @@ def alive_ranks():
     return _mask_ranks(info["alive_mask"], info["boot_size"])
 
 
+def effective_world_size():
+    """The current member count: :func:`world_size` until a resize
+    changes the membership."""
+    info = world_info()
+    if info is None:
+        return world_size()
+    return info["alive_count"]
+
+
+def resize_wait(timeout_s=None):
+    """Block until no elastic resize is in flight; True when settled.
+    ``None`` waits twice ``T4J_RESIZE_TIMEOUT`` plus 10 s: a resize that
+    cannot finish in that time posts a fault anyway."""
+    lib = _state["lib"]
+    if lib is None or not lib.t4j_initialized():
+        return True
+    if timeout_s is None:
+        timeout_s = 2 * config.resize_timeout() + 10.0
+    return bool(lib.t4j_resize_wait(float(timeout_s)))
+
+
+def refresh_after_resize():
+    """Re-resolve this process's view of the substrate after a resize:
+    drop the old world's comm handles and pass the coalescing gate down
+    again.  Local, no collective: the port runs no tuning resolution at
+    init (the JAX package re-runs its collective ``tuning.startup`` here,
+    paired with the one in a rejoined rank's init; both come with ROADMAP
+    Queue 1 item 10)."""
+    from mpi4jax_tpu_torch import tuning
+
+    _state["comm_cache"].clear()
+    if is_initialized():
+        set_coalesce(tuning.coalesce_bytes())
+
+
 def _check_world_epoch(lib):
     """Raise :class:`WorldResized` when the membership changed since the
     last check (the comm handles of the old world dropped first); an
@@ -431,7 +495,7 @@ def _check_world_epoch(lib):
     if info is None:
         return
     if info["resizing"]:
-        lib.t4j_resize_wait(2 * config.resize_timeout() + 10.0)
+        resize_wait()
         info = world_info()
         if info is None:
             return
@@ -538,10 +602,12 @@ def ensure_initialized():
     this process is not a rank of one.
 
     Every knob of ``utils/config.py`` is read and checked first (a bad
-    value, or an elastic mode other than ``off``, raises ``ValueError``
-    before the library is built), then passed down, then the bridge
-    bootstraps; a failed bootstrap raises :class:`BridgeError`.
-    ``finalize`` runs at exit."""
+    value, an elastic mode with ``T4J_RETRY_MAX=0`` or
+    ``T4J_AUTOSCALE=on`` raises ``ValueError`` before the library is
+    built), then passed down, then the bridge bootstraps: a rank
+    relaunched into an elastic job (``T4J_REJOIN=1``) joins the
+    survivors through rank 0's kept-open port.  A failed bootstrap
+    raises :class:`BridgeError`.  ``finalize`` runs at exit."""
     if is_initialized():
         return True
     if not available():
@@ -569,13 +635,13 @@ def ensure_initialized():
     elastic = config.elastic_mode()
     world_floor = config.min_world()
     resize_s = config.resize_timeout()
-    if elastic != "off":
+    if elastic != "off" and retry == 0:
         raise ValueError(
-            f"T4J_ELASTIC={elastic}: the port's launcher is fail-fast "
-            "(the first failed rank ends the job), so no rank would "
-            "survive to resize; elastic jobs come with the launcher's "
-            "--elastic and the resize API (ROADMAP Queue 1 item 19) — "
-            "unset T4J_ELASTIC or set it to off"
+            f"T4J_ELASTIC={elastic} requires T4J_RETRY_MAX > 0: the "
+            "elastic rung triggers when the self-healing ladder's "
+            "escalation declares a rank unrecoverable, and "
+            "T4J_RETRY_MAX=0 disables that ladder entirely "
+            "(docs/failure-semantics.md \"elastic membership\")"
         )
     # the serving knobs act in the Python serving tier after init; they
     # are checked here, before anything is built, as the JAX package's
@@ -592,9 +658,9 @@ def ensure_initialized():
     if config.autoscale_mode() == "on":
         raise ValueError(
             "T4J_AUTOSCALE=on: growing the serving world admits relaunched "
-            "ranks into an elastic job, which the port's fail-fast "
-            "launcher does not run yet (--elastic rejoin and the "
-            "autoscale wiring come with ROADMAP Queue 1 item 19) — "
+            "ranks into the serving engine's elastic epochs, which the "
+            "port does not run yet (the autoscale wiring and the "
+            "launcher's --autoscale come with ROADMAP Queue 1 item 19) — "
             "unset T4J_AUTOSCALE or set it to off"
         )
     lib = _load()
@@ -613,7 +679,7 @@ def ensure_initialized():
         )
     lib.t4j_set_hier(_HIER_MODES[hier], hier_min)
     lib.t4j_set_resilience(retry, boff_base, boff_max, replay)
-    lib.t4j_set_elastic(_ELASTIC_MODES[elastic], world_floor, resize_s)
+    set_elastic(elastic, world_floor, resize_s)
     if lib.t4j_init() != 0:
         raise BridgeError(last_error()
                           or "native bridge init failed (check T4J_* env)")

@@ -183,7 +183,7 @@ class ServingEngine:
             raise ValueError(
                 "T4J_REJOIN=1: a rank joining a serving epoch rebuilds "
                 "its mirror from the leader's plan log, which comes with "
-                f"the port's elastic jobs ({ITEM_19})"
+                f"serving's elastic epochs ({ITEM_19})"
             )
         self.device = resolve_device(device)
         self.comm = comm

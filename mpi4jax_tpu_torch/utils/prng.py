@@ -4,10 +4,12 @@ The decoder's categorical sampler draws the same tokens as the JAX
 package's, so it needs ``jax.random``'s bits, not a ``torch.Generator``'s.
 This module reproduces, bit for bit, the default implementation of the
 installed JAX (``jax/_src/prng.py``, ``jax/_src/random.py``): the
-threefry-2x32 hash, ``fold_in``, ``random_bits`` in its partitionable
-form (``jax_threefry_partitionable=True``, the default since JAX 0.5),
-``uniform`` and ``gumbel`` in float32 (the "low" dynamic-range mode, the
-default), and ``categorical`` with replacement.
+threefry-2x32 hash, ``fold_in``, ``split`` and ``random_bits`` in their
+partitionable form (``jax_threefry_partitionable=True``, the default
+since JAX 0.5), ``uniform`` and ``gumbel`` in float32 (the "low"
+dynamic-range mode, the default), ``categorical`` with replacement, and
+``normal`` in float32, whose uniform bits are JAX's and whose inverse
+error function is PyTorch's (a few float32 ulps from XLA's).
 
 A key is JAX's legacy key, ``uint32[2]``: ``jax.random.PRNGKey(s)`` is
 ``[0, s]`` for ``0 <= s < 2**32``.  Keys are carried as int64 tensors
@@ -20,8 +22,8 @@ be batched: a key tensor of shape ``(..., 2)`` gives one result per key.
 import numpy as np
 import torch
 
-__all__ = ["raw_key", "threefry2x32", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical"]
+__all__ = ["raw_key", "threefry2x32", "fold_in", "split", "random_bits",
+           "uniform", "normal", "gumbel", "categorical"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -89,17 +91,33 @@ def fold_in(key, data):
     return torch.stack([y1, y2], dim=-1)
 
 
+def _counts(shape, device):
+    """The flat index of each element of ``shape`` as the two 32-bit
+    words of a 64-bit count (``iota_2x32_shape``)."""
+    n = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
+                     device=device).reshape(shape)
+    return n >> 32, n & MASK
+
+
+def split(key, num=2):
+    """``jax.random.split(key, num)`` (partitionable form): key ``n`` is
+    the hash of the count ``n``, both words kept.  ``key``: ``(2,)``;
+    returns ``(num, 2)``."""
+    c1, c2 = _counts((int(num),), key.device)
+    y1, y2 = threefry2x32(key[0], key[1], c1, c2)
+    return torch.stack([y1, y2], dim=-1)
+
+
 def random_bits(key, shape):
     """``jax.random.bits(key, shape, uint32)`` (partitionable form): for
     each flat index n of ``shape``, the hash of the count ``(n >> 32,
     n & 0xffffffff)``, its two words xor-ed.  ``key``: ``(..., 2)``;
     returns int64 words of shape ``key.shape[:-1] + shape``."""
     shape = tuple(shape)
-    n = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
-                     device=key.device).reshape(shape)
+    c1, c2 = _counts(shape, key.device)
     lead = tuple(key.shape[:-1]) + (1,) * len(shape)
     k1, k2 = key[..., 0].reshape(lead), key[..., 1].reshape(lead)
-    y1, y2 = threefry2x32(k1, k2, n >> 32, n & MASK)
+    y1, y2 = threefry2x32(k1, k2, c1, c2)
     return y1 ^ y2
 
 
@@ -111,6 +129,14 @@ def uniform(key, shape, minval=0.0, maxval=1.0):
     bits = (random_bits(key, shape) >> (32 - _NMANT)) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return (floats * float(hi - lo) + float(lo)).clamp_min(float(lo))
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erfinv(u)`` of a uniform ``u`` on ``[nextafter(-1, 0), 1)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = uniform(key, shape, lo, 1.0)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
 
 
 def gumbel(key, shape):

@@ -9,8 +9,12 @@ spawned:
   (2, 2), (2, 4), (1, 8) and (3, 2), periodic and not, from every rank,
   and ``ProcComm.split`` with ragged groups;
 * the launcher's ``_describe_exit`` and ``_job_exit_code``, its
-  start-up rendezvous, and a bootstrap failure claiming the job's
-  first-failure file;
+  start-up rendezvous, a bootstrap failure claiming the job's
+  first-failure file, and ``--restarts``'s loop (its lines and exit
+  code) and parse errors with ``--elastic``'s, word for word as the JAX
+  launcher's;
+* ``T4J_ELASTIC=shrink|rejoin`` reaching the (stubbed) bridge with the
+  JAX package's codes;
 * the port's bridge, built with g++ from ``dcn.cc``, ``shm.cc`` and the
   port's C shim: every symbol the port's runtime binds is in it, with
   the JAX package's ctypes signature, and no XLA handler is.
@@ -255,20 +259,53 @@ def test_world_comm_needs_a_job():
         tproc.grid_comm((2, 2))
 
 
+class _StubBridge:
+    """A bridge library that records its knob calls and fails its init,
+    so ``ensure_initialized`` runs its checks and passes every knob down
+    without building or joining anything."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 1 if name == "t4j_init" else 0
+
+        return call
+
+
 @pytest.mark.parametrize("mode", ["shrink", "rejoin"])
 def test_elastic_modes_refused_before_the_build(mode, monkeypatch):
-    # the knob parses as the JAX package's, but the fail-fast launcher
-    # has no elastic job to run it in: init refuses it, building nothing
+    # the launcher's --elastic runs an elastic job now: init accepts the
+    # mode and passes it down with the JAX package's code, the floor and
+    # the resize bound (the stubbed bridge then fails its init); what is
+    # still refused before anything is loaded is elastic without the
+    # self-healing ladder and a mode that is not one
     monkeypatch.setenv("T4J_RANK", "0")
     monkeypatch.setenv("T4J_SIZE", "2")
     monkeypatch.setenv("T4J_ELASTIC", mode)
     monkeypatch.setenv("T4J_RETRY_MAX", "3")
-    monkeypatch.setattr(tbuild, "ensure_built", lambda: pytest.fail(
-        "the bridge was built for a refused knob"))
+    monkeypatch.setenv("T4J_MIN_WORLD", "2")
+    monkeypatch.setenv("T4J_RESIZE_TIMEOUT", "12.5")
+    lib = _StubBridge()
+    monkeypatch.setattr(truntime, "_load", lambda: lib)
     assert jconfig.elastic_mode() == tconfig.elastic_mode() == mode
-    with pytest.raises(ValueError, match="item 19"):
+    with pytest.raises(truntime.BridgeError, match="init failed"):
         truntime.ensure_initialized()
-
+    assert lib.calls["t4j_set_elastic"] == (
+        jruntime._ELASTIC_MODES[mode], 2, 12.5)
+    assert "t4j_init" in lib.calls
+    # elastic needs the self-healing ladder, as in the JAX package; a
+    # bad mode raises before anything is loaded
+    monkeypatch.setenv("T4J_RETRY_MAX", "0")
+    with pytest.raises(ValueError, match="T4J_RETRY_MAX > 0"):
+        truntime.ensure_initialized()
+    monkeypatch.setenv("T4J_ELASTIC", "bogus")
+    monkeypatch.setattr(truntime, "_load", lambda: pytest.fail(
+        "the bridge was loaded for a refused knob"))
+    with pytest.raises(ValueError, match="T4J_ELASTIC"):
+        truntime.ensure_initialized()
 
 
 @pytest.mark.parametrize("rc", [None, 0, 1, 2, 124, 255, -2, -6, -9, -15,
@@ -300,6 +337,44 @@ def test_launcher_serve_parse_errors_match_jax(argv, capsys, monkeypatch):
         "the launcher built the bridge for a refused command line"))
     assert _parse_error(tlaunch.main, argv, capsys) == \
         _parse_error(jlaunch.main, argv, capsys)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-np", "2", "--restarts", "-1", "prog.py"],
+    ["-np", "2", "--restarts", "two", "prog.py"],
+    ["-np", "2", "--elastic", "grow", "prog.py"],
+])
+def test_launcher_fault_tolerance_parse_errors_match_jax(argv, capsys,
+                                                         monkeypatch):
+    monkeypatch.setattr(tbuild, "ensure_built", lambda: pytest.fail(
+        "the launcher built the bridge for a refused command line"))
+    assert _parse_error(tlaunch.main, argv, capsys) == \
+        _parse_error(jlaunch.main, argv, capsys)
+
+
+def _attempt_lines(launcher, restarts, codes, capsys, monkeypatch):
+    """The launcher's exit code and its stderr lines (prefix dropped) for
+    a job whose attempts exit with ``codes`` in turn."""
+    codes = list(codes)
+    monkeypatch.setattr(launcher, "_run_job", lambda args: codes.pop(0))
+    monkeypatch.setattr(tbuild, "ensure_built", lambda: None)
+    rc = launcher.main(["-np", "2", "--restarts", str(restarts), "prog.py"])
+    lines = [line.split(": ", 1)[1]
+             for line in capsys.readouterr().err.splitlines()]
+    return rc, lines, codes
+
+
+@pytest.mark.parametrize("restarts,codes", [
+    (2, [17, 0]), (1, [9, 9]), (0, [3]), (0, [0]), (2, [130]),
+    (3, [5, 6, 0]), (2, [1, 1, 1]),
+])
+def test_launcher_restart_loop_matches_jax(restarts, codes, capsys,
+                                           monkeypatch):
+    # the attempt, budget and success lines, word for word, and the exit
+    # code: the last attempt's, Ctrl-C (130) ending the loop
+    port = _attempt_lines(tlaunch, restarts, codes, capsys, monkeypatch)
+    jax_ = _attempt_lines(jlaunch, restarts, codes, capsys, monkeypatch)
+    assert port == jax_
 
 
 @pytest.mark.parametrize("flags,ambient,want", [
